@@ -1,0 +1,88 @@
+"""Build the package's CUDA sources with ``nvcc`` and load them with ctypes.
+
+Each ``csrc/<name>.cu`` exposes a plain ``extern "C"`` launcher, so it
+compiles in seconds without PyTorch's headers. The shared library goes to
+``karpenter_provider_aws_tpu_torch/_build/`` (listed in ``.gitignore``),
+named by a hash of the source and the flags, so an edited source is rebuilt
+and an unchanged one is loaded as it is. Nothing is built at import: the
+first launch builds, or a caller (``chip_smoke.py``) builds ahead.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+import threading
+from typing import Dict
+
+PKG_DIR = pathlib.Path(__file__).resolve().parent.parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LOCK = threading.Lock()
+_LIBS: Dict[str, ctypes.CDLL] = {}
+# the compiler's output of each build this process ran (ptxas registers,
+# shared memory and spills), by source name
+BUILD_LOGS: Dict[str, str] = {}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    cand = pathlib.Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found (PATH, CUDA_HOME, /usr/local/cuda): "
+                       "the CUDA kernels are built from source at first use")
+
+
+def library_path(name: str) -> pathlib.Path:
+    src = CSRC_DIR / f"{name}.cu"
+    h = hashlib.sha256(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(name: str) -> pathlib.Path:
+    """Compile ``csrc/<name>.cu`` unless its library is already built;
+    returns the library's path. Safe across processes: the library is
+    written under a temporary name and renamed into place."""
+    out = library_path(name)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{name}.cu")]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        BUILD_LOGS[name] = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}.cu "
+                               f"(exit {proc.returncode}):\n{BUILD_LOGS[name]}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build(name)))
+            _LIBS[name] = lib
+        return lib

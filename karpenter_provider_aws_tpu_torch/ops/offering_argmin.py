@@ -1,0 +1,111 @@
+"""Cheapest-offering finalization: the CUDA kernel's wrapper and its plain
+PyTorch version.
+
+The pack finalization answers, per bin: over every (type, zone,
+capacity-type) offering the bin's masks still allow, which is cheapest?
+This is the port of the JAX package's Pallas TPU kernel
+(``karpenter_provider_aws_tpu/ops/offering_argmin.py``,
+``cheapest_offering_pallas``) and of its XLA form. The kernel is
+``csrc/offering_argmin.cu`` (hand-written for sm_90a; its source note
+states its bound and design), built by ``nvcc`` at first use and called
+through ctypes on the current CUDA stream.
+
+Layout (no padding, unlike the TPU kernel's 128-lane tiles):
+``tmask [B,T]`` bool/u8, ``zcmask [B,ZC]`` bool/u8 with ``zc = z*C + c``,
+``price [T,ZC]`` f32 pre-masked to +inf where an offering is unavailable.
+Returns ``(best_v [B] f32, best_i [B] i32)`` with the flat index
+``t*ZC + zc``; ties go to the lowest index and a bin with no finite
+allowed offering gets ``(+inf, 0)``.
+
+``cheapest_offering`` launches the kernel for CUDA tensors and takes the
+plain version only for CPU tensors. ``LAUNCHES`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from . import cuda_build
+
+# kernel launches made by cheapest_offering (the plain version never counts)
+LAUNCHES = 0
+
+_MAX_ZC = 4096   # the kernel's shared-memory layout holds up to this many cells
+
+
+def cheapest_offering_ref(tmask: torch.Tensor, zcmask: torch.Tensor,
+                          price: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version: materializes the [B,T,ZC] masked price."""
+    B, T = tmask.shape
+    allowed = tmask.bool()[:, :, None] & zcmask.bool()[:, None, :]
+    inf = torch.full((), float("inf"), dtype=price.dtype, device=price.device)
+    cost = torch.where(allowed, price[None, :, :], inf)
+    flat = cost.reshape(B, -1)
+    best = torch.argmin(flat, dim=1)       # first minimum, as jnp.argmin
+    return flat.gather(1, best[:, None])[:, 0], best.to(torch.int32)
+
+
+def _launcher():
+    lib = cuda_build.load("offering_argmin")
+    fn = lib.cheapest_offering_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _as_u8(x: torch.Tensor, name: str) -> torch.Tensor:
+    if x.dtype == torch.bool:
+        return x.view(torch.uint8)
+    if x.dtype != torch.uint8:
+        raise TypeError(f"{name} must be bool or uint8, got {x.dtype}")
+    return x
+
+
+def cheapest_offering(tmask: torch.Tensor, zcmask: torch.Tensor,
+                      price: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(best_v [B] f32, best_i [B] i32) per bin; see the module note.
+
+    CPU tensors take the plain version. CUDA tensors launch the kernel,
+    or raise: there is no fallback."""
+    global LAUNCHES
+    if tmask.device.type == "cpu":
+        return cheapest_offering_ref(tmask, zcmask, price)
+    if tmask.device.type != "cuda":
+        raise ValueError(f"unsupported device {tmask.device}")
+    if tmask.dim() != 2 or zcmask.dim() != 2 or price.dim() != 2:
+        raise ValueError("tmask, zcmask and price must be 2-D")
+    B, T = tmask.shape
+    ZC = zcmask.shape[1]
+    if zcmask.shape[0] != B or tuple(price.shape) != (T, ZC):
+        raise ValueError(f"shape mismatch: tmask {tuple(tmask.shape)}, "
+                         f"zcmask {tuple(zcmask.shape)}, "
+                         f"price {tuple(price.shape)}")
+    if zcmask.device != tmask.device or price.device != tmask.device:
+        raise ValueError("tmask, zcmask and price must share one device")
+    if price.dtype != torch.float32:
+        raise TypeError(f"price must be float32, got {price.dtype}")
+    if not (tmask.is_contiguous() and zcmask.is_contiguous()
+            and price.is_contiguous()):
+        raise ValueError("tmask, zcmask and price must be contiguous")
+    if T == 0 or ZC == 0 or ZC > _MAX_ZC or T * ZC >= 2 ** 31:
+        raise ValueError(f"unsupported extent T={T}, ZC={ZC}")
+    tm, zc = _as_u8(tmask, "tmask"), _as_u8(zcmask, "zcmask")
+    best_v = torch.empty((B,), dtype=torch.float32, device=tmask.device)
+    best_i = torch.empty((B,), dtype=torch.int32, device=tmask.device)
+    if B == 0:
+        return best_v, best_i
+    launch = _launcher()
+    with torch.cuda.device(tmask.device):
+        stream = torch.cuda.current_stream(tmask.device).cuda_stream
+        err = launch(tm.data_ptr(), zc.data_ptr(), price.data_ptr(),
+                     best_v.data_ptr(), best_i.data_ptr(), B, T, ZC, stream)
+    if err != 0:
+        raise RuntimeError(f"cheapest_offering kernel launch failed: "
+                           f"cudaError_t {err}")
+    LAUNCHES += 1
+    return best_v, best_i

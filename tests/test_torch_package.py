@@ -1,0 +1,160 @@
+"""Guards of the PyTorch port's package boundary.
+
+The port imports torch and numpy, never jax and never the JAX package
+(whose name is a prefix of the port's: ``karpenter_provider_aws_tpu``
+followed by ``.`` or the end of the name, never ``_torch``). Its entry
+points run on the card unless the caller asks for the CPU.
+"""
+
+import ast
+import hashlib
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+PORT = REPO / "karpenter_provider_aws_tpu_torch"
+JAX_PKG = "karpenter_provider_aws_tpu"
+
+PORT_FILES = sorted(p for p in PORT.rglob("*.py") if "_build" not in p.parts)
+CHECKED_FILES = PORT_FILES + [REPO / "chip_smoke.py"]
+
+
+def _module_name(path: pathlib.Path) -> str:
+    rel = path.relative_to(REPO).with_suffix("")
+    parts = list(rel.parts)
+    if parts[-1] == "__init__":
+        parts = parts[:-1]
+    return ".".join(parts)
+
+
+def _is_forbidden(name: str) -> bool:
+    return (name == "jax" or name.startswith("jax.")
+            or name == JAX_PKG or name.startswith(JAX_PKG + "."))
+
+
+def _imported_names(path: pathlib.Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+        elif (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
+              and node.func.attr == "import_module" and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            yield str(node.args[0].value)
+
+
+def test_forbidden_name_rule():
+    assert _is_forbidden("karpenter_provider_aws_tpu")
+    assert _is_forbidden("karpenter_provider_aws_tpu.solver.solve")
+    assert _is_forbidden("jax.numpy")
+    assert not _is_forbidden("karpenter_provider_aws_tpu_torch")
+    assert not _is_forbidden("karpenter_provider_aws_tpu_torch.ops.binpack")
+    assert not _is_forbidden("jaxlib_like_name_but_not_jax")
+
+
+@pytest.mark.parametrize("path", CHECKED_FILES,
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_or_jax_package_imports(path):
+    bad = [n for n in _imported_names(path) if _is_forbidden(n)]
+    assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+def test_every_module_imports_without_jax():
+    """Every port module imports in a fresh process where importing jax,
+    or the JAX package, fails."""
+    mods = [_module_name(p) for p in PORT_FILES]
+    code = "\n".join([
+        "import sys",
+        "sys.modules['jax'] = None",
+        f"sys.modules['{JAX_PKG}'] = None",
+        "import importlib",
+        f"for m in {mods!r}:",
+        "    importlib.import_module(m)",
+        "leaked = [m for m, v in sys.modules.items() if v is not None and (",
+        f"          m == 'jax' or m.startswith('jax.') or m == '{JAX_PKG}'",
+        f"          or m.startswith('{JAX_PKG}.'))]",
+        "assert not leaked, leaked",
+        "print('imported', len(" + repr(mods) + "))",
+    ])
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert f"imported {len(mods)}" in out.stdout
+
+
+def test_solver_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    from karpenter_provider_aws_tpu_torch.lattice import build_catalog, build_lattice
+    from karpenter_provider_aws_tpu_torch.solver import Solver
+    from karpenter_provider_aws_tpu_torch import convert
+    lat = build_lattice([s for s in build_catalog() if s.family == "m5"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Solver(lat)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Solver(lat, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        convert.lattice_tensors(lat)
+    s = Solver(lat, device="cpu")
+    assert s.device.type == "cpu" and s._alloc.device.type == "cpu"
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
+
+
+def test_kernel_wrapper_rejects_bad_inputs():
+    from karpenter_provider_aws_tpu_torch.ops import offering_argmin as oa
+    if not torch.cuda.is_available():
+        # CPU tensors take the plain version; nothing else is accepted
+        with pytest.raises(ValueError):
+            oa.cheapest_offering(torch.zeros((2, 3), dtype=torch.bool,
+                                             device="meta"),
+                                 torch.zeros((2, 2), dtype=torch.bool),
+                                 torch.zeros((3, 2)))
+        return
+    dev = torch.device("cuda")
+    tm = torch.ones((4, 5), dtype=torch.bool, device=dev)
+    zc = torch.ones((4, 2), dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError):
+        oa.cheapest_offering(tm, zc, torch.zeros((5, 3), device=dev))
+    with pytest.raises(TypeError):
+        oa.cheapest_offering(tm, zc, torch.zeros((5, 2), dtype=torch.float64,
+                                                 device=dev))
+
+
+def test_catalog_copied_byte_for_byte():
+    rel = pathlib.Path("lattice") / "data" / "reference_catalog.json"
+    a = (REPO / JAX_PKG / rel).read_bytes()
+    b = (PORT / rel).read_bytes()
+    assert hashlib.sha256(a).hexdigest() == hashlib.sha256(b).hexdigest()
+
+
+def test_cuda_source_and_build_dir():
+    from karpenter_provider_aws_tpu_torch.ops import cuda_build
+    assert sorted(p.name for p in (PORT / "csrc").glob("*.cu")) \
+        == ["offering_argmin.cu"]
+    src = (PORT / "csrc" / "offering_argmin.cu").read_text()
+    assert 'extern "C"' in src and "sm_90a" in " ".join(cuda_build.NVCC_FLAGS)
+    ignored = (REPO / ".gitignore").read_text().split()
+    assert "karpenter_provider_aws_tpu_torch/_build/" in ignored
+    assert cuda_build.library_path("offering_argmin").parent == cuda_build.BUILD_DIR
+
+
+def test_convert_keeps_dtypes_and_shapes():
+    import numpy as np
+    from karpenter_provider_aws_tpu_torch import convert
+    from karpenter_provider_aws_tpu_torch.ops import binpack as tb
+    t = convert.tensor(np.int32(7), "cpu")
+    assert t.shape == () and t.dtype == torch.int32
+    st = tb.empty_state(4, 3, 2, 2, 11, 1, device="cpu")
+    again = convert.named_tensors(tb.BinState, st, "cpu")
+    for name in tb.BinState._fields:
+        a, b = getattr(st, name), getattr(again, name)
+        assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+    with pytest.raises(TypeError):
+        convert.fused_buffer(np.zeros(4, np.int32), "cpu")
