@@ -9,18 +9,24 @@ Phases, in order; any failure exits non-zero and prints no result line:
 
 1. card: the card's name and power limit (nvidia-smi), torch and CUDA
    versions;
-2. build: the package's CUDA source (csrc/offering_argmin.cu) with nvcc;
+2. build: the package's CUDA source (csrc/offering_argmin.cu) with nvcc,
+   printing ptxas's registers, shared memory and spills;
 3. kernels: each kernel against its plain PyTorch version on the card,
-   at the main path's shapes and at edge cases (ties, all-infeasible
-   bins, ragged T, ZC above one 128-lane tile); indices and finite values
-   must be exactly equal. Times come from CUDA events, median of 100
-   launches queued behind a device sleep so that no host gap is timed;
+   on every case of ``ops/offering_cases.py`` (the main path's shapes,
+   ties, all-infeasible bins, unaligned rows, T of 1 to 6000, ZC of 1 to
+   130, uint8 masks, sparse and dense bins); indices and finite values
+   must be exactly equal;
 4. main path: the north-star wave (50k pods x the real 759-type catalog,
    3 NodePools) through ``Solver(lattice).solve_relaxed`` on ``cuda``.
    Kernel launch counts are zeroed just before one solve and read just
    after; the plan must place every pod, cost within 1.02x of the port's
    own FFD oracle, and equal the port's CPU plan node by node. Then the
-   e2e p50 over 12 solves and the median stage times.
+   e2e p50 over 12 solves and the median stage times;
+5. kernel timing: the kernel and its plain version at the main path's
+   own inputs (captured in the last solve) and at the dense largest bin
+   bucket (B=8192), and the card's launch floor (a one-element in-place
+   add), each the median of 100 device times from CUDA events, queued
+   behind a device sleep so that no host gap is timed.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``. The script imports
@@ -30,17 +36,11 @@ nothing of JAX and nothing of the JAX package, and checks that at the end.
 import json
 import os
 import statistics
-import subprocess
 import sys
 import time
 import traceback
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
-# float32 instructions outside the tensor cores: 132 SMs x 128 lanes x
-# 1.98 GHz. The data sheet's 67 TFLOP/s counts each FMA as two operations;
-# a compare is one instruction.
-H100_F32_INSTR_PER_S = 33.5e12
 SOLVES = 12
 
 
@@ -53,71 +53,13 @@ def _phase(name: str) -> None:
     print(f"== {name}", flush=True)
 
 
-def _device_times_ms(fn, n: int = 100, sleep_cycles: int = 400_000_000):
-    """Per-call device time of ``fn`` (ms): n calls enqueued behind a
-    device sleep, one CUDA event between each, median of the gaps."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
-    torch.cuda._sleep(sleep_cycles)
-    ev[0].record()
-    for i in range(n):
-        fn()
-        ev[i + 1].record()
-    t_host = time.perf_counter()
-    torch.cuda.synchronize()
-    waited = time.perf_counter() - t_host
-    times = [ev[i].elapsed_time(ev[i + 1]) for i in range(n)]
-    return statistics.median(times), waited
-
-
-def _kernel_cases(torch, dev):
-    """(name, tmask, zcmask, price) edge cases for cheapest_offering."""
-    g = torch.Generator(device="cpu").manual_seed(0)
-
-    def rand_case(B, T, ZC, p_t=0.4, p_zc=0.6, p_unavail=0.2):
-        tm = torch.rand((B, T), generator=g) < p_t
-        zc = torch.rand((B, ZC), generator=g) < p_zc
-        pr = torch.rand((T, ZC), generator=g) + 0.01
-        pr[torch.rand((T, ZC), generator=g) < p_unavail] = float("inf")
-        return tm.to(dev), zc.to(dev), pr.to(dev)
-
-    cases = [("random B=2048 T=759 ZC=10",) + rand_case(2048, 759, 10),
-             ("ragged T=37 ZC=10",) + rand_case(300, 37, 10),
-             ("ZC=130",) + rand_case(129, 200, 130)]
-    # forced ties: every allowed offering costs the same
-    tm, zc, _ = rand_case(512, 759, 10)
-    cases.append(("ties", tm, zc, torch.full((759, 10), 2.5, device=dev)))
-    # ties on a coarse price grid, so many bins have several minima
-    tm, zc, pr = rand_case(2048, 759, 10)
-    cases.append(("coarse-price ties", tm, zc, torch.floor(pr * 4) / 4))
-    # all-infeasible bins: empty type masks, empty zc masks, all-inf prices
-    tm, zc, pr = rand_case(256, 759, 10)
-    tm[:64] = False
-    zc[64:128] = False
-    pr2 = pr.clone()
-    pr2[:, :] = float("inf")
-    cases.append(("all-infeasible (masks)", tm, zc, pr))
-    cases.append(("all-infeasible (prices)", tm, zc, pr2))
-    # the price panel above the 192 KB shared-memory chunk (streamed)
-    cases.append(("streamed panel T=6000 ZC=10",) + rand_case(64, 6000, 10))
-    return cases
-
-
-def _check_pair(torch, name, got, want):
-    (gv, gi), (wv, wi) = got, want
-    torch.cuda.synchronize()
-    if gv.shape != wv.shape or gi.dtype != torch.int32 or gv.dtype != torch.float32:
-        raise AssertionError(f"{name}: shape/dtype {tuple(gv.shape)} {gv.dtype} "
-                             f"{gi.dtype} vs {tuple(wv.shape)}")
-    if not torch.equal(gi, wi):
-        bad = int((gi != wi).sum())
-        raise AssertionError(f"{name}: {bad} index mismatches")
-    fin = torch.isfinite(wv)
-    if not torch.equal(gv[fin], wv[fin]) or bool(torch.isfinite(gv[~fin]).any()):
-        raise AssertionError(f"{name}: value mismatch")
-    return float((gv[fin] - wv[fin]).abs().max()) if bool(fin.any()) else 0.0
+def _kernel_cases(dev):
+    """(name, tmask, zcmask, price) on the card for cheapest_offering:
+    every case of ``ops/offering_cases.py``, made from numpy seeds."""
+    from karpenter_provider_aws_tpu_torch.measure import on_device
+    from karpenter_provider_aws_tpu_torch.ops import offering_cases
+    for name, make in offering_cases.kernel_cases().items():
+        yield (name,) + on_device(make(), dev)
 
 
 def _node_rows(plan):
@@ -147,7 +89,8 @@ def main() -> int:
 
 def _run(torch) -> int:
     from karpenter_provider_aws_tpu_torch import workloads
-    from karpenter_provider_aws_tpu_torch.ops import binpack, cuda_build
+    from karpenter_provider_aws_tpu_torch import measure
+    from karpenter_provider_aws_tpu_torch.ops import cuda_build, offering_cases
     from karpenter_provider_aws_tpu_torch.ops import offering_argmin as oa
     from karpenter_provider_aws_tpu_torch.solver import Solver
     from karpenter_provider_aws_tpu_torch.solver.oracle import ffd_oracle
@@ -155,13 +98,7 @@ def _run(torch) -> int:
 
     # ---- 1. card
     _phase("card")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60)
-    if smi.returncode != 0:
-        raise RuntimeError(f"nvidia-smi failed: {smi.stderr.strip()}")
-    card_line = smi.stdout.strip().splitlines()[0]
-    print(f"nvidia-smi: {card_line}")
+    print(f"nvidia-smi: {measure.card_line()}")
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}, device {torch.cuda.get_device_name(0)}, "
           f"count {torch.cuda.device_count()}", flush=True)
@@ -174,16 +111,16 @@ def _run(torch) -> int:
     build_s = time.perf_counter() - t
     print(f"built offering_argmin -> {os.path.relpath(path, HERE)}")
     for line in cuda_build.BUILD_LOGS.get("offering_argmin", "").splitlines():
-        if "ptxas" in line:
+        if "registers" in line or "spill" in line:
             print(f"  {line.strip()}")
     print(f"build seconds: {build_s:.3f}", flush=True)
 
     # ---- 3. kernels against their plain versions
     _phase("kernels")
     max_err = 0.0
-    for name, tm, zc, pr in _kernel_cases(torch, dev):
-        err = _check_pair(torch, name, oa.cheapest_offering(tm, zc, pr),
-                          oa.cheapest_offering_ref(tm, zc, pr))
+    for name, tm, zc, pr in _kernel_cases(dev):
+        err = measure.check_exact(name, oa.cheapest_offering(tm, zc, pr),
+                             oa.cheapest_offering_ref(tm, zc, pr))
         max_err = max(max_err, err)
         print(f"cheapest_offering {name}: B={tm.shape[0]} T={tm.shape[1]} "
               f"ZC={zc.shape[1]} exact match", flush=True)
@@ -237,26 +174,13 @@ def _run(torch) -> int:
         raise AssertionError("the card's plan differs from the CPU plan")
     print("card plan == cpu plan, node by node", flush=True)
 
-    # e2e over repeated solves; the last one also captures the kernel's
-    # main-path inputs for timing
-    captured = []
-    orig = binpack.cheapest_offering
-
-    def capture(tm, zc, pr):
-        captured.append((tm.clone(), zc.clone(), pr.clone()))
-        return orig(tm, zc, pr)
-
+    # e2e over repeated solves
     e2e, stages = [], {}
-    for i in range(SOLVES):
-        if i == SOLVES - 1:
-            binpack.cheapest_offering = capture
-        try:
-            t = time.perf_counter()
-            p = solver.solve_relaxed(pods, pools, existing=existing)
-            torch.cuda.synchronize()
-            e2e.append((time.perf_counter() - t) * 1e3)
-        finally:
-            binpack.cheapest_offering = orig
+    for _ in range(SOLVES):
+        t = time.perf_counter()
+        p = solver.solve_relaxed(pods, pools, existing=existing)
+        torch.cuda.synchronize()
+        e2e.append((time.perf_counter() - t) * 1e3)
         for k, v in p.stage_ms.items():
             stages.setdefault(k, []).append(v)
         if len(p.new_nodes) != len(plan.new_nodes):
@@ -267,26 +191,33 @@ def _run(torch) -> int:
           f"peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB",
           flush=True)
 
-    # ---- kernel times at the main path's own inputs
-    _phase("kernel timing at the main path's shapes")
-    tm, zc, pr = captured[-1]
-    max_err = max(max_err, _check_pair(
-        torch, "main-path inputs", oa.cheapest_offering(tm, zc, pr),
-        oa.cheapest_offering_ref(tm, zc, pr)))
-    B, T = tm.shape
-    ZC = zc.shape[1]
-    ms, waited_k = _device_times_ms(lambda: oa.cheapest_offering(tm, zc, pr))
-    plain_ms, waited_p = _device_times_ms(lambda: oa.cheapest_offering_ref(tm, zc, pr))
-    nbytes = B * T + B * ZC + T * ZC * 4 + B * 8
-    n_ops = int((tm.sum(dim=1).to(torch.int64) * zc.sum(dim=1).to(torch.int64)).sum())
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = n_ops / H100_F32_INSTR_PER_S * 1e3
-    bound_ms = max(t_bytes, t_ops)
-    print(f"cheapest_offering at B={B} T={T} ZC={ZC}: kernel {ms:.6f} ms, "
-          f"plain {plain_ms:.6f} ms (median of 100 device times; host waited "
-          f"{waited_k * 1e3:.1f} / {waited_p * 1e3:.1f} ms after enqueue); "
-          f"bound {bound_ms * 1e3:.4f} us ({nbytes} bytes, {n_ops} compares)",
-          flush=True)
+    # ---- 5. kernel times: the main path's own inputs, the dense largest
+    # bucket, the launch floor
+    _phase("kernel timing")
+    _, main_inputs = measure.captured_main_path_inputs(
+        lambda: solver.solve_relaxed(pods, pools, existing=existing))
+    timed = {}
+    for name, (tm, zc, pr) in (
+            ("main path", main_inputs),
+            ("dense", measure.on_device(offering_cases.dense_case(), dev))):
+        max_err = max(max_err, measure.check_exact(
+            f"{name} inputs", oa.cheapest_offering(tm, zc, pr),
+            oa.cheapest_offering_ref(tm, zc, pr)))
+        ms, waited_k = measure.device_times_ms(lambda: oa.cheapest_offering(tm, zc, pr))
+        plain_ms, waited_p = measure.device_times_ms(
+            lambda: oa.cheapest_offering_ref(tm, zc, pr))
+        bound_ms, bound_by, nbytes, n_ops = measure.bound(tm, zc, pr)
+        B, T = tm.shape
+        ZC = zc.shape[1]
+        timed[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by, "shape": {"B": B, "T": T, "ZC": ZC}}
+        print(f"cheapest_offering, {name} B={B} T={T} ZC={ZC}: kernel {ms:.6f} ms, "
+              f"plain {plain_ms:.6f} ms (median of 100 device times; host waited "
+              f"{waited_k * 1e3:.1f} / {waited_p * 1e3:.1f} ms after enqueue); "
+              f"bound {bound_ms * 1e3:.4f} us by {bound_by} ({nbytes} bytes, "
+              f"{n_ops} compares)", flush=True)
+    floor_ms = measure.launch_floor_ms(dev)
+    print(f"launch floor (one-element in-place add): {floor_ms:.6f} ms", flush=True)
 
     # ---- nothing of JAX was loaded
     leaked = sorted(m for m in sys.modules
@@ -301,10 +232,8 @@ def _run(torch) -> int:
         "source": "karpenter_provider_aws_tpu_torch/csrc/offering_argmin.cu",
         "replaces": "karpenter_provider_aws_tpu/ops/offering_argmin.py:92",
         "launches": launches["cheapest_offering"], "max_abs_err": max_err,
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": None,
-        "shape": {"B": B, "T": T, "ZC": ZC},
+        **timed["main path"], "library_ms": None,
+        "launch_floor_ms": floor_ms, "dense": timed["dense"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

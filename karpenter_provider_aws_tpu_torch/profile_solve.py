@@ -16,16 +16,8 @@ from __future__ import annotations
 import argparse
 import json
 import statistics
-import subprocess
 import sys
 import time
-
-
-def _card() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60)
-    return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "unknown"
 
 
 def main(argv=None) -> int:
@@ -38,6 +30,7 @@ def main(argv=None) -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from . import workloads
+    from .measure import card_line
     from .solver import Solver
 
     if not torch.cuda.is_available():
@@ -74,7 +67,7 @@ def main(argv=None) -> int:
     wall_ms = statistics.mean(walls)
     top = sorted(events, key=dev_us, reverse=True)[:12]
     result = {
-        "card": _card(),
+        "card": card_line(),
         "solves": args.solves,
         "wall_ms_mean": wall_ms,
         "wall_ms_p50": statistics.median(walls),

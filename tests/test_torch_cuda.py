@@ -21,6 +21,7 @@ from karpenter_provider_aws_tpu_torch.apis import NodePool, Pod
 from karpenter_provider_aws_tpu_torch.lattice import build_catalog, build_lattice
 from karpenter_provider_aws_tpu_torch.ops import binpack as tb
 from karpenter_provider_aws_tpu_torch.ops import offering_argmin as oa
+from karpenter_provider_aws_tpu_torch.ops import offering_cases
 from karpenter_provider_aws_tpu_torch.solver import Solver
 from karpenter_provider_aws_tpu_torch.solver.problem import build_problem
 
@@ -34,19 +35,12 @@ def cuda():
     return torch.device("cuda")
 
 
-def random_case(rng, B, T, ZC):
-    tm = rng.random((B, T)) < 0.4
-    zc = rng.random((B, ZC)) < 0.6
-    pr = (rng.random((T, ZC)) + 0.01).astype(np.float32)
-    pr[rng.random((T, ZC)) < 0.2] = np.inf
-    return tm, zc, pr
+KERNEL_CASES = offering_cases.kernel_cases()
 
 
-@pytest.mark.parametrize("B,T,ZC", [(2048, 759, 10), (300, 37, 10),
-                                    (129, 200, 130), (64, 6000, 10), (1, 1, 1)])
-def test_kernel_matches_plain(cuda, B, T, ZC):
-    args = [torch.from_numpy(a).to(cuda)
-            for a in random_case(np.random.default_rng(B + T), B, T, ZC)]
+@pytest.mark.parametrize("case", list(KERNEL_CASES))
+def test_kernel_matches_plain(cuda, case):
+    args = [torch.from_numpy(a).to(cuda) for a in KERNEL_CASES[case]()]
     before = oa.LAUNCHES
     kv, ki = oa.cheapest_offering(*args)
     rv, ri = oa.cheapest_offering_ref(*args)

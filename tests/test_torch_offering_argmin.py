@@ -19,14 +19,8 @@ from karpenter_provider_aws_tpu.ops.offering_argmin import (
     _ZCP, cheapest_offering_pallas, cheapest_offering_xla,
 )
 from karpenter_provider_aws_tpu_torch.ops import offering_argmin as oa
-
-
-def random_case(rng, B, T, ZC, p_t=0.4, p_zc=0.6, p_unavail=0.2):
-    tm = rng.random((B, T)) < p_t
-    zc = rng.random((B, ZC)) < p_zc
-    pr = (rng.random((T, ZC)) + 0.01).astype(np.float32)
-    pr[rng.random((T, ZC)) < p_unavail] = np.inf
-    return tm, zc, pr
+from karpenter_provider_aws_tpu_torch.ops import offering_cases
+from karpenter_provider_aws_tpu_torch.ops.offering_cases import random_case
 
 
 def port_ref(tm, zc, pr):
@@ -108,6 +102,46 @@ class TestAgainstXla:
         assert_same(port_ref(tm, zc, pr), v_x, i_x)
 
 
+def against_jax(tm, zc, pr):
+    """The JAX package's answer: the Pallas kernel in interpret mode where
+    the cells fit its one 128-lane tile, the XLA form above it."""
+    B, ZC = zc.shape
+    if ZC > _ZCP:
+        return cheapest_offering_xla(jnp.asarray(tm, jnp.float32),
+                                     jnp.asarray(zc, jnp.float32),
+                                     jnp.asarray(pr))
+    v_p, i_p = cheapest_offering_pallas(*padded_for_pallas(tm, zc, pr),
+                                        interpret=True)
+    return np.asarray(v_p)[:B], from_padded_index(np.asarray(i_p)[:B], ZC)
+
+
+class TestKernelEdgeShapes:
+    """The shapes the CUDA kernel's design has to get right (unaligned
+    rows, rows shorter than one 16-byte load, cell masks of one register
+    word and more), the same cases the card tests and the chip smoke hold
+    the kernel to."""
+
+    @pytest.mark.parametrize("B,T,ZC", offering_cases.EDGE_SHAPES + ((3, 17, 129),))
+    def test_edge_shape(self, B, T, ZC):
+        tm, zc, pr = offering_cases.edge_case(B, T, ZC)
+        assert_same(port_ref(tm, zc, pr), *against_jax(tm, zc, pr))
+
+    def test_sparse_bins_and_the_last_flat_index(self):
+        """2-3 allowed types per bin as on the real catalog, empty bins,
+        and one bin whose only allowed offering is the last flat index."""
+        tm, zc, pr = offering_cases.sparse_case(np.random.default_rng(257), 257)
+        got = port_ref(tm, zc, pr)
+        assert got[1][1] == (759 - 1) * 10 + 10 - 1
+        assert_same(got, *against_jax(tm, zc, pr))
+
+    def test_signed_zero_ties_go_to_the_lowest_index(self):
+        """-0.0 and +0.0 compare equal, so a tie between them goes to the
+        lower index, in every lane's running minimum and in the warp's
+        reduction."""
+        tm, zc, pr = offering_cases.kernel_cases()["signed zeros"]()
+        assert_same(port_ref(tm, zc, pr), *against_jax(tm, zc, pr))
+
+
 class TestEdges:
     def test_ties_resolve_to_lowest_flat_index(self):
         tm = np.ones((16, 40), bool)
@@ -144,3 +178,28 @@ class TestEdges:
         tm, zc, pr = random_case(np.random.default_rng(9), 64, 100, 10)
         port_ref(tm, zc, pr)
         assert oa.LAUNCHES == before
+
+
+class TestCasesAndBound:
+    def test_edge_shapes_cover_the_kernel_traps(self):
+        shapes = offering_cases.EDGE_SHAPES
+        assert {1, 15, 16, 17, 759} <= {T for _, T, _ in shapes}
+        assert {1, 32, 33, 65} <= {ZC for _, _, ZC in shapes}
+        assert any(B % 2 and T % 2 and B > 1 and T > 16 for B, T, _ in shapes)
+
+    def test_sparse_case_is_shaped_like_the_main_path(self):
+        tm, zc, pr = offering_cases.sparse_case(np.random.default_rng(0), 100)
+        per_bin = tm.sum(axis=1)
+        assert per_bin[1] == 1 and tm[1, -1] and zc[1].sum() == 1 and zc[1, -1]
+        live = np.delete(per_bin[:90], 1)
+        assert live.min() >= 2 and live.max() <= 3
+        assert not tm[90:].any() and not zc[90:].any()
+        assert np.isfinite(pr[-1, -1])
+
+    def test_bound_counts_each_byte_once_and_the_allowed_pairs(self):
+        from karpenter_provider_aws_tpu_torch import measure
+        tm, zc, pr = offering_cases.random_case(np.random.default_rng(1), 20, 30, 4)
+        ms, by, nbytes, n_ops = measure.bound(*measure.on_device((tm, zc, pr), "cpu"))
+        assert nbytes == 20 * 30 + 20 * 4 + 30 * 4 * 4 + 20 * 8
+        assert n_ops == int((tm.sum(1) * zc.sum(1)).sum())
+        assert by == "bytes" and ms == nbytes / measure.H100_BYTES_PER_S * 1e3
