@@ -17,13 +17,26 @@ Phases, in order; any failure exits non-zero and prints no result line:
    130, uint8 masks, sparse and dense bins); indices and finite values
    must be exactly equal;
 4. main path: the north-star wave (50k pods x the real 759-type catalog,
-   3 NodePools) through ``Solver(lattice).solve_relaxed`` on ``cuda``.
-   Kernel launch counts are zeroed just before one solve and read just
-   after; the plan must place every pod, cost within 1.02x of the port's
-   own FFD oracle, and equal the port's CPU plan node by node. Then the
-   e2e p50 over 12 solves and the median stage times;
-5. kernel timing: the kernel and its plain version at the main path's
-   own inputs (captured in the last solve) and at the dense largest bin
+   3 NodePools) through ``solve_relaxed`` on ``cuda``, twice: the
+   sequential ``Solver(lattice, pipeline=False)`` and the default,
+   pipelined ``Solver(lattice)``. For each, kernel launch counts are
+   zeroed just before one solve and read just after; the plan must place
+   every pod, cost within 1.02x of the port's own FFD oracle, and equal
+   the port's CPU plan node by node. Then each path's e2e p50 over 12
+   solves, the two paths in turns, and its median stage times;
+5. steady state: cfg10 (20k pods in 24 shapes, 120 partly used existing
+   nodes) through the microloop harness of ``bench.py``'s
+   ``run_microloop_config`` with this package's objects: a cold full
+   build, ``solve`` and a priming ``solve_delta``, then 12 passes of
+   about 1.5 % pods leaving and 1.5 % arriving (every 4th pass churns
+   nothing), each an incremental build plus ``solve_delta``. Every pass
+   is refereed twice: equal to a sequential Solver's plan of the same
+   problem, and the same node multiset at the same cost as a solve of a
+   scratch ``build_problem``. The phase fails unless every pass rode the
+   microloop with no abort, the 3 no-churn passes skipped their fetch, no
+   pass paid more than 2 link legs, and every pass launched the kernel;
+6. kernel timing: the kernel and its plain version at cfg5's and cfg10's
+   own inputs (captured in a solve of each) and at the dense largest bin
    bucket (B=8192), and the card's launch floor (a one-element in-place
    add), each the median of 100 device times from CUDA events, queued
    behind a device sleep so that no host gap is timed.
@@ -65,6 +78,126 @@ def _kernel_cases(dev):
 def _node_rows(plan):
     return [(n.node_pool, n.instance_type, n.zone, n.capacity_type,
              sorted(n.pods)) for n in plan.new_nodes]
+
+
+def _same_plan(a, b) -> bool:
+    return (_node_rows(a) == _node_rows(b)
+            and a.existing_assignments == b.existing_assignments
+            and a.unschedulable == b.unschedulable
+            and a.new_node_cost == b.new_node_cost)
+
+
+def _node_multiset(plan):
+    return sorted((n.instance_type, n.zone, len(n.pods)) for n in plan.new_nodes)
+
+
+def _steady_state(torch, workloads, lattice, oa):
+    """Phase 5: cfg10 under the microloop harness; returns its numbers and
+    the last pass's problem."""
+    from karpenter_provider_aws_tpu_torch.solver import Solver
+    from karpenter_provider_aws_tpu_torch.solver.problem import build_problem
+
+    pods, pools, shapes = workloads.config10_steady_state()
+    churn = workloads.SteadyStateChurn(lattice, pods, shapes)
+    solver = Solver(lattice)
+    referee = Solver(lattice, pipeline=False)
+    rebuild = Solver(lattice)
+    if solver.device.type != "cuda" or referee.device.type != "cuda":
+        raise AssertionError("cfg10: a Solver is not on the card")
+    passes = workloads.STEADY_PASSES
+    rows, stages, rebuild_ms, launches_per_pass = [], {}, [], []
+    pre = pre_link = None
+    oa.LAUNCHES = 0
+    for pass_i, res, plan, ms, legs in workloads.steady_state_passes(
+            solver, lattice, pools, churn, passes):
+        torch.cuda.synchronize()
+        launched = oa.LAUNCHES
+        if pass_i < 0:
+            print(f"cold: full build ({res.problem.G} groups, {res.problem.E} "
+                  f"existing bins), solve and priming solve_delta "
+                  f"{ms:.1f} ms", flush=True)
+            pre = dict(solver.pipeline_stats)
+            pre_link = dict(solver.link_stats)
+        else:
+            launches_per_pass.append(launched)
+            for k, v in plan.stage_ms.items():
+                stages.setdefault(k, []).append(v)
+        # referee 1: the same problem through the sequential path
+        same = referee.solve(res.problem)
+        # referee 2: a scratch build of the same cluster, fully rebuilt
+        t = time.perf_counter()
+        scratch = rebuild.solve(build_problem(churn.pods, pools, lattice,
+                                              existing=list(churn.existing)))
+        full_ms = (time.perf_counter() - t) * 1e3
+        placed = sum(len(n.pods) for n in plan.new_nodes) + sum(
+            len(v) for v in plan.existing_assignments.values())
+        ok_same = _same_plan(plan, same)
+        ok_scratch = (_node_multiset(plan) == _node_multiset(scratch)
+                      and abs(plan.new_node_cost - scratch.new_node_cost) <= 1e-6)
+        if pass_i >= 0:
+            rebuild_ms.append(full_ms)
+            rows.append({"pass": pass_i, "ms": ms, "legs": legs,
+                         "incremental": res.incremental,
+                         "dirty_groups": len(res.dirty_groups),
+                         "launches": launched, "full_rebuild_ms": full_ms})
+            print(f"pass {pass_i}: {ms:.3f} ms, legs {legs}, incremental "
+                  f"{res.incremental} ({len(res.dirty_groups)} dirty groups), "
+                  f"{launched} launch(es), {len(plan.new_nodes)} new nodes, "
+                  f"{placed}/{len(churn.pods)} pods placed; full rebuild "
+                  f"{full_ms:.3f} ms; == sequential {ok_same}, "
+                  f"== scratch {ok_scratch}", flush=True)
+        if not (ok_same and ok_scratch):
+            raise AssertionError(f"cfg10 pass {pass_i}: the plan differs from "
+                                 f"a referee (same problem {ok_same}, "
+                                 f"scratch build {ok_scratch})")
+        if plan.unschedulable or placed != len(churn.pods):
+            raise AssertionError(f"cfg10 pass {pass_i}: placed {placed}/"
+                                 f"{len(churn.pods)}, "
+                                 f"{len(plan.unschedulable)} unschedulable")
+        oa.LAUNCHES = 0
+    st = solver.pipeline_stats
+    d = {k: st[k] - pre[k] for k in ("micro_solves", "micro_aborts",
+                                     "micro_skipped_syncs", "micro_fetches",
+                                     "delta_solves")}
+    legs = [r["legs"] for r in rows]
+    incremental = sum(r["incremental"] for r in rows)
+    nochurn = passes // workloads.STEADY_NOCHURN_EVERY
+    upload = solver.link_stats["upload_bytes"] - pre_link["upload_bytes"]
+    fetch = solver.link_stats["fetch_bytes"] - pre_link["fetch_bytes"]
+    pass_ms = [r["ms"] for r in rows]
+    out = {
+        "pods": len(churn.pods), "existing_nodes": len(churn.existing),
+        "groups": res.problem.G, "passes": passes,
+        "pass_p50_ms": statistics.median(pass_ms), "pass_min_ms": min(pass_ms),
+        "pass_max_ms": max(pass_ms),
+        "full_rebuild_p50_ms": statistics.median(rebuild_ms),
+        "upload_bytes_per_pass": upload / passes,
+        "fetch_bytes_per_pass": fetch / passes,
+        "legs_per_pass": legs, "launches_per_pass": launches_per_pass,
+        "stage_p50_ms": {k: statistics.median(v) for k, v in stages.items()},
+        **d,
+    }
+    print(f"cfg10: pass p50 {out['pass_p50_ms']:.3f} ms (min "
+          f"{out['pass_min_ms']:.3f}, max {out['pass_max_ms']:.3f}) over "
+          f"{passes} passes; full rebuild p50 {out['full_rebuild_p50_ms']:.3f} "
+          f"ms; upload {upload / passes:.1f} B/pass, fetch {fetch / passes:.1f} "
+          f"B/pass; legs {legs}; launches {launches_per_pass}; compute p50 "
+          f"{out['stage_p50_ms'].get('compute', 0.0):.3f} ms, download p50 "
+          f"{out['stage_p50_ms'].get('download', 0.0):.3f} ms; {d}", flush=True)
+    if incremental != passes or d["micro_solves"] != incremental:
+        raise AssertionError(f"cfg10: {incremental} incremental builds, "
+                             f"{d['micro_solves']} microloop passes of {passes}")
+    if d["micro_aborts"] != 0:
+        raise AssertionError(f"cfg10: {d['micro_aborts']} microloop aborts")
+    if d["micro_skipped_syncs"] != nochurn:
+        raise AssertionError(f"cfg10: {d['micro_skipped_syncs']} skipped "
+                             f"fetches, expected {nochurn}")
+    if max(legs) > 2:
+        raise AssertionError(f"cfg10: a pass paid more than 2 legs: {legs}")
+    if min(launches_per_pass) < 1:
+        raise AssertionError(f"cfg10: a pass never launched the kernel: "
+                             f"{launches_per_pass}")
+    return out, res.problem
 
 
 def main() -> int:
@@ -125,80 +258,107 @@ def _run(torch) -> int:
         print(f"cheapest_offering {name}: B={tm.shape[0]} T={tm.shape[1]} "
               f"ZC={zc.shape[1]} exact match", flush=True)
 
-    # ---- 4. main path at full width
-    _phase("main path: cfg5 (50k pods x real catalog)")
+    # ---- 4. main path at full width, sequential and pipelined
+    _phase("main path: cfg5 (50k pods x real catalog), sequential and pipelined")
     lattice = workloads.real_lattice()
     pods, pools, existing = workloads.config5_full_scale()
     print(f"lattice T={lattice.T} Z={lattice.Z} C={lattice.C}; "
           f"{len(pods)} pods, {len(pools)} pools", flush=True)
-    solver = Solver(lattice)
-    if solver.device.type != "cuda":
-        raise AssertionError(f"Solver defaulted to {solver.device}")
-
-    oa.LAUNCHES = 0
-    t = time.perf_counter()
-    plan = solver.solve_relaxed(pods, pools, existing=existing)
-    torch.cuda.synchronize()
-    cold_s = time.perf_counter() - t
-    launches = {"cheapest_offering": oa.LAUNCHES}
-    print(f"kernel launches in one solve: {launches}")
-    if any(v <= 0 for v in launches.values()):
-        raise AssertionError(f"a kernel of the path never launched: {launches}")
-
-    placed = sum(len(n.pods) for n in plan.new_nodes) + sum(
-        len(v) for v in plan.existing_assignments.values())
-    print(f"plan: {len(plan.new_nodes)} nodes, ${plan.new_node_cost:.2f}/hr, "
-          f"{placed} pods placed, {len(plan.unschedulable)} unschedulable, "
-          f"cold solve {cold_s * 1e3:.1f} ms", flush=True)
-    if plan.unschedulable or placed != len(pods) or len(pods) != 50000:
-        raise AssertionError(f"placed {placed}/{len(pods)}, "
-                             f"{len(plan.unschedulable)} unschedulable")
-
     problem = build_problem(pods, pools, lattice, existing=existing)
     t = time.perf_counter()
     oracle = ffd_oracle(problem)
-    ratio = plan.new_node_cost / oracle.new_node_cost
     print(f"ffd oracle: {oracle.num_new_nodes} nodes, "
-          f"${oracle.new_node_cost:.2f}/hr ({time.perf_counter() - t:.1f} s); "
-          f"cost ratio {ratio:.6f}", flush=True)
-    if not ratio <= 1.02:
-        raise AssertionError(f"cost ratio {ratio} above 1.02")
-
+          f"${oracle.new_node_cost:.2f}/hr ({time.perf_counter() - t:.1f} s)",
+          flush=True)
     t = time.perf_counter()
     cpu_plan = Solver(lattice, device="cpu").solve_relaxed(
         pods, pools, existing=existing)
     print(f"cpu plan: {len(cpu_plan.new_nodes)} nodes "
           f"({time.perf_counter() - t:.1f} s)", flush=True)
-    if _node_rows(plan) != _node_rows(cpu_plan) \
-            or plan.existing_assignments != cpu_plan.existing_assignments:
-        raise AssertionError("the card's plan differs from the CPU plan")
-    print("card plan == cpu plan, node by node", flush=True)
 
-    # e2e over repeated solves
-    e2e, stages = [], {}
-    for _ in range(SOLVES):
+    launches = {}
+    solvers = {}
+    for path, pipelined in (("cfg5_sequential", False), ("cfg5_pipelined", True)):
+        solver = Solver(lattice) if pipelined else Solver(lattice, pipeline=False)
+        if solver.device.type != "cuda" or solver.pipeline is not pipelined:
+            raise AssertionError(f"{path}: Solver on {solver.device}, "
+                                 f"pipeline={solver.pipeline}")
+        oa.LAUNCHES = 0
         t = time.perf_counter()
-        p = solver.solve_relaxed(pods, pools, existing=existing)
+        plan = solver.solve_relaxed(pods, pools, existing=existing)
         torch.cuda.synchronize()
-        e2e.append((time.perf_counter() - t) * 1e3)
-        for k, v in p.stage_ms.items():
-            stages.setdefault(k, []).append(v)
-        if len(p.new_nodes) != len(plan.new_nodes):
-            raise AssertionError("a repeated solve changed the plan")
-    stage_p50 = {k: round(statistics.median(v), 3) for k, v in stages.items()}
-    print(f"cfg5 e2e p50 {statistics.median(e2e):.3f} ms over {SOLVES} solves "
-          f"(min {min(e2e):.3f}, max {max(e2e):.3f}); stage p50 ms {stage_p50}; "
+        cold_s = time.perf_counter() - t
+        launches[path] = oa.LAUNCHES
+        print(f"{path}: kernel launches in one solve: {launches[path]}")
+        if launches[path] <= 0:
+            raise AssertionError(f"{path}: the kernel never launched")
+        placed = sum(len(n.pods) for n in plan.new_nodes) + sum(
+            len(v) for v in plan.existing_assignments.values())
+        ratio = plan.new_node_cost / oracle.new_node_cost
+        print(f"{path}: {len(plan.new_nodes)} nodes, ${plan.new_node_cost:.2f}/hr, "
+              f"{placed} pods placed, {len(plan.unschedulable)} unschedulable, "
+              f"cost ratio to the oracle {ratio:.6f}, pipelined={plan.pipelined}, "
+              f"cold solve {cold_s * 1e3:.1f} ms", flush=True)
+        if plan.unschedulable or placed != len(pods) or len(pods) != 50000:
+            raise AssertionError(f"{path}: placed {placed}/{len(pods)}, "
+                                 f"{len(plan.unschedulable)} unschedulable")
+        if not ratio <= 1.02:
+            raise AssertionError(f"{path}: cost ratio {ratio} above 1.02")
+        if plan.pipelined is not pipelined:
+            raise AssertionError(f"{path}: plan.pipelined={plan.pipelined}")
+        if _node_rows(plan) != _node_rows(cpu_plan) \
+                or plan.existing_assignments != cpu_plan.existing_assignments:
+            raise AssertionError(f"{path}: the card's plan differs from the CPU plan")
+        print(f"{path}: card plan == cpu plan, node by node", flush=True)
+        solvers[path] = solver
+
+    # e2e of both paths in turns (sequential, pipelined, then pipelined,
+    # sequential, ...), so that the host's drift falls on both alike
+    e2e = {path: [] for path in solvers}
+    stages = {path: {} for path in solvers}
+    for i in range(SOLVES):
+        for path in (list(solvers) if i % 2 == 0 else list(solvers)[::-1]):
+            t = time.perf_counter()
+            p = solvers[path].solve_relaxed(pods, pools, existing=existing)
+            torch.cuda.synchronize()
+            e2e[path].append((time.perf_counter() - t) * 1e3)
+            for k, v in p.stage_ms.items():
+                stages[path].setdefault(k, []).append(v)
+            if _node_rows(p) != _node_rows(cpu_plan):
+                raise AssertionError(f"{path}: a repeated solve changed the plan")
+    cfg5 = {}
+    for path, ms in e2e.items():
+        cfg5[path] = {"e2e_p50_ms": statistics.median(ms), "e2e_ms": ms,
+                      "stage_p50_ms": {k: statistics.median(v)
+                                       for k, v in stages[path].items()}}
+        print(f"{path}: e2e p50 {statistics.median(ms):.3f} ms over {SOLVES} "
+              f"solves (min {min(ms):.3f}, max {max(ms):.3f}); stage p50 ms "
+              f"{ {k: round(v, 3) for k, v in cfg5[path]['stage_p50_ms'].items()} }",
+              flush=True)
+    wins = sum(a < b for a, b in zip(e2e["cfg5_pipelined"], e2e["cfg5_sequential"]))
+    print(f"pipelined faster than sequential in {wins} of {SOLVES} turns; "
           f"peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB",
           flush=True)
+    print("(pipelined stages: compute is the host's issue time, download "
+          "holds the wait for the card)", flush=True)
 
-    # ---- 5. kernel times: the main path's own inputs, the dense largest
+    # ---- 5. steady state
+    _phase(f"steady state: cfg10 (20k pods, 120 nodes, "
+           f"{workloads.STEADY_PASSES} passes)")
+    steady, steady_problem = _steady_state(torch, workloads, lattice, oa)
+    launches["cfg10_steady_state"] = sum(steady["launches_per_pass"])
+
+    # ---- 6. kernel times: the main paths' own inputs, the dense largest
     # bucket, the launch floor
     _phase("kernel timing")
-    _, main_inputs = measure.captured_main_path_inputs(
+    solver = Solver(lattice)
+    _, cfg5_inputs = measure.captured_main_path_inputs(
         lambda: solver.solve_relaxed(pods, pools, existing=existing))
+    _, cfg10_inputs = measure.captured_main_path_inputs(
+        lambda: Solver(lattice, pipeline=False).solve(steady_problem))
     timed = {}
     for name, (tm, zc, pr) in (
-            ("main path", main_inputs),
+            ("cfg5", cfg5_inputs), ("cfg10", cfg10_inputs),
             ("dense", measure.on_device(offering_cases.dense_case(), dev))):
         max_err = max(max_err, measure.check_exact(
             f"{name} inputs", oa.cheapest_offering(tm, zc, pr),
@@ -231,10 +391,14 @@ def _run(torch) -> int:
         "name": "cheapest_offering", "route": "cuda",
         "source": "karpenter_provider_aws_tpu_torch/csrc/offering_argmin.cu",
         "replaces": "karpenter_provider_aws_tpu/ops/offering_argmin.py:92",
-        "launches": launches["cheapest_offering"], "max_abs_err": max_err,
-        **timed["main path"], "library_ms": None,
-        "launch_floor_ms": floor_ms, "dense": timed["dense"],
-    }]}), flush=True)
+        "launches": launches["cfg5_pipelined"], "max_abs_err": max_err,
+        **timed["cfg5"], "library_ms": None,
+        "launches_by_path": launches, "launch_floor_ms": floor_ms,
+        "cfg10": {**timed["cfg10"], "launches": launches["cfg10_steady_state"],
+                  "launches_per_pass": steady["launches_per_pass"]},
+        "dense": timed["dense"],
+    }], "cfg5": cfg5, "cfg10": {k: v for k, v in steady.items()
+                                if k != "launches_per_pass"}}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

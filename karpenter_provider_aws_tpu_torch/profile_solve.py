@@ -1,14 +1,19 @@
-"""Where one north-star solve spends its time on the card.
+"""Where one north-star solve, or one steady-state pass, spends its time
+on the card.
 
-    python3 -m karpenter_provider_aws_tpu_torch.profile_solve [--solves N]
+    python3 -m karpenter_provider_aws_tpu_torch.profile_solve [--solves N] [--steady]
 
 Solves ``workloads.config5_full_scale`` (50k pods x the real 759-type
 catalog) with ``Solver(lattice)`` on ``cuda``: a few warm solves, then N
-solves under ``torch.profiler``. Prints, per solve: wall time, the stage
-times the solver records, the summed device time of every kernel the
-profiler saw, the device's idle share of the wall time, and the kernels
-that took the most device time. The last line is one JSON object with the
-same numbers. Needs a card; exits non-zero without one.
+solves under ``torch.profiler``. With ``--steady`` it profiles N passes of
+the cfg10 steady-state microloop instead (``workloads.steady_state_passes``:
+incremental build + ``solve_delta``), after the cold pass and 3 warm
+passes; a pass's time is the one the harness takes, without the churn
+generator. Prints, per solve or pass: its time, the stage times the
+solver records, the summed device time of every kernel the profiler saw,
+the device's idle share of that time, and the kernels that took the most
+device time. The last line is one JSON object with the same numbers.
+Needs a card; exits non-zero without one.
 """
 
 from __future__ import annotations
@@ -23,6 +28,8 @@ import time
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--solves", type=int, default=5)
+    ap.add_argument("--steady", action="store_true",
+                    help="profile cfg10 steady-state passes, not cfg5 solves")
     args = ap.parse_args(argv)
 
     import torch
@@ -37,19 +44,35 @@ def main(argv=None) -> int:
         print("profile: needs a CUDA card", file=sys.stderr)
         return 1
     lattice = workloads.real_lattice()
-    pods, pools, existing = workloads.config5_full_scale()
     solver = Solver(lattice)
-    for _ in range(3):
-        solver.solve_relaxed(pods, pools, existing=existing)
+    if args.steady:
+        pods, pools, shapes = workloads.config10_steady_state()
+        churn = workloads.SteadyStateChurn(lattice, pods, shapes)
+        passes = workloads.steady_state_passes(solver, lattice, pools, churn,
+                                               passes=3 + args.solves)
+
+        def run():
+            _, _, plan, ms, _ = next(passes)
+            return plan, ms
+        warm = 4        # the cold pass and 3 warm passes
+    else:
+        pods, pools, existing = workloads.config5_full_scale()
+
+        def run():
+            t = time.perf_counter()
+            plan = solver.solve_relaxed(pods, pools, existing=existing)
+            torch.cuda.synchronize()
+            return plan, (time.perf_counter() - t) * 1e3
+        warm = 3
+    for _ in range(warm):
+        run()
     torch.cuda.synchronize()
 
     walls, stages = [], {}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(args.solves):
-            t = time.perf_counter()
-            plan = solver.solve_relaxed(pods, pools, existing=existing)
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t) * 1e3)
+            plan, ms = run()
+            walls.append(ms)
             for k, v in plan.stage_ms.items():
                 stages.setdefault(k, []).append(v)
 
@@ -68,6 +91,7 @@ def main(argv=None) -> int:
     top = sorted(events, key=dev_us, reverse=True)[:12]
     result = {
         "card": card_line(),
+        "workload": "cfg10 steady-state passes" if args.steady else "cfg5 solves",
         "solves": args.solves,
         "wall_ms_mean": wall_ms,
         "wall_ms_p50": statistics.median(walls),

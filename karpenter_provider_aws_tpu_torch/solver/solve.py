@@ -1,22 +1,33 @@
-"""Host-facing Solve() API, single device, sequential path.
+"""Host-facing Solve() API on one device.
 
 The port of the JAX package's ``solver/solve.py`` for one device: shape
-bucketing and padding, one fused uint8 upload, the grouped-FFD pack
+bucketing and padding, fused uint8 uploads, the grouped-FFD pack
 (ops/binpack.py) with its cheapest-offering kernel, one fused result
 buffer back, the bin-table overflow regrow, and the NodePlan decode. The
 decoded plan equals the JAX package's, field for field.
 
-What the JAX package does beyond this path raises ``NotImplementedError``
-when reached, and nothing falls back to anything: the degradation ladder's
-host-FFD rung (a device error surfaces as ``SolverDeviceError``), the wave
-split of a group axis above the largest bucket, the pipelined path and the
-delta solve, batched what-if probes, the sharded mesh solve, tracing
-spans and explain builds.
+Two paths solve a problem, with byte-identical plans. The pipelined one
+(the default, ``pipeline=True``) uploads through the resident input cache
+(solver/pipeline.py), starts the result copy right after dispatch and
+runs decode prep while the card computes; the sequential one
+(``pipeline=False``) synchronises after each stage. ``solve_delta`` is
+the steady-state entry point: its microloop keeps the whole fused
+problem resident on the card, ships only the changed blocks, and fetches
+the plan only when an on-device fingerprint says it moved.
+
+What the JAX package does beyond these paths raises
+``NotImplementedError`` when reached, and nothing falls back to anything:
+the degradation ladder's host-FFD rung (a device error surfaces as
+``SolverDeviceError``), the wave split of a group axis above the largest
+bucket, batched what-if probes, the sharded mesh solve and its microloop
+tail, tracing spans, fault injection, the device cost model and explain
+builds.
 """
 
 from __future__ import annotations
 
 import hashlib
+import logging
 import threading
 import time
 from dataclasses import dataclass, field
@@ -32,8 +43,11 @@ from ..lattice.tensors import Lattice
 from ..ops import binpack
 from . import taxonomy
 from .explain import unplaced_reason
-from .pipeline import StageTimer
+from .pipeline import (ResidentInputCache, StageTimer, fetch_async,
+                       plan_changed)
 from .problem import Problem
+
+_LOG = logging.getLogger(__name__)
 
 _G_BUCKETS = (16, 32, 64, 96, 128, 192, 256, 512, 1024, 4096)
 _B_BUCKETS = (32, 128, 512, 1024, 2048, 8192)
@@ -94,6 +108,34 @@ class NodePlan:
     @property
     def num_new_nodes(self) -> int:
         return len(self.new_nodes)
+
+
+@dataclass
+class _MicroState:
+    """Retained cross-pass state of the device-resident reconcile
+    microloop. ``key`` pins the layout this state was built under: any
+    bucket or size drift is a cold restart, never a stale reuse.
+    ``prev_dev`` is the previous pass's device result buffer (the
+    changed-plan fingerprint compares against it ON DEVICE); ``prev_host``
+    its host copy, re-decoded with the current pass's pod names whenever
+    the fingerprint says the packing did not move (the skipped-sync
+    path). The result never aliases the resident input: the pack encodes
+    it into a buffer of its own."""
+
+    key: Tuple
+    prev_dev: Optional[torch.Tensor] = None
+    prev_host: Optional[np.ndarray] = None
+    # the lattice VIEW (strong ref — an id() can never be reused stale)
+    # and price version this state solved against: a reprice or a new
+    # ICE-masked view invalidates retention outright
+    lattice: object = None
+    price_version: int = -1
+
+
+class _MicroIneligible(Exception):
+    """Internal: this pass cannot ride the microloop (shape or bin-table
+    overflow outside the steady-state envelope) — solve_delta falls back
+    to the standard solve. Never surfaces to callers."""
 
 
 def _bucket(n: int, buckets: Sequence[int], clamp: bool = False) -> int:
@@ -218,20 +260,24 @@ def _locked(fn):
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to the PyTorch solver; only the "
-        f"single-device sequential solve is")
+        f"single-device solve is")
 
 
 class Solver:
     """Holds the lattice resident on one device; solves padded problems.
 
     ``device`` None means ``cuda`` and raises when CUDA is absent; pass
-    ``device="cpu"`` for the plain PyTorch path on the CPU. Thread-safe:
-    every public solve entry point serializes on an internal RLock."""
+    ``device="cpu"`` for the plain PyTorch path on the CPU. ``pipeline``
+    picks the overlapped path (default) or the strictly sequential one.
+    Thread-safe: every public solve entry point serializes on an internal
+    RLock."""
+
+    # the steady-state delta path (IncrementalProblemBuilder +
+    # solve_delta) runs in this process, on this Solver's device
+    supports_delta = True
 
     def __init__(self, lattice: Lattice, device: DeviceLike = None,
-                 pipeline: bool = False):
-        if pipeline:
-            raise _not_ported("the pipelined solve path (pipeline=True)")
+                 pipeline: bool = True):
         self.device = resolve_device(device)
         # the pack's only matmul (_offer_reachable) is a 0/1 count that
         # must stay exact: full float32, never TF32
@@ -250,15 +296,86 @@ class Solver:
         self._b_hint: Dict[int, Tuple[int, int]] = {}
         # content-keyed memo of _estimate_bins' per-group fit caps
         self._est_cache: Dict[bytes, np.ndarray] = {}
-        # host↔device transfers: a LEG is a fused upload or a result fetch
+        # the overlapped solve path: resident input deltas, the result
+        # copy started at dispatch, decode prep while the card computes.
+        # Off = the strictly sequential path
+        self.pipeline = pipeline
+        self._resident = ResidentInputCache(device=dev)
+        # proof that the overlap and the microloop engaged; the keys are
+        # the JAX package's, so both report alike (the mesh and merge
+        # counters stay 0 here: the mesh is not ported)
+        self.pipeline_stats: Dict[str, int] = {
+            "async_solves": 0,       # device solves that dispatched async
+            "prefetched_waves": 0,   # wave inputs uploaded during compute
+            # the steady-state delta path: passes it carried, group rows
+            # it re-tensorized, and whether the resident entry was warm
+            "delta_solves": 0,
+            "delta_dirty_groups": 0,
+            "resident_problem_hits": 0,
+            "resident_problem_misses": 0,
+            "mesh_solves": 0,
+            # the microloop (solve_delta → _solve_micro): passes it
+            # carried, plan fetches its fingerprint suppressed, plan
+            # fetches it paid, passes that fell back to the standard
+            # solve, O(1) fingerprint syncs, and admission-bookkeeping
+            # closures it overlapped with the in-flight dispatch
+            "micro_solves": 0,
+            "micro_skipped_syncs": 0,
+            "micro_fetches": 0,
+            "micro_merge_solves": 0,
+            "micro_merge_skips": 0,
+            "micro_merge_regrows": 0,
+            "micro_aborts": 0,
+            "micro_tiny_syncs": 0,
+            "overlapped_admission": 0,
+            # link legs of the LAST delta pass (uploads + fetches)
+            "micro_last_legs": 0,
+        }
+        # host↔device transfers: a LEG is a transfer whose size scales
+        # with the problem or plan (fused uploads, dirty-block scatters,
+        # result fetches); the fingerprint's one bool is a micro_tiny_sync
         self.link_stats: Dict[str, int] = {
             "upload_legs": 0, "upload_bytes": 0,
             "fetch_legs": 0, "fetch_bytes": 0,
         }
+        self._resident.account = self._account_link
+        # retained microloop state (None = cold); reset by every
+        # device-state invalidation
+        self._micro: Optional[_MicroState] = None
+
+    def set_pipeline(self, enabled: bool) -> None:
+        """Toggle the overlapped solve path (thread-safe)."""
+        with self._solve_lock:
+            self.pipeline = bool(enabled)
 
     def _account_link(self, direction: str, nbytes: int) -> None:
+        """One host↔device transfer crossed the link (see link_stats)."""
         self.link_stats[direction + "_legs"] += 1
         self.link_stats[direction + "_bytes"] += int(nbytes)
+
+    def _invalidate_device_state(self) -> None:
+        """Drop every retained device buffer: the resident input entries
+        and the microloop's retained result. One helper so no recovery
+        path can forget a layer."""
+        self._resident.invalidate()
+        self._micro = None
+
+    def stats(self) -> Dict[str, object]:
+        """Introspection snapshot (counter reads only; never takes the
+        solve lock, so it never queues behind an in-flight solve)."""
+        out: Dict[str, object] = {
+            "pipeline": bool(self.pipeline),
+            "est_cache_entries": len(self._est_cache),
+            "b_hint_entries": len(self._b_hint),
+            "micro_engaged": self._micro is not None,
+        }
+        for k, v in self.pipeline_stats.items():
+            out[k] = v
+        for k, v in self.link_stats.items():
+            out["link_" + k] = v
+        for k, v in self._resident.stats().items():
+            out["resident_" + k] = v
+        return out
 
     _EST_CACHE_MAX = 128
 
@@ -487,12 +604,32 @@ class Solver:
             B = fresh
         return fresh, min(B, _B_BUCKETS[-1])
 
+    def _stage_upload(self, key: Tuple, buf: np.ndarray,
+                      pipelined: bool) -> torch.Tensor:
+        """One fused upload: through the resident cache on the pipelined
+        path, whole and synchronised on the sequential one."""
+        if pipelined:
+            return self._resident.upload(key, buf)
+        dev = self._upload(buf)
+        self._sync()
+        return dev
+
     def _solve_device(self, problem: Problem,
                       t0: Optional[float] = None) -> NodePlan:
         """The primary path: one bucketed device pack. Raises
         SolverCapacityError when the bin table cannot grow past its top
-        bucket and SolverDeviceError when the device call fails."""
+        bucket and SolverDeviceError when the device call fails.
+
+        The pipelined variant (``self.pipeline``) overlaps host work with
+        the in-flight pack: the group and init buffers ride the resident
+        cache, nothing synchronises between dispatch and fetch, the result
+        copy starts right after dispatch (solver/pipeline.py
+        ``fetch_async``) and decode prep fills the wait. So its
+        ``compute`` stage is the host's issue time and ``download`` holds
+        the wait for the card; the sequential variant synchronises after
+        each stage, so there ``compute`` is the device time."""
         t0 = time.perf_counter() if t0 is None else t0
+        pipelined = self.pipeline
         stages = StageTimer()
         G = _bucket(problem.G, _G_BUCKETS)
         fresh, B = self._b_budget_single(problem, G)
@@ -501,24 +638,38 @@ class Solver:
 
         with stages.span("build"):
             fused_np = self._fused_inputs_np(problem, G)
-        # no existing bins: the group buffer is the only upload, made once
-        # across overflow regrows; with existing bins, groups + bins ride
-        # one combined upload per dispatch (the bin table grows with B)
+        # the group buffer is uploaded once across overflow regrows and
+        # the (small) existing-bin buffer once per dispatch, except on the
+        # sequential path with existing bins, where groups + bins ride one
+        # combined upload per dispatch (the bin table grows with B)
+        use_efused = pipelined or problem.E == 0
         gbuf = None
         avail, price = self._device_avail_price(problem)
+        prep = None
         while True:
             td = time.perf_counter()
             try:
-                if problem.E == 0:
+                if use_efused:
                     if gbuf is None:
                         with stages.span("upload"):
-                            gbuf = self._upload(fused_np)
-                            self._sync()
+                            # ("g", G, size): the whole-problem resident
+                            # entry a steady-state solve delta-refreshes
+                            gbuf = self._stage_upload(
+                                ("g", G, fused_np.size), fused_np, pipelined)
+                    init_dev = None
+                    if problem.E:
+                        with stages.span("build"):
+                            init_np = self._fused_init_np(problem, B)
+                        with stages.span("upload"):
+                            init_dev = self._stage_upload(
+                                ("i", B, init_np.size), init_np, pipelined)
                     with stages.span("compute"):
                         dev_buf = binpack.pack_packed_efused(
-                            self._alloc, avail, price, gbuf, None, 0, B,
-                            G, lat.T, lat.Z, lat.C, NP, A, lean=True)
-                        self._sync()
+                            self._alloc, avail, price, gbuf, init_dev,
+                            problem.E, B, G, lat.T, lat.Z, lat.C, NP, A,
+                            lean=True)
+                        if not pipelined:
+                            self._sync()
                 else:
                     with stages.span("build"):
                         init_np = self._fused_init_np(problem, B)
@@ -532,15 +683,27 @@ class Solver:
                             len(fused_np), problem.E, B,
                             G, lat.T, lat.Z, lat.C, NP, A, lean=True)
                         self._sync()
-                with stages.span("download"):
-                    buf = dev_buf.cpu().numpy()
-                    self._account_link("fetch", buf.nbytes)
+                # start streaming the result the moment the pack finishes;
+                # the host fills the wait below
+                pending = fetch_async(dev_buf) if pipelined else None
             except SolverError:
                 raise
             except RuntimeError as e:
                 # kernel launch failure, device OOM, transfer failure
                 raise SolverDeviceError(
                     f"{type(e).__name__}: {e}", cause=e) from e
+            # host work outside the device-error wrap: a bug here must not
+            # pass for a device fault
+            if pipelined and prep is None:
+                prep = self._decode_prep(problem)
+            try:
+                with stages.span("download"):
+                    buf = (pending.wait() if pipelined
+                           else dev_buf.cpu().numpy())
+            except RuntimeError as e:
+                raise SolverDeviceError(
+                    f"{type(e).__name__}: {e}", cause=e) from e
+            self._account_link("fetch", buf.nbytes)
             device_s = time.perf_counter() - td
             with stages.span("decode"):
                 dec = _unpack_decode_set(buf, G, lat.T, lat.Z, lat.C, A,
@@ -562,10 +725,14 @@ class Solver:
                          clamp=True)
         self._b_hint[G] = (fresh, needed)
         with stages.span("decode"):
-            plan = self._decode(problem, dec, device_s)
+            plan = self._decode(problem, dec, device_s, prep=prep)
         plan.solve_seconds = time.perf_counter() - t0
         plan.warnings = list(problem.warnings)
         plan.stage_ms = stages.ms
+        plan.pipelined = pipelined
+        if pipelined:
+            # once per completed solve, not per overflow-regrow dispatch
+            self.pipeline_stats["async_solves"] += 1
         return plan
 
     # ---- host-FFD solve (on request only) ----
@@ -746,11 +913,193 @@ class Solver:
                     out[l] = shared
         return out
 
-    # ---- not ported ----
+    # ---- the steady-state delta solve and its microloop ----
 
-    def solve_delta(self, problem: Problem, dirty_groups=(), mesh=None,
-                    overlap=None) -> NodePlan:
-        raise _not_ported("the steady-state delta solve and its microloop")
+    @_locked
+    def solve_delta(self, problem: Problem, dirty_groups: Sequence[int] = (),
+                    mesh=None, overlap=None) -> NodePlan:
+        """The steady-state delta-solve entry point. The problem arrived
+        via solver/incremental.py, so its fused input buffers differ from
+        the previous pass's only in the dirty-group blocks: the
+        device-resident reconcile MICROLOOP (:meth:`_solve_micro`) ships
+        exactly those blocks as one in-place scatter, dispatches against
+        the resident problem state, and fetches the plan back only when
+        the on-device changed-plan fingerprint says it moved. A pass
+        outside the microloop's envelope, or one whose device work fails,
+        re-solves through :meth:`solve` on the same device (pipelined)
+        and counts ``micro_aborts``; a failure first drops every retained
+        device buffer. Forces the pipelined path for the call. Plans are
+        identical to :meth:`solve` of the same problem.
+
+        ``overlap`` (zero-arg callable) is the admission-bookkeeping seam:
+        it runs inside the device compute window (between dispatch and the
+        fingerprint sync), at most once per call; on the fallback it runs
+        only after the fallback solve lands."""
+        if mesh is not None:
+            raise _not_ported("the sharded mesh solve")
+        pre_hits = self._resident.hits
+        pre_legs = (self.link_stats["upload_legs"]
+                    + self.link_stats["fetch_legs"])
+        was_pipelined = self.pipeline
+        self.pipeline = True
+        overlap_once = [overlap] if overlap is not None else []
+
+        def run_overlap():
+            if overlap_once:
+                fn = overlap_once.pop()
+                fn()
+                self.pipeline_stats["overlapped_admission"] += 1
+
+        try:
+            try:
+                plan = self._solve_micro(problem, overlap=run_overlap)
+                self.pipeline_stats["micro_solves"] += 1
+            except _MicroIneligible:
+                self.pipeline_stats["micro_aborts"] += 1
+                plan = self.solve(problem)
+                # only after the fallback lands: a failing pass must not
+                # record admission bookkeeping for a dropped wave
+                run_overlap()
+            except Exception:
+                # the retained device state may be half-written (the
+                # scatter is in place): rebuild from scratch rather than
+                # re-dispatch against it; the standard solve raises if
+                # the device fails again. Counted and logged, never silent
+                _LOG.warning("microloop pass failed; dropping the resident "
+                             "state and re-solving", exc_info=True)
+                self.pipeline_stats["micro_aborts"] += 1
+                self._invalidate_device_state()
+                plan = self.solve(problem)
+                run_overlap()
+        finally:
+            self.pipeline = was_pipelined
+        self.pipeline_stats["delta_solves"] += 1
+        self.pipeline_stats["delta_dirty_groups"] += len(dirty_groups)
+        self.pipeline_stats["micro_last_legs"] = (
+            self.link_stats["upload_legs"]
+            + self.link_stats["fetch_legs"] - pre_legs)
+        if self._resident.hits > pre_hits:
+            self.pipeline_stats["resident_problem_hits"] += 1
+        else:
+            self.pipeline_stats["resident_problem_misses"] += 1
+        return plan
+
+    def _solve_micro(self, problem: Problem, overlap=None) -> NodePlan:
+        """One steady-state reconcile pass against device-RESIDENT problem
+        state.
+
+        The whole fused problem (groups + pools and, when present, the
+        existing-bin table) lives as ONE resident device buffer; the pass
+        block-diffs against it and ships exactly the dirty blocks in one
+        in-place scatter upload (leg 1). The pack dispatches against the
+        updated resident state; admission bookkeeping and decode prep run
+        while it computes; the only mandatory sync is the O(1) changed-plan
+        fingerprint, and the plan buffer is fetched (leg 2) only when it
+        says the packing moved — an unchanged plan re-decodes the retained
+        host bytes against the current pod names.
+
+        Raises :class:`_MicroIneligible` outside the envelope (a group
+        axis above the largest bucket, bin-table overflow)."""
+        t0 = time.perf_counter()
+        if problem.G == 0:
+            raise _MicroIneligible("empty")
+        if problem.G > _G_BUCKETS[-1]:
+            raise _MicroIneligible("wave-scale G")
+        lat = self.lattice
+        NP, A = max(problem.NP, 1), max(problem.A, 1)
+        stages = StageTimer()
+        G = _bucket(problem.G, _G_BUCKETS)
+        fresh, B = self._b_budget_single(problem, G)
+
+        with stages.span("build"):
+            fused_np = self._fused_inputs_np(problem, G)
+            g_size = int(fused_np.size)
+            combined_np = (np.concatenate(
+                [fused_np, self._fused_init_np(problem, B)])
+                if problem.E else fused_np)
+        # the resident problem identity: device count, group/bin buckets
+        # and exact byte length — any drift is a cold re-upload, and the
+        # retained fingerprint state keys on the same tuple
+        key = ("m", 1, G, B, int(combined_np.size))
+        ms = self._micro
+        if ms is not None and (
+                ms.key != key
+                or ms.lattice is not problem.lattice
+                or ms.price_version != problem.lattice.price_version):
+            # layout drift, a new (ICE-masked) lattice view, or a reprice:
+            # the retained result was solved against other inputs
+            ms = None
+        try:
+            with stages.span("upload"):
+                comb_dev = self._resident.upload(key, combined_np,
+                                                 donate=True)
+            td = time.perf_counter()
+            avail, price = self._device_avail_price(problem)
+            with stages.span("compute"):
+                if problem.E:
+                    new_dev = binpack.pack_packed_combined(
+                        self._alloc, avail, price, comb_dev, g_size,
+                        problem.E, B, G, lat.T, lat.Z, lat.C, NP, A,
+                        lean=True)
+                else:
+                    new_dev = binpack.pack_packed_efused(
+                        self._alloc, avail, price, comb_dev, None, 0, B,
+                        G, lat.T, lat.Z, lat.C, NP, A, lean=True)
+        except SolverError:
+            raise
+        except RuntimeError as e:
+            raise SolverDeviceError(f"{type(e).__name__}: {e}",
+                                    cause=e) from e
+        # host work rides the in-flight dispatch: the caller's admission
+        # bookkeeping and the plan-independent decode prep
+        if overlap is not None:
+            overlap()
+        prep = self._decode_prep(problem)
+        try:
+            with stages.span("download"):
+                # the one mandatory sync: the O(1) changed-plan fingerprint
+                changed = plan_changed(new_dev, ms.prev_dev if ms else None)
+                self.pipeline_stats["micro_tiny_syncs"] += 1
+                if changed:
+                    buf = fetch_async(new_dev).wait()
+                    self._account_link("fetch", buf.nbytes)
+                    self.pipeline_stats["micro_fetches"] += 1
+                else:
+                    buf = ms.prev_host
+                    self.pipeline_stats["micro_skipped_syncs"] += 1
+        except RuntimeError as e:
+            raise SolverDeviceError(f"{type(e).__name__}: {e}",
+                                    cause=e) from e
+        device_s = time.perf_counter() - td
+        if ms is None:
+            ms = _MicroState(key=key)
+        self._micro = ms
+        ms.lattice = problem.lattice
+        ms.price_version = problem.lattice.price_version
+        ms.prev_dev = new_dev
+        if changed:
+            ms.prev_host = buf
+
+        with stages.span("decode"):
+            dec = _unpack_decode_set(buf, G, lat.T, lat.Z, lat.C, A,
+                                     lean=True)
+        if (dec.leftover.sum() > 0) and dec.next_open >= B:
+            # bin-table overflow: the standard solve owns growth
+            self._micro = None
+            raise _MicroIneligible("bin-table overflow")
+        needed = _bucket(max(dec.next_open, problem.E + 1, 1), _B_BUCKETS,
+                         clamp=True)
+        self._b_hint[G] = (fresh, needed)
+        with stages.span("decode"):
+            plan = self._decode(problem, dec, device_s, prep=prep)
+        plan.solve_seconds = time.perf_counter() - t0
+        plan.warnings = list(problem.warnings)
+        plan.stage_ms = stages.ms
+        plan.pipelined = True
+        self.pipeline_stats["async_solves"] += 1
+        return plan
+
+    # ---- not ported ----
 
     def probe_batch(self, problems, existing_counts=None):
         raise _not_ported("batched consolidation what-if probes")

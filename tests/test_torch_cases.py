@@ -270,3 +270,79 @@ def build(pkg: str, case: str):
 def problem(pkg: str, case: str):
     lat, pods, pools, kw = build(pkg, case)
     return mod(pkg, "solver.problem").build_problem(pods, pools, lat, **kw)
+
+
+CHURN_SHAPES = (("250m", "512Mi"), ("500m", "1Gi"), ("1", "2Gi"), ("2", "4Gi"))
+
+
+def churn_sequence(pkg: str, lat, seed: int = 7, steps: int = 14):
+    """A seeded steady-state churn sequence over the m5/c5 slice, built
+    from ``pkg``'s own classes: yields ``(pods, pools, existing, dirty,
+    touched)`` per step, the cold full build first. Steps add and remove
+    pending pods, move existing-bin usage, churn nothing, and hit the
+    builder's gates: a revision skew, bulk churn, a new signature, a pod
+    with an unknown resource, a pool change and a count mismatch. Each
+    step's objects are new lists; the pods themselves are shared across
+    steps as a cluster mirror shares them."""
+    A = mod(pkg, "apis")
+    P = mod(pkg, "solver.problem")
+    R = mod(pkg, "apis.resources").R
+    DirtySet = mod(pkg, "state.cluster").DirtySet
+    rng = np.random.default_rng(seed)
+    serial = 0
+
+    def pod(shape):
+        nonlocal serial
+        serial += 1
+        cpu, mem = CHURN_SHAPES[shape]
+        return A.Pod(name=f"c{serial}", requests={"cpu": cpu, "memory": mem})
+
+    pods = [pod(i % 4) for i in range(120)]
+    existing = []
+    for i, t in enumerate(("m5.xlarge", "m5.2xlarge", "c5.xlarge", "c5.2xlarge")):
+        used = np.zeros((R,), np.float32)
+        used[0] = 500.0 * i
+        existing.append(P.ExistingBin(name=f"node-{i}", node_pool="default",
+                                      instance_type=t, zone=lat.zones[i % lat.Z],
+                                      capacity_type="on-demand", used=used))
+    pools = [A.NodePool(name="default")]
+    rev = 0
+    yield list(pods), pools, list(existing), DirtySet(since=-1, rev=0, full=True), {}
+    kinds = ["churn", "churn", "none", "skew", "churn", "bulk", "churn",
+             "newsig", "churn", "unknown", "pool", "churn", "mismatch", "churn"]
+    for kind in kinds[:steps]:
+        touched, bins, since = {}, False, rev
+        if kind in ("churn", "bulk", "mismatch"):
+            n_gone = int(rng.integers(1, 4)) if kind != "bulk" else 80
+            gone = set(int(i) for i in rng.choice(len(pods), size=n_gone,
+                                                  replace=False))
+            touched.update({pods[i].name: ("gone", None) for i in gone})
+            pods = [p for i, p in enumerate(pods) if i not in gone]
+            for _ in range(int(rng.integers(1, 5))):
+                p = pod(int(rng.integers(4)))
+                pods.append(p)
+                touched[p.name] = ("pending", p)
+            if kind == "mismatch":
+                # a pending pod the journal never reported
+                pods.append(pod(0))
+            b = existing[int(rng.integers(len(existing)))]
+            u = b.used.copy()
+            u[0] += 250.0
+            b.used = u
+            bins = True
+        elif kind == "skew":
+            since = rev + 3
+        elif kind == "newsig":
+            p = A.Pod(name="odd-1", requests={"cpu": "7777m", "memory": "3Gi"})
+            pods.append(p)
+            touched[p.name] = ("pending", p)
+        elif kind == "unknown":
+            p = A.Pod(name="weird-1", requests={"cpu": "1", "example.com/foo": 1})
+            pods.append(p)
+            touched[p.name] = ("pending", p)
+        elif kind == "pool":
+            pools = [A.NodePool(name="default", labels={"rev": "r2"})]
+        rev += 1
+        yield (list(pods), pools, list(existing),
+               DirtySet(since=since, rev=rev, pods=set(touched), bins=bins),
+               touched)

@@ -119,3 +119,37 @@ def test_existing_bins_and_affinity_on_the_card(cuda):
     assert rows[0] == rows[1]
     assert plans[0].existing_assignments == plans[1].existing_assignments
     assert plans[0].existing_assignments and not plans[0].unschedulable
+
+
+def test_steady_state_on_the_card_equals_cpu(cuda):
+    """The steady-state sequence (incremental builds, solve_delta with the
+    resident in-place scatter, the fingerprint and the async fetch) on the
+    card: every pass's plan, counters and link accounting equal the CPU
+    run's, and every pass launches the kernel."""
+    import test_torch_cases as cases
+    from karpenter_provider_aws_tpu_torch.solver.incremental import (
+        IncrementalProblemBuilder)
+    lat = cases.small_lattice(cases.TORCH_PKG)
+    runs = []
+    for dev in (cuda, "cpu"):
+        solver, builder, out = Solver(lat, device=dev), IncrementalProblemBuilder(), []
+        for pods, pools, ex, dirty, touched in cases.churn_sequence(cases.TORCH_PKG, lat):
+            res = builder.build(pods, pools, lat, existing=ex, dirty=dirty,
+                                touched=touched)
+            before = oa.LAUNCHES
+            if res.incremental:
+                plan = solver.solve_delta(res.problem, dirty_groups=res.dirty_groups)
+            else:
+                plan = solver.solve(res.problem)
+                solver.solve_delta(res.problem)
+            launched = oa.LAUNCHES - before
+            out.append(([(n.instance_type, n.zone, n.capacity_type, n.pods)
+                         for n in plan.new_nodes], plan.existing_assignments,
+                        plan.unschedulable, dict(solver.pipeline_stats),
+                        dict(solver.link_stats), launched))
+        runs.append(out)
+    for step, (card, host) in enumerate(zip(*runs)):
+        assert card[:5] == host[:5], f"step {step}"
+        assert card[5] >= 1 and host[5] == 0
+    assert runs[0][-1][3]["micro_skipped_syncs"] >= 1
+    assert runs[0][-1][3]["micro_aborts"] == 0

@@ -77,6 +77,86 @@ class TestBuildProblem:
             assert_problems_equal(j_build(jpods, jpools, jl, existing=jex),
                                   t_build(tpods, tpools, tl, existing=tex))
 
+    def test_bench_config10_and_its_churn(self, monkeypatch):
+        """workloads.py's cfg10 and SteadyStateChurn give the same pods,
+        pools, existing nodes and churn as bench.py's config10_steady_state
+        and the pass loop of run_microloop_config (seeds 10 and 14). The
+        bench harness runs with its solvers and builder replaced by
+        recorders, so only its own generator code runs."""
+        import karpenter_provider_aws_tpu.solver as jsolver
+        import karpenter_provider_aws_tpu.solver.incremental as jinc
+        from karpenter_provider_aws_tpu.solver.solve import NodePlan as JaxPlan
+
+        def pod_row(p):
+            return (p.name, tuple(p.requests.items()), tuple(p.node_selector.items()))
+
+        def bins_row(existing):
+            return [(b.name, b.node_pool, b.instance_type, b.zone, b.capacity_type,
+                     b.used.tobytes()) for b in existing]
+
+        def touched_row(touched):
+            return sorted((n, st, None if p is None else pod_row(p))
+                          for n, (st, p) in touched.items())
+
+        recorded = []
+
+        class Recorder:
+            rev = -1
+
+            def build(self, pods, pools, lattice, existing=(), dirty=None,
+                      touched=None, **kw):
+                ex = existing() if callable(existing) else existing
+                recorded.append(([pod_row(p) for p in pods], [p.name for p in pools],
+                                 bins_row(ex), (dirty.since, dirty.rev, dirty.full,
+                                                sorted(dirty.pods), dirty.bins),
+                                 touched_row(touched or {})))
+                self.rev = dirty.rev
+                return types.SimpleNamespace(problem=types.SimpleNamespace(G=0),
+                                             incremental=True,
+                                             dirty_groups=(), reason="")
+
+        counters = {k: 0 for k in ("micro_skipped_syncs", "micro_solves",
+                                   "delta_solves", "micro_merge_solves",
+                                   "micro_merge_regrows", "micro_last_legs")}
+
+        class NoSolver:
+            mesh = None
+            pipeline_stats = counters
+
+            def __init__(self, *a, **k):
+                pass
+
+            def solve(self, problem, **kw):
+                return JaxPlan([], {}, {}, 0.0, 0.0, 0.0)
+
+            solve_delta = solve
+
+            def stats(self):
+                return {"link_upload_bytes": 0, "link_fetch_bytes": 0}
+
+        monkeypatch.setattr(jsolver, "Solver", NoSolver)
+        monkeypatch.setattr(jsolver, "build_problem", lambda *a, **k: None)
+        monkeypatch.setattr(jinc, "IncrementalProblemBuilder", Recorder)
+        jl = j_build_lattice(j_load_catalog(None, require_price=True))
+        bench.run_microloop_config(jl, NoSolver())
+        assert len(recorded) == 1 + workloads.STEADY_PASSES == 1 + bench.DELTA_PASSES
+
+        tl = workloads.real_lattice()
+        pods, pools, shapes = workloads.config10_steady_state()
+        churn = workloads.SteadyStateChurn(tl, pods, shapes)
+        mine = [([pod_row(p) for p in churn.pods], [p.name for p in pools],
+                 bins_row(churn.existing), (-1, 0, True, [], False), [])]
+        for pass_i in range(workloads.STEADY_PASSES):
+            touched, nochurn = churn.churn(pass_i)
+            mine.append(([pod_row(p) for p in churn.pods], [p.name for p in pools],
+                         bins_row(churn.existing),
+                         (pass_i, pass_i + 1, False, sorted(touched), not nochurn),
+                         touched_row(touched)))
+        assert len(churn.pods) == 20000 and len(churn.existing) == 120
+        assert sum(not m[3][4] for m in mine[1:]) == 3
+        for step, (got, want) in enumerate(zip(mine, recorded)):
+            assert got == want, f"pass {step - 1} differs"
+
     def test_cfg5_full_size_real_catalog(self):
         """The north-star wave: 50k pods x the real 759-type catalog."""
         jl = j_build_lattice(j_load_catalog(None, require_price=True))
@@ -164,16 +244,19 @@ class TestSolverParity:
 
 
 class TestNotPorted:
-    def test_pipeline_mesh_delta_probe_raise(self):
+    def test_mesh_and_probe_raise(self):
+        """The pipelined path and solve_delta are ported; the mesh and the
+        batched probes still raise wherever they can be asked for."""
         lat = cases.small_lattice(cases.TORCH_PKG)
-        with pytest.raises(NotImplementedError):
-            TorchSolver(lat, device=CPU, pipeline=True)
         ts = TorchSolver(lat, device=CPU)
         prob = cases.problem(cases.TORCH_PKG, "generic")
+        _, pods, pools, _ = cases.build(cases.TORCH_PKG, "generic")
         with pytest.raises(NotImplementedError):
             ts.solve(prob, mesh=object())
         with pytest.raises(NotImplementedError):
-            ts.solve_delta(prob)
+            ts.solve_relaxed(pods, pools, mesh=object())
+        with pytest.raises(NotImplementedError):
+            ts.solve_delta(prob, mesh=object())
         with pytest.raises(NotImplementedError):
             ts.probe_batch([prob])
 
