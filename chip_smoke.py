@@ -35,7 +35,27 @@ Phases, in order; any failure exits non-zero and prints no result line:
    scratch ``build_problem``. The phase fails unless every pass rode the
    microloop with no abort, the 3 no-churn passes skipped their fetch, no
    pass paid more than 2 link legs, and every pass launched the kernel;
-6. kernel timing: the kernel and its plain version at cfg5's and cfg10's
+6. provisioner: the provisioning controller end to end on the card
+   (``workloads.ProvisionerStack``: ``ClusterState``, ``FakeCloud``,
+   ``CloudProvider``, ``Provisioner`` with the delta path on, and the
+   ``LifecycleController``, all on one ``FakeClock``). (a) The cfg5 wave
+   as pending pods through one ``provision_once``: not degraded, on the
+   device path, 0 unschedulable pods and 0 launch failures, every pod
+   nominated to a launched claim, the kernel launched, and the plan equal
+   to the port's CPU plan node by node; then registration binds every
+   pod. (b) cfg10's 20k pods provisioned from empty and registered, then
+   12 passes of cfg10's churn rate (about 1.5 % of the bound pods leave
+   and as many arrive, every 4th pass nothing) and 12 passes of the delta
+   smoke's small churn, each with batch-window polls, ``provision_once``
+   and registration, each churned pass refereed by a scratch
+   ``build_problem`` of the same cluster solved on a sequential Solver
+   (pod by pod where the pass rebuilt in full, by pod shape where it rode
+   the delta path), and each churned pass's own kernel inputs, captured
+   during the pass, held exactly against the plain version.
+   The phase fails on a degraded pass, a launch failure, a referee
+   mismatch, a churned pass that did not launch the kernel, a microloop
+   abort, no delta solve or incremental build, or a pod left pending;
+7. kernel timing: the kernel and its plain version at cfg5's and cfg10's
    own inputs (captured in a solve of each) and at the dense largest bin
    bucket (B=8192), and the card's launch floor (a one-element in-place
    add), each the median of 100 device times from CUDA events, queued
@@ -55,6 +75,7 @@ import traceback
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SOLVES = 12
+SMALL_PASSES = 12
 
 
 def _fail(msg: str) -> int:
@@ -62,8 +83,18 @@ def _fail(msg: str) -> int:
     return 1
 
 
+_PHASE = {}
+
+
 def _phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    """Start the next phase; print the wall seconds of the one before."""
+    now = time.perf_counter()
+    if _PHASE:
+        print(f"-- {_PHASE['name']}: {now - _PHASE['t']:.1f} s", flush=True)
+        _PHASE.setdefault("seconds", {})[_PHASE["name"]] = now - _PHASE["t"]
+    _PHASE.update(name=name, t=now)
+    if name:
+        print(f"== {name}", flush=True)
 
 
 def _kernel_cases(dev):
@@ -198,6 +229,245 @@ def _steady_state(torch, workloads, lattice, oa):
         raise AssertionError(f"cfg10: a pass never launched the kernel: "
                              f"{launches_per_pass}")
     return out, res.problem
+
+
+def _split(stack, result, wall_ms):
+    """A pass's wall time split: the problem build, the solve (its
+    ``solve_seconds``, whose stages are in ``stage_ms``), the launch loop,
+    and the rest (explain, limits, bookkeeping)."""
+    t = stack.timing
+    solve_ms = (result.plan.solve_seconds * 1e3
+                if result.plan is not None else 0.0)
+    build = t.get("build", 0.0)
+    loop = t.get("launch_loop", 0.0)
+    return {"wall_ms": wall_ms, "build_ms": build, "solve_ms": solve_ms,
+            "stage_ms": (dict(result.plan.stage_ms)
+                         if result.plan is not None else {}),
+            "launch_loop_ms": loop, "create_ms": t.get("create", 0.0),
+            "rest_ms": wall_ms - build - solve_ms - loop}
+
+
+def _fmt_split(d):
+    return (f"wall {d['wall_ms']:.3f} ms = build {d['build_ms']:.3f} + solve "
+            f"{d['solve_ms']:.3f} (stages "
+            f"{ {k: round(v, 3) for k, v in d['stage_ms'].items()} }) + launch "
+            f"loop {d['launch_loop_ms']:.3f} (CloudProvider.create "
+            f"{d['create_ms']:.3f}) + rest {d['rest_ms']:.3f}")
+
+
+def _check_pass(name, result):
+    """No fallback may hide the card: a degraded pass, a launch failure or
+    an unschedulable pod fails the phase."""
+    if result.degraded:
+        raise AssertionError(f"{name}: degraded pass ({result.degraded_reason})")
+    if result.launch_failures:
+        raise AssertionError(f"{name}: {result.launch_failures} launch failures")
+    if result.pods_unschedulable:
+        raise AssertionError(f"{name}: {result.pods_unschedulable} "
+                             f"unschedulable pods")
+    if result.plan is not None and result.plan.solver_path != "device":
+        raise AssertionError(f"{name}: solver path {result.plan.solver_path}")
+
+
+def _registered(name, stack, n_pods):
+    c = stack.cluster
+    phases = c.pod_phase_counts()
+    unregistered = [k for k, cl in c.claims.items()
+                    if cl.phase.value != "Initialized"]
+    if unregistered or len(c.nodes) != len(c.claims):
+        raise AssertionError(f"{name}: {len(unregistered)} claims did not "
+                             f"register ({len(c.nodes)} nodes, "
+                             f"{len(c.claims)} claims)")
+    if phases["bound"] != n_pods or c.pending_pods():
+        raise AssertionError(f"{name}: {phases} after registration, "
+                             f"expected {n_pods} bound")
+
+
+def _provisioner(torch, workloads, lattice, oa, cpu_plan):
+    """Phase 6: the provisioning controller on the card."""
+    from karpenter_provider_aws_tpu_torch import measure
+    from karpenter_provider_aws_tpu_torch.solver import Solver
+
+    out, launches = {}, {}
+    max_err = 0.0
+    # (a) the cfg5 wave
+    pods, pools, existing = workloads.config5_full_scale()
+    if existing:
+        raise AssertionError("cfg5 has no existing nodes to mirror")
+    stack = workloads.ProvisionerStack(lattice, pools, Solver(lattice))
+    if stack.solver.device.type != "cuda":
+        raise AssertionError("provisioner: the Solver is not on the card")
+    for p in pods:
+        stack.cluster.add_pod(p)
+    oa.LAUNCHES = 0
+    result, wall = stack.provision()
+    torch.cuda.synchronize()
+    launches["provisioner_cfg5"] = oa.LAUNCHES
+    _check_pass("cfg5 wave", result)
+    plan = result.plan
+    phases = stack.cluster.pod_phase_counts()
+    launched_claims = all(c.phase.value == "Launched"
+                          for c in stack.cluster.claims.values())
+    split = _split(stack, result, wall)
+    print(f"cfg5 wave: {len(result.created_claims)} claims, {result.launched} "
+          f"launched, {result.pods_scheduled} pods scheduled, "
+          f"{launches['provisioner_cfg5']} kernel launch(es); {_fmt_split(split)}",
+          flush=True)
+    if launches["provisioner_cfg5"] < 1:
+        raise AssertionError("cfg5 wave: the kernel never launched")
+    if (result.launched != len(result.created_claims) or not launched_claims
+            or phases["nominated"] != len(pods) or result.pods_scheduled != len(pods)):
+        raise AssertionError(f"cfg5 wave: {phases}, {result.launched} of "
+                             f"{len(result.created_claims)} claims launched")
+    if _node_rows(plan) != _node_rows(cpu_plan) \
+            or plan.existing_assignments != cpu_plan.existing_assignments:
+        raise AssertionError("cfg5 wave: the provisioner's plan differs from "
+                             "the CPU plan")
+    print(f"cfg5 wave: plan == cpu plan, node by node ({len(plan.new_nodes)} "
+          f"nodes, ${plan.new_node_cost:.2f}/hr)", flush=True)
+    reg_ms = stack.register()
+    _registered("cfg5 wave", stack, len(pods))
+    print(f"cfg5 wave: registration of {len(stack.cluster.nodes)} nodes bound "
+          f"{len(pods)} pods in {reg_ms:.3f} ms", flush=True)
+    out["cfg5_wave"] = {**split, "claims": len(result.created_claims),
+                        "registration_ms": reg_ms,
+                        "launches": launches["provisioner_cfg5"]}
+
+    # (b) cfg10 through the provisioner
+    pods, pools, shapes = workloads.config10_steady_state()
+    solver = Solver(lattice)
+    stack = workloads.ProvisionerStack(lattice, pools, solver)
+    for p in pods:
+        stack.cluster.add_pod(p)
+    oa.LAUNCHES = 0
+    result, wall = stack.provision()
+    torch.cuda.synchronize()
+    first_launches = oa.LAUNCHES
+    _check_pass("cfg10 first wave", result)
+    split = _split(stack, result, wall)
+    reg_ms = stack.register()
+    _registered("cfg10 first wave", stack, len(pods))
+    print(f"cfg10 first wave: {len(result.created_claims)} claims, "
+          f"{first_launches} kernel launch(es); {_fmt_split(split)}; "
+          f"registration {reg_ms:.3f} ms", flush=True)
+    out["cfg10_first_wave"] = {**split, "claims": len(result.created_claims),
+                               "registration_ms": reg_ms}
+    referee = Solver(lattice, pipeline=False)
+    builder = stack.provisioner.inc_builder
+    rows = []
+    launches["provisioner_cfg10"] = 0
+    for stage, churn, passes in (
+            ("rate", workloads.ProvisionerChurn(shapes), workloads.STEADY_PASSES),
+            ("small", workloads.SmallChurn(shapes), SMALL_PASSES)):
+        for k in range(passes):
+            gone, added, nochurn = churn.churn(stack.cluster, k)
+            for _ in range(2):
+                stack.provisioner.batch_ready()
+                stack.clock.step(0.6)
+            ref = None
+            if not nochurn:
+                ref = referee.solve(workloads.referee_problem(stack))
+            pre_link = dict(solver.link_stats)
+            pre_stats = dict(solver.pipeline_stats)
+            pre_inc = builder.incremental_builds
+            oa.LAUNCHES = 0
+            if nochurn:
+                result, wall = stack.provision()
+            else:
+                (result, wall), inputs = measure.captured_main_path_inputs(
+                    stack.provision)
+            torch.cuda.synchronize()
+            launched = oa.LAUNCHES
+            launches["provisioner_cfg10"] += launched
+            _check_pass(f"cfg10 {stage} pass {k}", result)
+            full = builder.incremental_builds == pre_inc
+            same = None
+            if ref is not None:
+                same = all(
+                    workloads.plan_digest(result.plan, stack.cluster.pods, exact)
+                    == workloads.plan_digest(ref, stack.cluster.pods, exact)
+                    for exact in ((False, True) if full else (False,)))
+                # the referee ran the same kernel: hold the pass's own
+                # kernel inputs against the plain version too
+                max_err = max(max_err, measure.check_exact(
+                    f"cfg10 {stage} pass {k} inputs", oa.cheapest_offering(*inputs),
+                    oa.cheapest_offering_ref(*inputs)))
+            split = _split(stack, result, wall)
+            reg_ms = stack.register()
+            row = {"stage": stage, "pass": k, "nochurn": nochurn,
+                   "arrived": len(added), "left": len(gone),
+                   "incremental": not full,
+                   "reason": builder.last_reason,
+                   "delta": solver.pipeline_stats["delta_solves"]
+                   - pre_stats["delta_solves"],
+                   "launches": launched, "registration_ms": reg_ms,
+                   "legs": sum(solver.link_stats[d + "_legs"]
+                               - pre_link[d + "_legs"] for d in ("upload", "fetch")),
+                   "bytes": sum(solver.link_stats[d + "_bytes"]
+                                - pre_link[d + "_bytes"] for d in ("upload", "fetch")),
+                   "claims": len(result.created_claims), **split}
+            rows.append(row)
+            print(f"cfg10 {stage} pass {k}: -{len(gone)} +{len(added)} pods, "
+                  f"incremental {row['incremental']} "
+                  f"({row['reason'] or 'delta'}), delta {row['delta']}, "
+                  f"{launched} launch(es), {row['claims']} claims, legs "
+                  f"{row['legs']}, {row['bytes']} B; {_fmt_split(split)}; "
+                  f"registration {reg_ms:.3f} ms; == scratch referee {same}",
+                  flush=True)
+            if same is False:
+                raise AssertionError(f"cfg10 {stage} pass {k}: the plan differs "
+                                     f"from the scratch referee")
+            if not nochurn and launched < 1:
+                raise AssertionError(f"cfg10 {stage} pass {k}: the kernel "
+                                     f"never launched")
+    st = solver.pipeline_stats
+    co = stack.provisioner.stats()
+    churned = [r for r in rows if not r["nochurn"]]
+    walls = [r["wall_ms"] for r in churned]
+    summary = {
+        "passes": len(rows), "churned": len(churned),
+        "pass_p50_ms": statistics.median(walls), "pass_min_ms": min(walls),
+        "pass_max_ms": max(walls),
+        "delta_solves": st["delta_solves"], "micro_solves": st["micro_solves"],
+        "micro_aborts": st["micro_aborts"],
+        "incremental_builds": builder.incremental_builds,
+        "full_builds": builder.full_builds,
+        "journal_ticks": co["journal_ticks"], "journal_takes": co["journal_takes"],
+        "journal_take_fallbacks": co["journal_take_fallbacks"],
+        "launches": launches["provisioner_cfg10"],
+    }
+    for stage in ("rate", "small"):
+        sel = [r for r in churned if r["stage"] == stage]
+        summary[stage] = {k: statistics.median([r[k] for r in sel]) for k in (
+            "wall_ms", "build_ms", "solve_ms", "launch_loop_ms", "rest_ms",
+            "registration_ms", "legs", "bytes")}
+        summary[stage]["wall_min_ms"] = min(r["wall_ms"] for r in sel)
+        summary[stage]["wall_max_ms"] = max(r["wall_ms"] for r in sel)
+        summary[stage]["incremental"] = sum(r["incremental"] for r in sel)
+        summary[stage]["reasons"] = sorted({r["reason"] for r in sel})
+        print(f"cfg10 {stage} churn, p50 over {len(sel)} churned passes: "
+              f"{ {k: (round(v, 3) if isinstance(v, float) else v) for k, v in summary[stage].items()} }",
+              flush=True)
+    print(f"cfg10 through the provisioner: pass p50 {summary['pass_p50_ms']:.3f} ms "
+          f"(min {summary['pass_min_ms']:.3f}, max {summary['pass_max_ms']:.3f}); "
+          f"delta_solves {st['delta_solves']}, incremental_builds "
+          f"{builder.incremental_builds}, full_builds {builder.full_builds}, "
+          f"micro_aborts {st['micro_aborts']}; journal ticks {co['journal_ticks']}, "
+          f"takes {co['journal_takes']}, fallbacks {co['journal_take_fallbacks']}",
+          flush=True)
+    if st["delta_solves"] < 1 or builder.incremental_builds < 1:
+        raise AssertionError(f"cfg10: the delta path never ran (last builder "
+                             f"reason {builder.last_reason!r})")
+    if st["micro_aborts"]:
+        raise AssertionError(f"cfg10: {st['micro_aborts']} microloop aborts")
+    if stack.cluster.pending_pods():
+        raise AssertionError(f"cfg10: {len(stack.cluster.pending_pods())} pods "
+                             f"left pending")
+    print(f"cfg10: each churned pass's own kernel inputs matched the plain "
+          f"version exactly ({len(churned)} passes)", flush=True)
+    out["cfg10"] = {**summary, "rows": rows}
+    out["max_abs_err"] = max_err
+    return out, launches
 
 
 def main() -> int:
@@ -348,7 +618,13 @@ def _run(torch) -> int:
     steady, steady_problem = _steady_state(torch, workloads, lattice, oa)
     launches["cfg10_steady_state"] = sum(steady["launches_per_pass"])
 
-    # ---- 6. kernel times: the main paths' own inputs, the dense largest
+    # ---- 6. the provisioning controller
+    _phase("provisioner: the cfg5 wave and cfg10 through provision_once")
+    prov, prov_launches = _provisioner(torch, workloads, lattice, oa, cpu_plan)
+    launches.update(prov_launches)
+    max_err = max(max_err, prov["max_abs_err"])
+
+    # ---- 7. kernel times: the main paths' own inputs, the dense largest
     # bucket, the launch floor
     _phase("kernel timing")
     solver = Solver(lattice)
@@ -387,18 +663,24 @@ def _run(torch) -> int:
     if leaked:
         raise AssertionError(f"modules of JAX or the JAX package loaded: {leaked[:5]}")
 
+    _phase("")
     print(json.dumps({"kernels": [{
         "name": "cheapest_offering", "route": "cuda",
         "source": "karpenter_provider_aws_tpu_torch/csrc/offering_argmin.cu",
         "replaces": "karpenter_provider_aws_tpu/ops/offering_argmin.py:92",
-        "launches": launches["cfg5_pipelined"], "max_abs_err": max_err,
+        "launches": launches["provisioner_cfg5"], "max_abs_err": max_err,
         **timed["cfg5"], "library_ms": None,
         "launches_by_path": launches, "launch_floor_ms": floor_ms,
         "cfg10": {**timed["cfg10"], "launches": launches["cfg10_steady_state"],
                   "launches_per_pass": steady["launches_per_pass"]},
         "dense": timed["dense"],
     }], "cfg5": cfg5, "cfg10": {k: v for k, v in steady.items()
-                                if k != "launches_per_pass"}}), flush=True)
+                                if k != "launches_per_pass"},
+        "provisioner": {"cfg5_wave": prov["cfg5_wave"],
+                        "cfg10_first_wave": prov["cfg10_first_wave"],
+                        "cfg10": {k: v for k, v in prov["cfg10"].items()
+                                  if k != "rows"}},
+        "phase_seconds": _PHASE["seconds"]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

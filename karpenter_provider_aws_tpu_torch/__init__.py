@@ -7,6 +7,9 @@ the JAX package's pure-numpy modules (apis, lattice, masks, problem
 building, the FFD oracle) it carries as its own copies, in the same
 layout, so each module's counterpart is found by its path.
 
-Entry point: ``solver.Solver(lattice, device=None)`` — the device is
-``cuda`` unless the caller asks for ``"cpu"``.
+Entry points: ``solver.Solver(lattice, device=None)`` — the device is
+``cuda`` unless the caller asks for ``"cpu"`` — and, over it, the
+provisioning controller (``controllers.Provisioner`` on a
+``state.ClusterState``, with ``cloudprovider.CloudProvider`` over
+``cloud.FakeCloud``; ``workloads.ProvisionerStack`` wires one).
 """

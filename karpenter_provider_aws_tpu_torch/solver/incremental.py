@@ -32,9 +32,9 @@ resident on the card: the patched build here becomes one dirty-block
 scatter, and the plan comes back only when an on-device fingerprint
 says it moved.
 
-Divergence from the JAX package: explain builds (constraint-elimination
-ledgers) are not ported, so ``explain`` defaults to False here and True
-raises ``NotImplementedError``; a group's ``ledger`` is always None.
+As in the JAX package, ``explain`` defaults to True: every full build
+captures constraint-elimination ledgers (solver/explain.py), and the
+delta path patches a group's ledger copy-on-write (``with_count``).
 """
 
 from __future__ import annotations
@@ -107,10 +107,10 @@ class IncrementalProblemBuilder:
     builder itself keeps no locks.
     """
 
-    def __init__(self, explain: bool = False):
-        if explain:
-            raise NotImplementedError(
-                "explain=True (constraint-elimination ledgers) is not ported")
+    def __init__(self, explain: bool = True):
+        # capture constraint-elimination ledgers on every full build
+        # (solver/explain.py); the delta path patches them copy-on-write
+        self._explain = explain
         self._prev: Optional[Problem] = None
         self._rev: int = -1
         self._lattice: Optional[Lattice] = None
@@ -263,7 +263,7 @@ class IncrementalProblemBuilder:
             daemonset_pods=_resolve(daemonset_pods) or (),
             bound_pods=bound,
             pvcs=_resolve(pvcs), storage_classes=_resolve(storage_classes),
-            pool_headroom=headroom)
+            pool_headroom=headroom, explain=self._explain)
         self.full_builds += 1
         self.last_reason = reason
         self._prev = problem
@@ -425,6 +425,13 @@ class IncrementalProblemBuilder:
             for gi in dirty_gis:
                 g = replace(prev.groups[gi], pod_names=new_names[gi])
                 g._narrow_ctx = getattr(prev.groups[gi], "_narrow_ctx", None)
+                if g.ledger is not None:
+                    # ledger copy-on-write: the stage counts are count-
+                    # independent (recheck_narrow above proved the one
+                    # count-dependent decision unchanged), so only the
+                    # pods field moves — a delta-built pass explains
+                    # identically to a full rebuild (parity-pinned)
+                    g.ledger = g.ledger.with_count(len(new_names[gi]))
                 groups[gi] = g
         problem = replace(
             prev, groups=groups, count=count,

@@ -41,6 +41,7 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import trace
 from ..device import DeviceLike, resolve_device
 
 # the five stages of a device solve, in pipeline order; NodePlan.stage_ms
@@ -72,18 +73,23 @@ class StageTimer:
 
 
 class _Span:
-    __slots__ = ("_timer", "_stage", "_t0")
+    __slots__ = ("_timer", "_stage", "_t0", "_ts")
 
     def __init__(self, timer: StageTimer, stage: str):
         self._timer = timer
         self._stage = stage
 
     def __enter__(self):
+        # when tracing is on, every stage interval doubles as a trace
+        # span nested under the ambient solve span; disabled, this is the
+        # shared no-op singleton (no allocation)
+        self._ts = trace.span("stage." + self._stage).__enter__()
         self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc):
         self._timer.add(self._stage, time.perf_counter() - self._t0)
+        self._ts.__exit__(*exc)
         return False
 
 

@@ -81,8 +81,9 @@ class PodGroup:
     unnarrowed_type_mask: Optional[np.ndarray] = None  # pre-accel-narrowing
                                    # mask; the feasibility gate falls back to
                                    # it if narrowing made the group infeasible
-    ledger: Optional[object] = None  # constraint-elimination record; always
-                                   # None here (explain builds are not ported)
+    ledger: Optional[object] = None  # solver/explain.py GroupLedger — the
+                                   # group's constraint-elimination record
+                                   # (None when the build ran explain=False)
 
 
 @dataclass
@@ -754,6 +755,42 @@ def recheck_narrow(group: PodGroup, count: int, total_pending: int,
     return bool(np.array_equal(prev_raw, new_raw))
 
 
+def _group_ledger(cap, g: PodGroup, np_type: np.ndarray,
+                  np_zone: np.ndarray, np_cap: np.ndarray, NP: int):
+    """One group's constraint-elimination ledger (solver/explain.py).
+    O(stages) dot products over [T] per group — the per-pattern offering
+    counts are memoized inside ``cap``, so same-shaped groups share
+    every reduction."""
+    vec, req_tmask, zm, cm = g._explain_ctx
+    lattice = cap.lattice
+    fits_t = (lattice.alloc >= vec[None, :]).all(axis=1)
+    if g.np_ok.any():
+        ptm = np_type[g.np_ok].any(axis=0)
+        pzm = np_zone[g.np_ok].any(axis=0)
+        pcm = np_cap[g.np_ok].any(axis=0)
+    else:
+        ptm = np.zeros(np_type.shape[1], dtype=bool)
+        pzm = np.zeros(np_zone.shape[1], dtype=bool)
+        pcm = np.zeros(np_cap.shape[1], dtype=bool)
+    final = g.type_mask if g.unnarrowed_type_mask is not None else None
+    notes: List[str] = []
+    if g.single_bin:
+        notes.append("hostname self-affinity: all replicas co-locate")
+    if g.spread_class >= 0:
+        notes.append(f"hostname spread: at most {g.max_per_bin} per node")
+    elif g.max_per_bin < _BIG:
+        notes.append(f"per-node cap: at most {g.max_per_bin}")
+    if g.strict_custom:
+        notes.append("strict custom-key constraints")
+    if g.need is not None and g.need.any():
+        notes.append("requires a co-located affinity class")
+    if g.owner is not None and g.owner.any():
+        notes.append("owns a hostname anti-affinity term")
+    return cap.ledger(vec, fits_t, req_tmask, zm, cm, ptm, pzm, pcm,
+                      final, g.signature, len(g.pod_names),
+                      int(g.np_ok.sum()), NP, notes)
+
+
 def build_problem(pods: Sequence[Pod], node_pools: Sequence[NodePool], lattice: Lattice,
                   existing: Sequence[ExistingBin] = (),
                   daemonset_pods: Sequence[Pod] = (),
@@ -762,9 +799,6 @@ def build_problem(pods: Sequence[Pod], node_pools: Sequence[NodePool], lattice: 
                   storage_classes: Optional[Mapping] = None,
                   pool_headroom: Optional[Mapping[str, np.ndarray]] = None,
                   narrow: bool = True, explain: bool = False) -> Problem:
-    if explain:
-        raise NotImplementedError(
-            "explain=True (constraint-elimination ledgers) is not ported")
     with _INTERN_LOCK:
         if len(_SIG_TUPLES) >= _INTERN_MAX:
             _RK_INTERN.clear()
@@ -773,7 +807,8 @@ def build_problem(pods: Sequence[Pod], node_pools: Sequence[NodePool], lattice: 
             _BAD_SIDS.clear()
         return _build_problem(pods, node_pools, lattice, existing,
                               daemonset_pods, bound_pods, pvcs,
-                              storage_classes, pool_headroom, narrow)
+                              storage_classes, pool_headroom, narrow,
+                              explain)
 
 
 def _build_problem(pods: Sequence[Pod], node_pools: Sequence[NodePool], lattice: Lattice,
@@ -783,7 +818,7 @@ def _build_problem(pods: Sequence[Pod], node_pools: Sequence[NodePool], lattice:
                    pvcs: Optional[Mapping] = None,
                    storage_classes: Optional[Mapping] = None,
                    pool_headroom: Optional[Mapping[str, np.ndarray]] = None,
-                   narrow: bool = True) -> Problem:
+                   narrow: bool = True, explain: bool = False) -> Problem:
     real_pools = sorted(node_pools, key=lambda p: (-p.weight, p.name))
     T, Z, C = lattice.T, lattice.Z, lattice.C
     key_values = lattice.key_values_present()
@@ -1324,6 +1359,12 @@ def _build_problem(pods: Sequence[Pod], node_pools: Sequence[NodePool], lattice:
                 unnarrowed_type_mask=unnarrowed,
             )
             g._narrow_ctx = narrow_ctx
+            if explain:
+                # the inputs the ledger build (below, after the
+                # feasibility gate settles type masks) needs: the request
+                # vector and the PRE-narrowing compiled masks
+                g._explain_ctx = (vec, masks.type_mask,
+                                  s.zone_mask, s.cap_mask)
             groups.append(g)
             pending_topo.append((g, rep, topo.owner, topo.need))
 
@@ -1363,6 +1404,10 @@ def _build_problem(pods: Sequence[Pod], node_pools: Sequence[NodePool], lattice:
                 return True
         return False
 
+    ledger_cap = None
+    if explain:
+        from .explain import LedgerCapture
+        ledger_cap = LedgerCapture(lattice)
     schedulable_groups: List[PodGroup] = []
     dropped_groups: List[PodGroup] = []
     for g in groups:
@@ -1375,13 +1420,22 @@ def _build_problem(pods: Sequence[Pod], node_pools: Sequence[NodePool], lattice:
             g.type_mask = g.unnarrowed_type_mask
             g.unnarrowed_type_mask = None
             feasible = _has_offering(g)
+        if ledger_cap is not None:
+            g.ledger = _group_ledger(ledger_cap, g, np_type, np_zone,
+                                     np_cap, NP)
         if feasible or len(existing) > 0:
             # groups infeasible for new nodes may still fit existing capacity
             schedulable_groups.append(g)
         else:
+            # the ledger refines the code: every compatible offering
+            # eliminated by the ICE/unavailable mask is weather-caused
+            # pending (ice-hold), not genuine infeasibility
+            code = (g.ledger.blame_code() if g.ledger is not None
+                    else "") or taxonomy.NO_OFFERING
             msg = taxonomy.reason(
-                taxonomy.NO_OFFERING,
-                "no compatible nodepool/instance-type offering")
+                code, "all compatible offerings currently unavailable"
+                if code == taxonomy.ICE_HOLD
+                else "no compatible nodepool/instance-type offering")
             for name in g.pod_names:
                 unschedulable[name] = msg
             dropped_groups.append(g)

@@ -15,13 +15,19 @@ the steady-state entry point: its microloop keeps the whole fused
 problem resident on the card, ships only the changed blocks, and fetches
 the plan only when an on-device fingerprint says it moved.
 
+``solve_relaxed``, ``solve`` and ``solve_delta`` open the JAX package's
+trace spans (``solver.solve_relaxed``, ``solver.solve``,
+``solver.solve_delta``, and a ``stage.*`` span per stage timer), and a
+problem built with ``explain=True`` carries its constraint-elimination
+ledgers into the unplaced reasons.
+
 What the JAX package does beyond these paths raises
 ``NotImplementedError`` when reached, and nothing falls back to anything:
 the degradation ladder's host-FFD rung (a device error surfaces as
 ``SolverDeviceError``), the wave split of a group axis above the largest
-bucket, batched what-if probes, the sharded mesh solve and its microloop
-tail, tracing spans, fault injection, the device cost model and explain
-builds.
+bucket, batched what-if probes, and the sharded mesh solve and its
+microloop tail. Absent without raising: fault injection and the device
+cost model.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import trace
 from ..apis.resources import R
 from ..device import DeviceLike, resolve_device
 from ..errors import SolverCapacityError, SolverDeviceError, SolverError
@@ -499,6 +506,26 @@ class Solver:
                       daemonset_pods=(), bound_pods=(), pvcs=None,
                       storage_classes=None, mesh=None,
                       pool_headroom=None, problem0=None) -> NodePlan:
+        """Tracing shim over :meth:`_solve_relaxed`: the whole relaxation
+        loop (every round's solve and stage spans nest underneath) is one
+        span carrying the plan's provenance."""
+        with trace.span("solver.solve_relaxed", pods=len(pods)) as sp:
+            plan = self._solve_relaxed(
+                pods, node_pools, lattice=lattice, existing=existing,
+                daemonset_pods=daemonset_pods, bound_pods=bound_pods,
+                pvcs=pvcs, storage_classes=storage_classes, mesh=mesh,
+                pool_headroom=pool_headroom, problem0=problem0)
+            sp.set(path=plan.solver_path, degraded=plan.degraded,
+                   reason=plan.degraded_reason, waves=plan.waves,
+                   pipelined=plan.pipelined,
+                   new_nodes=len(plan.new_nodes),
+                   unschedulable=len(plan.unschedulable))
+            return plan
+
+    def _solve_relaxed(self, pods, node_pools, lattice=None, existing=(),
+                       daemonset_pods=(), bound_pods=(), pvcs=None,
+                       storage_classes=None, mesh=None,
+                       pool_headroom=None, problem0=None) -> NodePlan:
         """Solve with preferred-rule relaxation (reference
         scheduling.md:203-206, 322-334).
 
@@ -563,6 +590,15 @@ class Solver:
 
     @_locked
     def solve(self, problem: Problem, mesh=None) -> NodePlan:
+        """Tracing shim over :meth:`_solve_problem`: one span per solve
+        round with the outcome attached."""
+        with trace.span("solver.solve", groups=problem.G) as sp:
+            plan = self._solve_problem(problem, mesh=mesh)
+            sp.set(path=plan.solver_path, degraded=plan.degraded,
+                   reason=plan.degraded_reason, retries=plan.device_retries)
+            return plan
+
+    def _solve_problem(self, problem: Problem, mesh=None) -> NodePlan:
         """Solve one built problem into a NodePlan on this Solver's device.
 
         Raises ``SolverDeviceError`` when the device call fails and
@@ -937,52 +973,57 @@ class Solver:
         only after the fallback solve lands."""
         if mesh is not None:
             raise _not_ported("the sharded mesh solve")
-        pre_hits = self._resident.hits
-        pre_legs = (self.link_stats["upload_legs"]
-                    + self.link_stats["fetch_legs"])
-        was_pipelined = self.pipeline
-        self.pipeline = True
-        overlap_once = [overlap] if overlap is not None else []
+        with trace.span("solver.solve_delta", groups=problem.G,
+                        dirty=len(dirty_groups)) as sp:
+            pre_hits = self._resident.hits
+            pre_legs = (self.link_stats["upload_legs"]
+                        + self.link_stats["fetch_legs"])
+            was_pipelined = self.pipeline
+            self.pipeline = True
+            overlap_once = [overlap] if overlap is not None else []
 
-        def run_overlap():
-            if overlap_once:
-                fn = overlap_once.pop()
-                fn()
-                self.pipeline_stats["overlapped_admission"] += 1
+            def run_overlap():
+                if overlap_once:
+                    fn = overlap_once.pop()
+                    fn()
+                    self.pipeline_stats["overlapped_admission"] += 1
 
-        try:
             try:
-                plan = self._solve_micro(problem, overlap=run_overlap)
-                self.pipeline_stats["micro_solves"] += 1
-            except _MicroIneligible:
-                self.pipeline_stats["micro_aborts"] += 1
-                plan = self.solve(problem)
-                # only after the fallback lands: a failing pass must not
-                # record admission bookkeeping for a dropped wave
-                run_overlap()
-            except Exception:
-                # the retained device state may be half-written (the
-                # scatter is in place): rebuild from scratch rather than
-                # re-dispatch against it; the standard solve raises if
-                # the device fails again. Counted and logged, never silent
-                _LOG.warning("microloop pass failed; dropping the resident "
-                             "state and re-solving", exc_info=True)
-                self.pipeline_stats["micro_aborts"] += 1
-                self._invalidate_device_state()
-                plan = self.solve(problem)
-                run_overlap()
-        finally:
-            self.pipeline = was_pipelined
-        self.pipeline_stats["delta_solves"] += 1
-        self.pipeline_stats["delta_dirty_groups"] += len(dirty_groups)
-        self.pipeline_stats["micro_last_legs"] = (
-            self.link_stats["upload_legs"]
-            + self.link_stats["fetch_legs"] - pre_legs)
-        if self._resident.hits > pre_hits:
-            self.pipeline_stats["resident_problem_hits"] += 1
-        else:
-            self.pipeline_stats["resident_problem_misses"] += 1
-        return plan
+                try:
+                    plan = self._solve_micro(problem, overlap=run_overlap)
+                    self.pipeline_stats["micro_solves"] += 1
+                except _MicroIneligible:
+                    self.pipeline_stats["micro_aborts"] += 1
+                    plan = self._solve_problem(problem)
+                    # only after the fallback lands: a failing pass must not
+                    # record admission bookkeeping for a dropped wave
+                    run_overlap()
+                except Exception:
+                    # the retained device state may be half-written (the
+                    # scatter is in place): rebuild from scratch rather than
+                    # re-dispatch against it; the standard solve raises if
+                    # the device fails again. Counted and logged, never silent
+                    _LOG.warning("microloop pass failed; dropping the resident "
+                                 "state and re-solving", exc_info=True)
+                    self.pipeline_stats["micro_aborts"] += 1
+                    self._invalidate_device_state()
+                    plan = self._solve_problem(problem)
+                    run_overlap()
+            finally:
+                self.pipeline = was_pipelined
+            self.pipeline_stats["delta_solves"] += 1
+            self.pipeline_stats["delta_dirty_groups"] += len(dirty_groups)
+            self.pipeline_stats["micro_last_legs"] = (
+                self.link_stats["upload_legs"]
+                + self.link_stats["fetch_legs"] - pre_legs)
+            if self._resident.hits > pre_hits:
+                self.pipeline_stats["resident_problem_hits"] += 1
+            else:
+                self.pipeline_stats["resident_problem_misses"] += 1
+            sp.set(path=plan.solver_path, degraded=plan.degraded,
+                   resident_hit=self._resident.hits > pre_hits,
+                   legs=self.pipeline_stats["micro_last_legs"])
+            return plan
 
     def _solve_micro(self, problem: Problem, overlap=None) -> NodePlan:
         """One steady-state reconcile pass against device-RESIDENT problem

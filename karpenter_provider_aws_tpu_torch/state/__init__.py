@@ -1,1 +1,3 @@
-from .cluster import DirtySet
+from .cluster import ClusterState, DirtyJournalCoalescer, DirtySet
+
+__all__ = ["ClusterState", "DirtyJournalCoalescer", "DirtySet"]

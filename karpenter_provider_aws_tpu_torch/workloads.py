@@ -317,3 +317,226 @@ def steady_state_passes(solver, lattice, pools, churn: SteadyStateChurn,
         legs = (solver.pipeline_stats["micro_last_legs"]
                 if res.incremental else None)
         yield pass_i, res, plan, ms, legs
+
+
+# ---- the provisioning controller over a simulated cluster -------------------
+
+# seconds from launch to node registration, as the JAX package's
+# provisioner tests set it (tests/test_controlplane.py)
+REGISTRATION_DELAY = 2.0
+
+
+class ProvisionerStack:
+    """A direct provisioning stack (the simulation stratum, no Operator):
+    one ``ClusterState``, ``FakeCloud``, ``UnavailableOfferings``,
+    ``CloudProvider``, ``Recorder`` and metrics ``Registry`` on one
+    ``FakeClock``, the ``Provisioner`` over ``solver`` (the delta path on
+    when the solver supports it) and the ``LifecycleController`` that
+    registers launched claims and binds their nominated pods.
+
+    ``timing`` holds the host milliseconds of the last pass's parts,
+    measured by wrapping the stack's own objects: ``build`` (the
+    incremental or full problem build, ledgers included), ``launch_loop``
+    (from the first claim write to the explain record at the loop's end:
+    claim writes, ``CloudProvider.create`` through the Batcher, status
+    writes, nominations, events) and ``create`` (the ``CloudProvider.create``
+    calls alone)."""
+
+    def __init__(self, lattice, pools, solver):
+        from .cache.unavailable import UnavailableOfferings
+        from .cloud import FakeCloud
+        from .cloudprovider.cloudprovider import CloudProvider
+        from .controllers.lifecycle import LifecycleController
+        from .controllers.provisioning import Provisioner
+        from .events import Recorder
+        from .metrics import Registry
+        from .state.cluster import ClusterState
+        from .utils.clock import FakeClock
+        self.lattice = lattice
+        self.solver = solver
+        self.clock = clock = FakeClock()
+        self.cluster = ClusterState(clock)
+        self.cloud = FakeCloud(clock)
+        self.unavailable = UnavailableOfferings(clock)
+        self.recorder = Recorder(clock)
+        self.metrics = Registry()
+        self.cloud_provider = CloudProvider(lattice, self.cloud,
+                                            self.unavailable, self.recorder,
+                                            clock)
+        self.node_pools = {p.name: p for p in pools}
+        self.provisioner = Provisioner(
+            self.cluster, solver, self.node_pools, self.cloud_provider,
+            self.unavailable, recorder=self.recorder, clock=clock,
+            metrics=self.metrics)
+        self.lifecycle = LifecycleController(
+            self.cluster, self.cloud_provider, recorder=self.recorder,
+            clock=clock, registration_delay=REGISTRATION_DELAY,
+            metrics=self.metrics)
+        self.timing = {}
+        self._instrument()
+
+    def _instrument(self) -> None:
+        import time
+        prov, timing = self.provisioner, self.timing
+
+        def wrap(obj, name, before=None, after=None):
+            fn = getattr(obj, name)
+
+            def wrapper(*a, **kw):
+                t = time.perf_counter()
+                if before is not None:
+                    before(t)
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    if after is not None:
+                        after(t, time.perf_counter())
+            setattr(obj, name, wrapper)
+
+        def add(key):
+            def after(t0, t1):
+                timing[key] = timing.get(key, 0.0) + (t1 - t0) * 1e3
+            return after
+
+        def loop_start(t):
+            timing.setdefault("_loop_t0", t)
+
+        def loop_end(t):
+            timing["launch_loop"] = (t - timing.pop("_loop_t0", t)) * 1e3
+
+        wrap(prov.inc_builder, "build", after=add("build"))
+        wrap(prov.writer, "create_claim", before=loop_start)
+        wrap(self.cloud_provider, "create", after=add("create"))
+        wrap(prov.explain, "record", before=loop_end)
+
+    def provision(self):
+        """One ``provision_once``; returns ``(result, wall ms)`` and leaves
+        the pass's parts in ``timing``."""
+        import time
+        self.timing.clear()
+        t = time.perf_counter()
+        result = self.provisioner.provision_once()
+        wall = (time.perf_counter() - t) * 1e3
+        self.timing.setdefault("launch_loop", 0.0)
+        return result, wall
+
+    def register(self) -> float:
+        """Step the clock past the registration delay and reconcile the
+        lifecycle (registration binds the nominated pods); returns its
+        host ms."""
+        import time
+        self.clock.step(REGISTRATION_DELAY + 0.1)
+        t = time.perf_counter()
+        self.lifecycle.reconcile()
+        return (time.perf_counter() - t) * 1e3
+
+
+class ProvisionerChurn:
+    """cfg10's churn through a cluster mirror, with ``SteadyStateChurn``'s
+    seed and rates: on each pass but every 4th, about 1.5 % of the BOUND
+    pods are deleted and as many new pods arrive, drawn from ``shapes``.
+    Deletions pick from the bound pods in name order, so the same cluster
+    takes the same churn."""
+
+    SEED = 14   # bench.py's microloop churn seed
+
+    def __init__(self, shapes):
+        self._rng = np.random.default_rng(self.SEED)
+        self.shapes = shapes
+        self._serial = 0
+
+    def churn(self, cluster, pass_i: int):
+        """Mutate ``cluster`` for pass ``pass_i``; returns ``(deleted
+        names, added pods, nochurn)``."""
+        from .apis import Pod
+        if (pass_i % STEADY_NOCHURN_EVERY) == STEADY_NOCHURN_EVERY - 1:
+            return [], [], True
+        rng = self._rng
+        bound = sorted(p.name for p in cluster.snapshot_pods()
+                       if p.node_name is not None and not p.is_daemonset)
+        k = max(1, int(len(bound) * STEADY_CHURN_FRACTION))
+        gone = [bound[int(i)] for i in sorted(rng.choice(len(bound), size=k,
+                                                         replace=False))]
+        for name in gone:
+            cluster.delete_pod(name)
+        added = []
+        for _ in range(k):
+            self._serial += 1
+            req, sel = self.shapes[int(rng.integers(len(self.shapes)))]
+            added.append(Pod(name=f"churn-{self._serial}", requests=req,
+                             node_selector=sel))
+        for p in added:
+            cluster.add_pod(p)
+        return gone, added, False
+
+
+def referee_problem(stack: ProvisionerStack):
+    """A scratch ``build_problem`` of what the stack's next pass will see:
+    the pending pods, the pools, the existing bins, the daemonset and bound
+    pods (the referee of the delta path, as the JAX package's delta smoke
+    builds it)."""
+    from .solver.problem import build_problem
+    c = stack.cluster
+    return build_problem(c.pending_pods(), list(stack.node_pools.values()),
+                         stack.lattice, existing=c.existing_bins(stack.lattice),
+                         daemonset_pods=c.daemonset_pods(),
+                         bound_pods=c.bound_pods())
+
+
+def plan_digest(plan, pods, exact: bool):
+    """What the delta path must not change: the new nodes (pool, type, zone,
+    capacity type and the multiset of their pods' shapes), the cost, and
+    the binds onto existing nodes, each node's as the multiset of its pods'
+    shapes (``pods`` maps names to Pod objects). A delta build appends
+    arriving pods to their group where a scratch build lists them in
+    mirror order, so two pods of one shape may trade places; nothing else
+    may move. With ``exact`` (a full rebuild, which sees what a scratch
+    build sees) the nodes are compared in plan order and every pod by
+    name."""
+    def shape(name):
+        p = pods[name]
+        return (sorted(p.requests.items()), sorted(p.node_selector.items()))
+    key = str if exact else shape
+    nodes = [(n.node_pool, n.instance_type, n.zone, n.capacity_type,
+              sorted(key(p) for p in n.pods)) for n in plan.new_nodes]
+    return (nodes if exact else sorted(nodes),
+            round(float(plan.new_node_cost), 6),
+            {k: sorted(key(n) for n in v)
+             for k, v in plan.existing_assignments.items() if v})
+
+
+class SmallChurn:
+    """The small-churn schedule of the JAX package's delta smoke
+    (``tools/smoke_delta.py``, ``random.Random(7)``): per pass 2-4 pods
+    arrive, round-robin over three shapes, and 1-2 bound pods leave.
+    This is the churn the incremental builder's envelope admits (at most
+    64 journal-touched pods, no signature the previous build lacks); the
+    shapes here are the first three of cfg10's."""
+
+    SEED = 7    # tools/smoke_delta.py's random.Random(7)
+
+    def __init__(self, shapes):
+        import random
+        self._rng = random.Random(self.SEED)
+        self.shapes = list(shapes[:3])
+        self._serial = 0
+
+    def churn(self, cluster, pass_i: int):
+        """Mutate ``cluster``; returns ``(deleted names, added pods,
+        nochurn)`` like ``ProvisionerChurn.churn``."""
+        from .apis import Pod
+        rng = self._rng
+        added = []
+        for _ in range(rng.randint(2, 4)):
+            self._serial += 1
+            req, sel = self.shapes[self._serial % len(self.shapes)]
+            added.append(Pod(name=f"small-{self._serial}", requests=req,
+                             node_selector=sel))
+        for p in added:
+            cluster.add_pod(p)
+        bound = sorted(p.name for p in cluster.snapshot_pods()
+                       if p.node_name is not None and not p.is_daemonset)
+        gone = rng.sample(bound, min(len(bound), rng.randint(1, 2)))
+        for name in gone:
+            cluster.delete_pod(name)
+        return gone, added, False

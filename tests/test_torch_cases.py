@@ -346,3 +346,107 @@ def churn_sequence(pkg: str, lat, seed: int = 7, steps: int = 14):
         yield (list(pods), pools, list(existing),
                DirtySet(since=since, rev=rev, pods=set(touched), bins=bins),
                touched)
+
+
+CLUSTER_TYPES = ("m5.xlarge", "m5.2xlarge", "c5.xlarge", "c5.2xlarge", "m6g.xlarge")
+
+
+def cluster_contents(pkg: str, lat, seed: int = 3):
+    """Seeded cluster-state contents built from ``pkg``'s own classes, the
+    cluster-mirror counterpart of ``churn_sequence``: NodePools, registered
+    nodes with their claims, launched claims that have not registered yet,
+    one claim being deleted, pods bound to nodes, daemonset pods on every
+    node, pods nominated to the in-flight claims, and pending pods. Returns
+    a dict of lists; ``populate`` loads it into a ``ClusterState``."""
+    A = mod(pkg, "apis")
+    wk = mod(pkg, "apis.wellknown")
+    O = mod(pkg, "apis.objects")
+    res = mod(pkg, "apis.resources")
+    rng = np.random.default_rng(seed)
+    t0 = 1_000_000.0
+    pools = [A.NodePool(name="default", limits={"cpu": "400"}),
+             A.NodePool(name="arm", weight=10, requirements=[
+                 A.Requirement(wk.LABEL_ARCH, A.Operator.IN, ("arm64",))])]
+
+    def shape(itype):
+        ti = lat.name_to_idx[itype]
+        return (res.vec_to_resources(lat.capacity[ti]),
+                res.vec_to_resources(lat.alloc[ti]))
+
+    def labels(itype, zone, cap, pool):
+        return {**lat.labels[lat.name_to_idx[itype]],
+                wk.LABEL_INSTANCE_TYPE: itype, wk.LABEL_ZONE: zone,
+                wk.LABEL_CAPACITY_TYPE: cap, wk.LABEL_NODEPOOL: pool}
+
+    nodes, claims, inflight = [], [], []
+    for i in range(int(rng.integers(5, 9)) + 3):
+        itype = str(rng.choice(CLUSTER_TYPES))
+        pool = "arm" if itype.startswith("m6g") else "default"
+        zone = lat.zones[int(rng.integers(lat.Z))]
+        cap_t = str(rng.choice(["spot", "on-demand"]))
+        capacity, alloc = shape(itype)
+        claim = O.NodeClaim(
+            name=f"{pool}-{i:05d}", node_pool=pool,
+            labels=labels(itype, zone, cap_t, pool),
+            phase=O.NodeClaimPhase.LAUNCHED, provider_id=f"sim:///{zone}/i-{i:08x}",
+            instance_type=itype, zone=zone, capacity_type=cap_t,
+            capacity=capacity, allocatable=alloc,
+            created_at=t0 - 100.0, launched_at=t0 - 99.0)
+        claims.append(claim)
+        if i < 3:
+            # launched, not registered yet: an in-flight bin
+            inflight.append(claim.name)
+            continue
+        claim.phase = O.NodeClaimPhase.INITIALIZED
+        claim.registered_at = claim.initialized_at = t0 - 90.0
+        if i == 3:
+            claim.deletion_timestamp = t0 - 5.0
+            claim.phase = O.NodeClaimPhase.TERMINATING
+        nodes.append(O.Node(
+            name=claim.name, provider_id=claim.provider_id,
+            labels=dict(claim.labels), capacity=dict(capacity),
+            allocatable=dict(alloc), ready=True, created_at=t0 - 90.0,
+            node_pool=pool, node_claim=claim.name))
+    pods, ds, nominated = [], [], []
+    for node in nodes:
+        ds.append(A.Pod(name=f"ds-{node.name}", requests={"cpu": "100m", "memory": "128Mi"},
+                        is_daemonset=True, owner="daemonset/agent",
+                        node_name=node.name))
+    serial = 0
+    for node in nodes:
+        for _ in range(int(rng.integers(0, 6))):
+            serial += 1
+            cpu, mem = CHURN_SHAPES[int(rng.integers(4))]
+            pods.append(A.Pod(name=f"b{serial}", requests={"cpu": cpu, "memory": mem},
+                              labels={"app": f"a{serial % 3}"}, node_name=node.name))
+    for name in inflight:
+        for _ in range(int(rng.integers(1, 4))):
+            serial += 1
+            pods.append(A.Pod(name=f"n{serial}", requests={"cpu": "250m", "memory": "512Mi"}))
+            nominated.append((pods[-1].name, name))
+    for _ in range(int(rng.integers(10, 30))):
+        serial += 1
+        cpu, mem = CHURN_SHAPES[int(rng.integers(4))]
+        kw = {}
+        if rng.random() < 0.2:
+            kw["node_selector"] = {wk.LABEL_ARCH: "arm64"}
+        pods.append(A.Pod(name=f"p{serial}", requests={"cpu": cpu, "memory": mem}, **kw))
+    return {"pools": pools, "nodes": nodes, "claims": claims, "pods": pods,
+            "daemonset_pods": ds, "nominated": nominated}
+
+
+def populate(pkg: str, contents, clock=None):
+    """A ``ClusterState`` of ``pkg`` holding ``cluster_contents`` (claims,
+    nodes, daemonset pods, pods, then the nominations), on ``clock`` or a
+    new ``FakeClock``."""
+    clock = clock or mod(pkg, "utils.clock").FakeClock()
+    cluster = mod(pkg, "state.cluster").ClusterState(clock)
+    for c in contents["claims"]:
+        cluster.add_claim(c)
+    for n in contents["nodes"]:
+        cluster.add_node(n)
+    for p in contents["daemonset_pods"] + contents["pods"]:
+        cluster.add_pod(p)
+    for p, target in contents["nominated"]:
+        cluster.nominate(p, target)
+    return cluster

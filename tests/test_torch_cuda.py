@@ -153,3 +153,33 @@ def test_steady_state_on_the_card_equals_cpu(cuda):
         assert card[5] >= 1 and host[5] == 0
     assert runs[0][-1][3]["micro_skipped_syncs"] >= 1
     assert runs[0][-1][3]["micro_aborts"] == 0
+
+
+def test_provisioner_on_the_card(cuda):
+    """A few pods through ``Provisioner.provision_once`` on the card: the
+    pass launches the kernel, is not degraded, and its claims, and the
+    pods registration binds, equal a CPU stack's."""
+    from karpenter_provider_aws_tpu_torch import workloads
+    lat = build_lattice([s for s in build_catalog()
+                         if s.family in ("m5", "c5", "m6g", "t3")])
+    outs = []
+    for dev in (cuda, "cpu"):
+        stack = workloads.ProvisionerStack(lat, [NodePool(name="default")],
+                                           Solver(lat, device=dev))
+        for i in range(12):
+            stack.cluster.add_pod(Pod(name=f"p{i}", requests={
+                "cpu": ("250m", "1", "2")[i % 3], "memory": "1Gi"}))
+        before = oa.LAUNCHES
+        result, _ = stack.provision()
+        launched = oa.LAUNCHES - before
+        stack.register()
+        assert not result.degraded and result.plan.solver_path == "device"
+        assert result.pods_unschedulable == 0 and result.launch_failures == 0
+        assert not stack.cluster.pending_pods()
+        outs.append((launched,
+                     sorted((c.name, c.instance_type, c.zone, c.capacity_type)
+                            for c in stack.cluster.claims.values()),
+                     sorted((p.name, p.node_name)
+                            for p in stack.cluster.pods.values())))
+    assert outs[0][0] >= 1 and outs[1][0] == 0
+    assert outs[0][1:] == outs[1][1:]

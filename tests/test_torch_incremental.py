@@ -32,7 +32,7 @@ def _run_sequence():
     if "seq" not in _RUNS:
         jl = cases.small_lattice(cases.JAX_PKG)
         tl = cases.small_lattice(cases.TORCH_PKG)
-        jb, tb = JaxBuilder(explain=False), TorchBuilder()
+        jb, tb = JaxBuilder(explain=False), TorchBuilder(explain=False)
         jres, tres = [], []
         for (jpods, jpools, jex, jd, jt), (tpods, tpools, tex, td, tt) in zip(
                 cases.churn_sequence(cases.JAX_PKG, jl),
@@ -75,8 +75,17 @@ class TestChurnSequence:
 
 class TestBuilderSurface:
     def test_explain_is_not_ported(self):
-        with pytest.raises(NotImplementedError):
-            TorchBuilder(explain=True)
+        """(Named when explain builds raised here.) The builder now
+        defaults to ``explain=True``, as the JAX package's does: a full
+        build carries a ledger on every group, and ``explain=False``
+        carries none."""
+        lat, pods, pools, _ = cases.build(cases.TORCH_PKG, "generic")
+        DirtySet = cases.mod(cases.TORCH_PKG, "state.cluster").DirtySet
+        full = lambda: DirtySet(since=-1, rev=0, full=True)
+        on = TorchBuilder().build(pods, pools, lat, dirty=full()).problem
+        off = TorchBuilder(explain=False).build(pods, pools, lat, dirty=full()).problem
+        assert on.groups and all(g.ledger is not None for g in on.groups)
+        assert all(g.ledger is None for g in off.groups)
 
     def test_no_dirty_set_and_gates_without_a_previous_build(self):
         lat = cases.small_lattice(cases.TORCH_PKG)
@@ -94,7 +103,7 @@ class TestBuilderSurface:
     def test_volume_and_daemonset_gates(self, flag, reason):
         outs = []
         for pkg, Builder in ((cases.JAX_PKG, lambda: JaxBuilder(explain=False)),
-                             (cases.TORCH_PKG, TorchBuilder)):
+                             (cases.TORCH_PKG, lambda: TorchBuilder(explain=False))):
             DirtySet = cases.mod(pkg, "state.cluster").DirtySet
             lat, pods, pools, _ = cases.build(pkg, "generic")
             b = Builder()
@@ -109,7 +118,7 @@ class TestBuilderSurface:
         """Which full builds may seed deltas, and why not."""
         outs = []
         for pkg, Builder in ((cases.JAX_PKG, lambda: JaxBuilder(explain=False)),
-                             (cases.TORCH_PKG, TorchBuilder)):
+                             (cases.TORCH_PKG, lambda: TorchBuilder(explain=False))):
             DirtySet = cases.mod(pkg, "state.cluster").DirtySet
             lat, pods, pools, kw = cases.build(pkg, case)
             b = Builder()

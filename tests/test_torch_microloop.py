@@ -63,7 +63,7 @@ def _runs():
         js = JaxSolver(cases.small_lattice(cases.JAX_PKG))
         ts = TorchSolver(cases.small_lattice(cases.TORCH_PKG), device=CPU)
         _RUNS["runs"] = (_drive(cases.JAX_PKG, lambda: JaxBuilder(explain=False), js),
-                         _drive(cases.TORCH_PKG, TorchBuilder, ts))
+                         _drive(cases.TORCH_PKG, lambda: TorchBuilder(explain=False), ts))
     return _RUNS["runs"]
 
 

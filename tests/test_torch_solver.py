@@ -173,9 +173,16 @@ class TestBuildProblem:
         assert_problems_equal(jp, tp)
 
     def test_explain_is_not_ported(self):
+        """(Named when explain builds raised here.) ``explain=True`` now
+        builds the JAX package's ledgers; tests/test_torch_explain.py
+        holds them equal case by case."""
         lat, pods, pools, kw = cases.build(cases.TORCH_PKG, "generic")
-        with pytest.raises(NotImplementedError):
-            t_build(pods, pools, lat, explain=True)
+        p = t_build(pods, pools, lat, explain=True, **kw)
+        assert p.groups and all(g.ledger is not None for g in p.groups)
+        jlat, jpods, jpools, jkw = cases.build(cases.JAX_PKG, "generic")
+        jp = j_build(jpods, jpools, jlat, explain=True, **jkw)
+        assert [g.ledger.to_doc() for g in p.groups] == \
+            [g.ledger.to_doc() for g in jp.groups]
 
 
 class TestOracle:
