@@ -55,11 +55,29 @@ Phases, in order; any failure exits non-zero and prints no result line:
    The phase fails on a degraded pass, a launch failure, a referee
    mismatch, a churned pass that did not launch the kernel, a microloop
    abort, no delta solve or incremental build, or a pod left pending;
-7. kernel timing: the kernel and its plain version at cfg5's and cfg10's
-   own inputs (captured in a solve of each) and at the dense largest bin
-   bucket (B=8192), and the card's launch floor (a one-element in-place
-   add), each the median of 100 device times from CUDA events, queued
-   behind a device sleep so that no host gap is timed.
+7. consolidation: cfg4's fleet (``workloads.config4_fleet_stack``: 500
+   under-utilized nodes of the real catalog's three cheapest
+   general-purpose types, half spot, 1,500 pods bound 3 per node) in a
+   ``workloads.ConsolidationStack`` on the card, through 8 ``run_once``
+   passes (provisioning, lifecycle, disruption with its batched probes,
+   termination), each printing its probe dispatch's K, G and B, wall and
+   device span (CUDA events), the host build of the what-if problems, the
+   exact what-if solves, the referee, the nodes removed and the fleet's
+   $/hr. The phase fails on a host fallback, a degraded plan, an accepted
+   removal the host-FFD referee did not pass, a pass that raised the
+   fleet's $/hr, a probe dispatch or an exact what-if that did not launch
+   the kernel exactly once, or a pod pending at the end; every kernel
+   call of every pass is held exactly against the plain version, every
+   probe of the first dispatch is re-run alone (K=1) and must equal its
+   batched row, and the largest prefix and one single must equal a CPU
+   Solver's probe. One dispatch is re-run under the profiler for the
+   device's idle share;
+8. kernel timing: the kernel and its plain version at cfg5's and cfg10's
+   own inputs (captured in a solve of each), at the first consolidation
+   pass's probe dispatch (K x B rows in one call) and at the dense largest
+   bin bucket (B=8192), and the card's launch floor (a one-element
+   in-place add), each the median of 100 device times from CUDA events,
+   queued behind a device sleep so that no host gap is timed.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``. The script imports
@@ -76,6 +94,7 @@ import traceback
 HERE = os.path.dirname(os.path.abspath(__file__))
 SOLVES = 12
 SMALL_PASSES = 12
+CONSOLIDATION_PASSES = 8
 
 
 def _fail(msg: str) -> int:
@@ -470,6 +489,326 @@ def _provisioner(torch, workloads, lattice, oa, cpu_plan):
     return out, launches
 
 
+def _consolidation(torch, workloads, lattice, oa):
+    """Phase 7: cfg4's fleet (500 under-utilized nodes) through the
+    consolidation stack on the card; returns its numbers, its launches and
+    the first probe dispatch's kernel inputs."""
+    from karpenter_provider_aws_tpu_torch import measure
+    from karpenter_provider_aws_tpu_torch.ops import binpack
+    from karpenter_provider_aws_tpu_torch.solver import Solver
+
+    solver = Solver(lattice)
+    if solver.device.type != "cuda":
+        raise AssertionError("consolidation: the Solver is not on the card")
+    t = time.perf_counter()
+    stack = workloads.config4_fleet_stack(lattice, solver)
+    seed_ms = (time.perf_counter() - t) * 1e3
+    ctrl, eng = stack.disruption, stack.disruption.engine
+    cost0, unpriced = stack.fleet_cost()
+    print(f"cfg4 fleet: {len(stack.cluster.nodes)} nodes, "
+          f"{stack.cluster.pod_phase_counts()['bound']} pods bound, "
+          f"${cost0:.4f}/hr over the priced offerings ({unpriced} nodes on "
+          f"offerings the catalog does not price), seeded in {seed_ms:.1f} ms",
+          flush=True)
+    n_nodes = len(stack.cluster.nodes)
+    n_pods = stack.cluster.pod_phase_counts()["bound"]
+    if (n_nodes != len(stack.cluster.claims) or n_pods != 3 * n_nodes
+            or stack.cluster.pending_pods()):
+        raise AssertionError("cfg4: the fleet did not seed")
+
+    # per-pass records, filled by wrappers around the stack's own objects
+    rec = {}
+    orig_probe = solver.probe_batch
+    orig_pack = binpack.pack_probe_fused
+    orig_what_if = ctrl._what_if
+    orig_referee = eng.referee
+    orig_build = eng._whatif_problem
+    orig_accept = eng.note_accept
+    orig_provision = stack.provisioner.provision_once
+
+    def probe_batch(problems):
+        before = oa.LAUNCHES
+        t = time.perf_counter()
+        out = orig_probe(problems)
+        lp = solver.last_probe
+        rec["dispatches"].append({
+            "K": lp["K"], "padded": lp["padded"], "G": lp["G"], "B": lp["B"],
+            "wall_ms": (time.perf_counter() - t) * 1e3,
+            "launches": oa.LAUNCHES - before,
+            "problems": list(problems), "summary": lp["summary"]})
+        return out
+
+    def pack_probe_fused(*a, **kw):
+        # CUDA events around the batched pack's launches: the span from the
+        # card reaching the first to finishing the last
+        ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        ev0.record()
+        out = orig_pack(*a, **kw)
+        ev1.record()
+        rec["pack_events"].append((ev0, ev1))
+        return out
+
+    def what_if(removed):
+        before = oa.LAUNCHES
+        t = time.perf_counter()
+        plan, price = orig_what_if(removed)
+        rec["what_ifs"].append({"ms": (time.perf_counter() - t) * 1e3,
+                                "launches": oa.LAUNCHES - before,
+                                "degraded": plan.degraded,
+                                "path": plan.solver_path})
+        return plan, price
+
+    def referee(removed, plan, **kw):
+        rec["in_referee"] = True
+        t = time.perf_counter()
+        try:
+            ok, ratio = orig_referee(removed, plan, **kw)
+        finally:
+            rec["in_referee"] = False
+        rec["referee"].append({"ms": (time.perf_counter() - t) * 1e3,
+                               "claims": sorted(c.name for c in removed),
+                               "ok": ok, "ratio": ratio})
+        return ok, ratio
+
+    def whatif_problem(*a, **kw):
+        t = time.perf_counter()
+        out = orig_build(*a, **kw)
+        if not rec["in_referee"]:
+            rec["build_ms"] += (time.perf_counter() - t) * 1e3
+        return out
+
+    def note_accept(removed, savings):
+        rec["accepted"].append((sorted(c.name for c in removed), savings))
+        return orig_accept(removed, savings)
+
+    def provision_once():
+        t = time.perf_counter()
+        result = orig_provision()
+        rec["ms"]["provision"] += (time.perf_counter() - t) * 1e3
+        rec["provisions"].append(result)
+        return result
+
+    def timed(name, fn):
+        def run():
+            t = time.perf_counter()
+            try:
+                return fn()
+            finally:
+                rec["ms"][name] += (time.perf_counter() - t) * 1e3
+        return run
+
+    orig_reconciles = {name: getattr(stack, name).reconcile
+                       for name in ("lifecycle", "disruption", "termination")}
+
+    solver.probe_batch = probe_batch
+    binpack.pack_probe_fused = pack_probe_fused
+    ctrl._what_if = what_if
+    eng.referee = referee
+    eng._whatif_problem = whatif_problem
+    eng.note_accept = note_accept
+    stack.provisioner.provision_once = provision_once
+    for name, fn in orig_reconciles.items():
+        getattr(stack, name).reconcile = timed(name, fn)
+
+    def poll_batch():
+        # the provisioner's batch window closes on the clock, as between
+        # the Operator's passes
+        for _ in range(2):
+            stack.provisioner.batch_ready()
+            stack.clock.step(0.6)
+
+    rows, launches_per_pass, max_err = [], [], 0.0
+    first = None
+    stack.clock.step(workloads.CFG4_CONSOLIDATE_AFTER + 1.0)
+    try:
+        for k in range(CONSOLIDATION_PASSES):
+            rec.update(dispatches=[], pack_events=[], what_ifs=[], referee=[],
+                       accepted=[], provisions=[], build_ms=0.0,
+                       in_referee=False,
+                       ms=dict.fromkeys(("provision", "lifecycle", "disruption",
+                                         "termination"), 0.0))
+            poll_batch()
+            before_cost, _ = stack.fleet_cost()
+            claims_before = set(stack.cluster.claims)
+            in_flight_before = list(ctrl._in_flight)
+            counters_before = dict(eng.counters)
+            oa.LAUNCHES = 0
+            t = time.perf_counter()
+            _, inputs = measure.captured_kernel_inputs(stack.run_once)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3
+            launched = oa.LAUNCHES
+            launches_per_pass.append(launched)
+            stack.clock.step(stack.registration_delay + 0.1)
+            after_cost, _ = stack.fleet_cost()
+            for i, inp in enumerate(inputs):
+                max_err = max(max_err, measure.check_exact(
+                    f"cfg4 pass {k} kernel call {i} inputs",
+                    oa.cheapest_offering(*inp), oa.cheapest_offering_ref(*inp)))
+            new_actions = [a for a in ctrl._in_flight if a not in in_flight_before]
+            disp = rec["dispatches"]
+            dev_ms = [e0.elapsed_time(e1) for e0, e1 in rec["pack_events"]]
+            row = {
+                "pass": k, "wall_ms": wall_ms, "launches": launched,
+                "kernel_calls_checked": len(inputs),
+                "dispatches": [{kk: d[kk] for kk in ("K", "padded", "G", "B",
+                                                     "wall_ms", "launches")}
+                               for d in disp],
+                "pack_device_span_ms": dev_ms,
+                "build_ms": rec["build_ms"],
+                "what_ifs": [(w["ms"], w["launches"]) for w in rec["what_ifs"]],
+                "referee_ms": [r["ms"] for r in rec["referee"]],
+                "accepted": [(len(c), s) for c, s in rec["accepted"]],
+                "removed": len(claims_before - set(stack.cluster.claims)),
+                "decided": sum(len(a.claims) for a in new_actions),
+                "replacements": sum(len(a.replacements) for a in new_actions),
+                "controller_ms": dict(rec["ms"]),
+                "cost_before": before_cost, "cost_after": after_cost,
+                "pending_after": len(stack.cluster.pending_pods()),
+                "host_fallbacks": eng.counters["host_fallbacks"]
+                - counters_before["host_fallbacks"],
+            }
+            rows.append(row)
+            print(f"cfg4 pass {k}: "
+                  + "; ".join(f"K={d['K']} (padded {d['padded']}) G={d['G']} "
+                              f"B={d['B']}, dispatch wall {d['wall_ms']:.3f} ms, "
+                              f"{d['launches']} launch(es)" for d in row["dispatches"])
+                  + f"; pack device span {[round(x, 3) for x in dev_ms]} ms; "
+                  f"host build of the what-if problems {rec['build_ms']:.3f} ms; "
+                  f"exact what-ifs {[round(w[0], 3) for w in row['what_ifs']]} ms "
+                  f"({[w[1] for w in row['what_ifs']]} launches); referee "
+                  f"{[round(x, 3) for x in row['referee_ms']]} ms; decided to "
+                  f"remove {row['decided']} nodes with {row['replacements']} "
+                  f"replacement(s), {row['removed']} terminated; fleet "
+                  f"${before_cost:.4f}/hr -> ${after_cost:.4f}/hr; "
+                  f"{row['pending_after']} pods pending; pass wall "
+                  f"{wall_ms:.3f} ms (controllers "
+                  f"{ {n: round(v, 3) for n, v in rec['ms'].items()} } ms); "
+                  f"{launched} kernel launch(es), "
+                  f"{len(inputs)} kernel calls' inputs exact", flush=True)
+            # the phase's gates
+            if row["host_fallbacks"]:
+                raise AssertionError(f"cfg4 pass {k}: {row['host_fallbacks']} "
+                                     f"host fallbacks")
+            for d in row["dispatches"]:
+                if d["launches"] != 1:
+                    raise AssertionError(f"cfg4 pass {k}: a probe dispatch "
+                                         f"launched the kernel {d['launches']} times")
+            for w in rec["what_ifs"]:
+                if w["launches"] != 1 or w["degraded"] or w["path"] != "device":
+                    raise AssertionError(f"cfg4 pass {k}: an exact what-if "
+                                         f"launched {w['launches']} times "
+                                         f"(degraded {w['degraded']}, {w['path']})")
+            for res in rec["provisions"]:
+                _check_pass(f"cfg4 pass {k} provisioning", res)
+            passed = [r["claims"] for r in rec["referee"] if r["ok"]]
+            for names, _ in rec["accepted"]:
+                if names not in passed:
+                    raise AssertionError(f"cfg4 pass {k}: an accepted removal "
+                                         f"({len(names)} nodes) was not refereed")
+            if after_cost > before_cost:
+                raise AssertionError(f"cfg4 pass {k}: fleet $/hr went up, "
+                                     f"{before_cost} -> {after_cost}")
+            if k == 0:
+                if not rec["accepted"]:
+                    raise AssertionError("cfg4: the first pass consolidated nothing")
+                if len(disp) != 1:
+                    raise AssertionError(f"cfg4: the first pass made {len(disp)} "
+                                         f"probe dispatches")
+                first = disp[0]
+                first["inputs"] = next(
+                    inp for inp in inputs
+                    if inp[0].shape[0] == first["padded"] * first["B"])
+    finally:
+        solver.probe_batch = orig_probe
+        binpack.pack_probe_fused = orig_pack
+        ctrl._what_if = orig_what_if
+        eng.referee = orig_referee
+        eng._whatif_problem = orig_build
+        eng.note_accept = orig_accept
+        stack.provisioner.provision_once = orig_provision
+        for name, fn in orig_reconciles.items():
+            getattr(stack, name).reconcile = fn
+
+    # the evictees of the last pass's terminations take their pass
+    poll_batch()
+    if stack.cluster.pending_pods():
+        result = stack.provisioner.provision_once()
+        _check_pass("cfg4 final provisioning", result)
+        stack.register()
+    end_cost, _ = stack.fleet_cost()
+    if stack.cluster.pending_pods():
+        raise AssertionError(f"cfg4: {len(stack.cluster.pending_pods())} pods "
+                             f"left pending at the end")
+    if end_cost > rows[-1]["cost_after"]:
+        raise AssertionError("cfg4: the final provisioning raised the fleet $/hr")
+
+    # batched against unbatched on the card: every probe of the first
+    # dispatch alone
+    cols = binpack.ProbeSummary._fields
+    ci = cols.index("new_cost")
+
+    def same_row(a, b):
+        counts = all(a[j] == b[j] for j in range(len(cols)) if j != ci)
+        return counts and (a[ci] == b[ci]
+                           or abs(a[ci] - b[ci]) <= 1e-6 * abs(b[ci]))
+
+    summ = first["summary"]
+    for i, p in enumerate(first["problems"]):
+        orig_probe([p])
+        if not same_row(solver.last_probe["summary"][0], summ[i]):
+            raise AssertionError(f"cfg4: probe {i} of the first dispatch alone "
+                                 f"{solver.last_probe['summary'][0]} != batched "
+                                 f"{summ[i]}")
+    print(f"cfg4: each of the first dispatch's {len(first['problems'])} probes "
+          f"alone (K=1) equals its batched row", flush=True)
+    # card against CPU: the largest prefix and one single (the first pass's
+    # dispatch holds every prefix, largest last, then the singles)
+    n_prefix = len(first["problems"]) - ctrl.MAX_SINGLE_PROBES
+    picks = {"largest prefix": n_prefix - 1, "first single": n_prefix}
+    cpu = Solver(lattice, device="cpu")
+    for name, i in picks.items():
+        t = time.perf_counter()
+        cpu.probe_batch([first["problems"][i]])
+        got = cpu.last_probe["summary"][0]
+        if not same_row(summ[i], got):
+            raise AssertionError(f"cfg4: the {name} probe on the card {summ[i]} "
+                                 f"!= on the CPU {got}")
+        print(f"cfg4: the {name} probe (E={first['problems'][i].E}, "
+              f"{int(first['problems'][i].count.sum())} pods) on the card == on "
+              f"the CPU ({(time.perf_counter() - t):.1f} s on the CPU): "
+              f"{dict(zip(cols, summ[i].tolist()))}", flush=True)
+    # the device's busy time in one dispatch of the first pass's problems
+    wall_ms, dev_ms, n_kernels = measure.profiled_device_ms(
+        lambda: orig_probe(first["problems"]))
+    print(f"cfg4: one probe dispatch of {len(first['problems'])} probes under "
+          f"the profiler: wall {wall_ms:.3f} ms, device kernels {dev_ms:.3f} ms "
+          f"({n_kernels} kernels), idle share {1.0 - dev_ms / wall_ms:.3f}",
+          flush=True)
+
+    st = eng.stats()
+    out = {
+        "nodes": n_nodes, "pods": n_pods, "seed_ms": seed_ms,
+        "fleet_cost_start": cost0, "fleet_cost_end": end_cost,
+        "unpriced_nodes": unpriced, "nodes_end": len(stack.cluster.nodes),
+        "passes": rows, "engine": st,
+        "first_dispatch": {k: first[k] for k in ("K", "padded", "G", "B",
+                                                 "wall_ms", "launches")},
+        "profiled_dispatch": {"wall_ms": wall_ms, "device_ms": dev_ms,
+                              "kernels": n_kernels,
+                              "idle_share": 1.0 - dev_ms / wall_ms},
+        "max_abs_err": max_err,
+    }
+    print(f"cfg4: {CONSOLIDATION_PASSES} passes, {st['accepted']:.0f} removals "
+          f"accepted, {st['nodes_consolidated']:.0f} nodes consolidated, "
+          f"${cost0:.4f}/hr -> ${end_cost:.4f}/hr, {len(stack.cluster.nodes)} "
+          f"nodes; referee {st['referee_checks']:.0f} checks, "
+          f"{st['referee_rejects']:.0f} rejects; host fallbacks "
+          f"{st['host_fallbacks']:.0f}; launches per pass {launches_per_pass}",
+          flush=True)
+    return out, sum(launches_per_pass), launches_per_pass, first["inputs"]
+
+
 def main() -> int:
     try:
         import torch
@@ -624,7 +963,13 @@ def _run(torch) -> int:
     launches.update(prov_launches)
     max_err = max(max_err, prov["max_abs_err"])
 
-    # ---- 7. kernel times: the main paths' own inputs, the dense largest
+    # ---- 7. consolidation: cfg4's fleet
+    _phase("consolidation: cfg4 (500 under-utilized nodes x real catalog)")
+    consol, launches["cfg4_consolidation"], consol_per_pass, probe_inputs = \
+        _consolidation(torch, workloads, lattice, oa)
+    max_err = max(max_err, consol["max_abs_err"])
+
+    # ---- 8. kernel times: the main paths' own inputs, the dense largest
     # bucket, the launch floor
     _phase("kernel timing")
     solver = Solver(lattice)
@@ -635,6 +980,7 @@ def _run(torch) -> int:
     timed = {}
     for name, (tm, zc, pr) in (
             ("cfg5", cfg5_inputs), ("cfg10", cfg10_inputs),
+            ("cfg4_probe", probe_inputs),
             ("dense", measure.on_device(offering_cases.dense_case(), dev))):
         max_err = max(max_err, measure.check_exact(
             f"{name} inputs", oa.cheapest_offering(tm, zc, pr),
@@ -673,9 +1019,14 @@ def _run(torch) -> int:
         "launches_by_path": launches, "launch_floor_ms": floor_ms,
         "cfg10": {**timed["cfg10"], "launches": launches["cfg10_steady_state"],
                   "launches_per_pass": steady["launches_per_pass"]},
+        "cfg4_probe": {**timed["cfg4_probe"],
+                       "launches": launches["cfg4_consolidation"],
+                       "launches_per_pass": consol_per_pass,
+                       "launches_per_probe_dispatch": 1},
         "dense": timed["dense"],
     }], "cfg5": cfg5, "cfg10": {k: v for k, v in steady.items()
                                 if k != "launches_per_pass"},
+        "consolidation": consol,
         "provisioner": {"cfg5_wave": prov["cfg5_wave"],
                         "cfg10_first_wave": prov["cfg10_first_wave"],
                         "cfg10": {k: v for k, v in prov["cfg10"].items()

@@ -3,7 +3,8 @@
 ``chip_smoke.py`` and ``profile_solve.py`` use them: the card's name and
 power limit, device times from CUDA events, the card's launch floor, a
 kernel call's bound, the exact comparison of a kernel with its plain
-version, and the kernel inputs of one main-path solve.
+version, the kernel inputs a main-path call passes, and a call's device
+time and idle share under the profiler.
 """
 
 from __future__ import annotations
@@ -97,9 +98,10 @@ def on_device(case, device):
     return tuple(torch.from_numpy(a).to(device) for a in case)
 
 
-def captured_main_path_inputs(solve):
-    """Runs ``solve()`` with the pack's kernel call wrapped; returns its
-    result and copies of the last (tmask, zcmask, price) the pack passed."""
+def captured_kernel_inputs(run):
+    """Runs ``run()`` with the pack's kernel call wrapped; returns its
+    result and copies of every (tmask, zcmask, price) the pack passed, in
+    call order."""
     from .ops import binpack
     captured = []
     orig = binpack.cheapest_offering
@@ -110,9 +112,44 @@ def captured_main_path_inputs(solve):
 
     binpack.cheapest_offering = capture
     try:
-        out = solve()
+        out = run()
     finally:
         binpack.cheapest_offering = orig
+    return out, captured
+
+
+def captured_main_path_inputs(solve):
+    """Runs ``solve()`` with the pack's kernel call wrapped; returns its
+    result and copies of the last (tmask, zcmask, price) the pack passed."""
+    out, captured = captured_kernel_inputs(solve)
     if not captured:
         raise AssertionError("the solve never reached the kernel's call")
     return out, captured[-1]
+
+
+def profiled_device_ms(run):
+    """(wall ms, summed device ms of every kernel, kernel launches) of one
+    ``run()`` under ``torch.profiler``, synchronised at both ends. The
+    device's idle share of the call is 1 - device / wall."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def dev_us(e) -> float:
+        for name in ("self_device_time_total", "self_cuda_time_total"):
+            v = getattr(e, name, None)
+            if v is not None:
+                return float(v)
+        return 0.0
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    # kernel records only: an aten op's own row repeats its kernels' time
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+    return (wall_ms, sum(dev_us(e) for e in events) / 1e3,
+            sum(e.count for e in events))

@@ -182,8 +182,10 @@ def _pack_step(alloc: torch.Tensor, avail_f: torch.Tensor, pools: PoolParams,
     headroom = eff_alloc - state.cum[:, None, :]               # [B,T,R]
     n_fit_t = _fit_counts(headroom, g.req)                     # [B,T]
     valid_t = tm & reachable & (np_ok & aff_ok & state.open)[:, None]
-    n_fit = torch.where(valid_t, n_fit_t, torch.zeros_like(n_fit_t)
-                        ).amax(dim=1).to(_I32)                 # [B]
+    # a 0-d zero, not zeros_like: no [B,T] fill, and under the probe's
+    # vmap no batch-size-dependent materialization
+    zero_f = torch.zeros((), dtype=_F32, device=dev)
+    n_fit = torch.where(valid_t, n_fit_t, zero_f).amax(dim=1).to(_I32)  # [B]
     # hostname-spread cap: maxSkew minus pods of the spread class already
     # in the bin; class-less caps apply per row
     A = state.pm.shape[1]
@@ -219,8 +221,7 @@ def _pack_step(alloc: torch.Tensor, avail_f: torch.Tensor, pools: PoolParams,
                - pools.ds[:, None, :])                         # [NP,T,R]
     n_per_t = _fit_counts(head_np, g.req)                      # [NP,T]
     valid_np_t = tm_np & reach_np & g.g_np[:, None]
-    n_per_np = torch.where(valid_np_t, n_per_t, torch.zeros_like(n_per_t)
-                           ).amax(dim=1).to(_I32)              # [NP]
+    n_per_np = torch.where(valid_np_t, n_per_t, zero_f).amax(dim=1).to(_I32)  # [NP]
     n_per_np = torch.minimum(n_per_np, g.max_per_bin)
     ok_np = n_per_np >= 1
     np_star = _first_true(ok_np)                               # first True (weight order)
@@ -284,6 +285,48 @@ def _pack_step(alloc: torch.Tensor, avail_f: torch.Tensor, pools: PoolParams,
     return new_state, (n_placed, leftover)
 
 
+def _scan(alloc: torch.Tensor, avail_f: torch.Tensor, groups: GroupBatch,
+          pools: PoolParams, init: BinState
+          ) -> Tuple[BinState, torch.Tensor, torch.Tensor]:
+    """The grouped-FFD scan: ``_pack_step`` over the G groups in order.
+    Returns the final bin table, the [G,B] assignment and the [G]
+    leftover. Plain tensor code only, so the batched probe can vmap it."""
+    state = init
+    assign, leftover = [], []
+    for gi in range(groups.count.shape[0]):
+        g = GroupBatch(*(f[gi] for f in groups))
+        state, (a, lo) = _pack_step(alloc, avail_f, pools, state, g)
+        assign.append(a)
+        leftover.append(lo)
+    dev = state.cum.device
+    if not assign:
+        B = state.cum.shape[0]
+        return (state, torch.zeros((0, B), dtype=_I32, device=dev),
+                torch.zeros((0,), dtype=_I32, device=dev))
+    return state, torch.stack(assign), torch.stack(leftover)
+
+
+def _finalize(state: BinState, avail: torch.Tensor, price: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Cheapest available offering per new bin: (chosen_t, chosen_z,
+    chosen_c, chosen_price), each shaped like ``state.open``. The bin
+    table may carry leading axes (the batched probe's K): its rows are
+    flattened into ONE call of the cheapest-offering kernel, since every
+    bin is priced on its own against the one shared price panel."""
+    T, Z, C = price.shape
+    live = state.open & ~state.fixed & (state.npods > 0)
+    inf = _full(float("inf"), _F32, price.device)
+    p = torch.where(avail, price, inf).reshape(T, Z * C)
+    zc = (state.zmask[..., :, None] & state.cmask[..., None, :]).reshape(-1, Z * C)
+    best_v, best_i = cheapest_offering(state.tmask.reshape(-1, T).contiguous(),
+                                       zc, p)
+    best_v, best_i = best_v.reshape(live.shape), best_i.reshape(live.shape)
+    chosen_t = torch.div(best_i, Z * C, rounding_mode="floor").to(_I32)
+    chosen_z = (torch.div(best_i, C, rounding_mode="floor") % Z).to(_I32)
+    chosen_c = (best_i % C).to(_I32)
+    return chosen_t, chosen_z, chosen_c, torch.where(live, best_v, inf)
+
+
 def pack(alloc: torch.Tensor, avail: torch.Tensor, price: torch.Tensor,
          groups: GroupBatch, pools: PoolParams, init: BinState) -> PackResult:
     """Run the grouped-FFD scan + cheapest-offering finalization.
@@ -294,37 +337,11 @@ def pack(alloc: torch.Tensor, avail: torch.Tensor, price: torch.Tensor,
     with a bigger bucket), the final bin table, and each new bin's chosen
     offering. On CUDA the finalization always runs the CUDA kernel.
     """
-    avail_f = avail.to(_F32)
-    state = init
-    assign, leftover = [], []
-    for gi in range(groups.count.shape[0]):
-        g = GroupBatch(*(f[gi] for f in groups))
-        state, (a, lo) = _pack_step(alloc, avail_f, pools, state, g)
-        assign.append(a)
-        leftover.append(lo)
-
-    # ---- finalization: cheapest available offering per new bin ----
-    B = state.cum.shape[0]
-    T, Z, C = price.shape
-    live = state.open & ~state.fixed & (state.npods > 0)
-    inf = _full(float("inf"), _F32, price.device)
-    p = torch.where(avail, price, inf).reshape(T, Z * C)
-    zc = (state.zmask[:, :, None] & state.cmask[:, None, :]).reshape(B, Z * C)
-    best_v, best_i = cheapest_offering(state.tmask.contiguous(), zc, p)
-    chosen_t = torch.div(best_i, Z * C, rounding_mode="floor").to(_I32)
-    chosen_z = (torch.div(best_i, C, rounding_mode="floor") % Z).to(_I32)
-    chosen_c = (best_i % C).to(_I32)
-    chosen_price = torch.where(live, best_v, inf)
-
-    dev = state.cum.device
-    G = len(assign)
-    return PackResult(
-        assign=(torch.stack(assign) if G else
-                torch.zeros((0, B), dtype=_I32, device=dev)),
-        leftover=(torch.stack(leftover) if G else
-                  torch.zeros((0,), dtype=_I32, device=dev)),
-        state=state, chosen_t=chosen_t, chosen_z=chosen_z,
-        chosen_c=chosen_c, chosen_price=chosen_price)
+    state, assign, leftover = _scan(alloc, avail.to(_F32), groups, pools, init)
+    chosen_t, chosen_z, chosen_c, chosen_price = _finalize(state, avail, price)
+    return PackResult(assign=assign, leftover=leftover, state=state,
+                      chosen_t=chosen_t, chosen_z=chosen_z, chosen_c=chosen_c,
+                      chosen_price=chosen_price)
 
 
 def _bytes(x: torch.Tensor) -> torch.Tensor:
@@ -494,24 +511,30 @@ _GROUP_FIELD_NAMES = frozenset(GroupBatch._fields)
 def _field_values(buf: torch.Tensor, layout) -> dict:
     """Slice a fused uint8 buffer into its fields: 4-byte fields are
     reinterpreted in place where aligned (copied first where a combined
-    buffer's split leaves them unaligned); uint8 fields stay uint8."""
+    buffer's split leaves them unaligned); uint8 fields stay uint8.
+
+    ``buf`` may carry leading axes (the batched probe's [K,total] stack):
+    every field then keeps them. A stack stays in place only when its row
+    length is a multiple of 4, which the host's padding guarantees."""
+    lead = tuple(buf.shape[:-1])
     vals = {}
     for f in layout:
         n = int(np.prod(f.shape))
         if f.dtype is np.uint8:
-            vals[f.name] = buf[f.offset: f.offset + n].reshape(f.shape)
+            vals[f.name] = buf[..., f.offset: f.offset + n].reshape(lead + f.shape)
         else:
-            seg = buf[f.offset: f.offset + 4 * n]
-            if seg.storage_offset() % 4:
+            seg = buf[..., f.offset: f.offset + 4 * n]
+            if seg.storage_offset() % 4 or any(s % 4 for s in seg.stride()[:-1]):
                 seg = seg.clone()
             tgt = _F32 if f.dtype is np.float32 else _I32
-            vals[f.name] = seg.view(tgt).reshape(f.shape)
+            vals[f.name] = seg.view(tgt).reshape(lead + f.shape)
     return vals
 
 
 def _unpack_inputs(buf: torch.Tensor, G: int, T: int, Z: int, C: int,
                    NP: int, A: int, R: int) -> Tuple[GroupBatch, PoolParams]:
-    """Slice the fused uint8 upload back into GroupBatch + PoolParams."""
+    """Slice the fused uint8 upload back into GroupBatch + PoolParams
+    (with the buffer's leading axes, if any)."""
     layout, _total = group_layout(G, T, Z, C, NP, A, R)
     vals = {k: (v.bool() if v.dtype == torch.uint8 else v)
             for k, v in _field_values(buf, layout).items()}
@@ -522,40 +545,53 @@ def _unpack_inputs(buf: torch.Tensor, G: int, T: int, Z: int, C: int,
     return groups, pools
 
 
-def _unpack_init(buf: Optional[torch.Tensor], n_existing: int,
+def _unpack_init(buf: Optional[torch.Tensor],
+                 n_existing: Union[int, torch.Tensor],
                  B: int, T: int, Z: int, C: int, A: int, R: int,
                  device: Union[str, torch.device]) -> BinState:
     """Fused existing-bin upload → BinState (one-hot masks built on the
     device). ``buf`` None = no existing capacity. Rows >= n_existing are
-    neutralized even when the buffer carries data there."""
+    neutralized even when the buffer carries data there.
+
+    ``n_existing`` is a host int for one pack, or, for a [K,total] stack
+    of buffers (the batched probe), a [K] int32 tensor on the device: each
+    probe keeps its own count of existing bins."""
     if buf is None:
         return empty_state(B, T, Z, C, R, A, device=device)
     dev = buf.device
     layout, _total = init_layout(B, R, A)
     vals = _field_values(buf, layout)
-    n_e = int(n_existing)
-    live = torch.arange(B, dtype=_I32, device=dev) < n_e
+    lead = tuple(buf.shape[:-1])
+    rows = torch.arange(B, dtype=_I32, device=dev)
+    if isinstance(n_existing, torch.Tensor):
+        n_e = n_existing.to(_I32)
+        live = rows < n_e[..., None]
+        next_open = n_e
+    else:
+        n_e = int(n_existing)
+        live = rows < n_e
+        next_open = _full(n_e, _I32, dev)
 
     def onehot(ix, n):
-        return ix[:, None] == torch.arange(n, dtype=_I32, device=dev)[None, :]
+        return ix[..., None] == torch.arange(n, dtype=_I32, device=dev)
 
     zf = torch.zeros((), dtype=_F32, device=dev)
     return BinState(
-        cum=torch.where(live[:, None], vals["e_used"], zf),
-        tmask=onehot(vals["e_type"], T) & live[:, None],
-        zmask=onehot(vals["e_zone"], Z) & live[:, None],
-        cmask=onehot(vals["e_cap"], C) & live[:, None],
+        cum=torch.where(live[..., None], vals["e_used"], zf),
+        tmask=onehot(vals["e_type"], T) & live[..., None],
+        zmask=onehot(vals["e_zone"], Z) & live[..., None],
+        cmask=onehot(vals["e_cap"], C) & live[..., None],
         np_id=torch.where(live, vals["e_np"],
                           torch.full((), -1, dtype=_I32, device=dev)),
-        npods=torch.zeros((B,), dtype=_I32, device=dev),
+        npods=torch.zeros(lead + (B,), dtype=_I32, device=dev),
         open=live, fixed=live.clone(),
-        alloc_cap=torch.where(live[:, None], vals["e_alloc"],
+        alloc_cap=torch.where(live[..., None], vals["e_alloc"],
                               torch.full((), float("inf"), dtype=_F32,
                                          device=dev)),
-        pm=torch.where(live[:, None], vals["e_pm"],
+        pm=torch.where(live[..., None], vals["e_pm"],
                        torch.zeros((), dtype=_I32, device=dev)),
-        po=vals["e_po"].bool() & live[:, None],
-        next_open=_full(n_e, _I32, dev),
+        po=vals["e_po"].bool() & live[..., None],
+        next_open=next_open,
     )
 
 
@@ -591,3 +627,85 @@ def pack_packed_combined(alloc: torch.Tensor, avail: torch.Tensor,
                         device=alloc.device)
     return _encode_decode_set(pack(alloc, avail, price, groups, pools, init),
                               lean=lean)
+
+
+class ProbeSummary(NamedTuple):
+    """Per-probe aggregates of a batched what-if pack (all [K])."""
+
+    leftover: torch.Tensor   # i32 pods that fit nowhere
+    n_new: torch.Tensor      # i32 new bins opened
+    new_cost: torch.Tensor   # f32 $/hr summed over new bins
+    cap_c: torch.Tensor      # i32 capacity-type index of the single new bin
+                             # (valid when n_new == 1; -1 when none)
+    flex: torch.Tensor       # i32 feasible-type count of that bin (offering
+                             # flexibility, the spot→spot ≥15-type guard input)
+    overflow: torch.Tensor   # bool bin table exhausted (host retries bigger B)
+
+
+def _probe_summary(avail_f: torch.Tensor, state: BinState,
+                   leftover: torch.Tensor, chosen_c: torch.Tensor,
+                   chosen_price: torch.Tensor) -> ProbeSummary:
+    """K what-if packs reduced to their aggregates (the JAX package's
+    ``_probe_one`` over a leading probe axis): ``state`` fields are [K,B,·],
+    ``leftover`` [K,G], ``chosen_*`` [K,B]."""
+    K, B = state.open.shape
+    dev = state.cum.device
+    live = state.open & ~state.fixed & (state.npods > 0)                # [K,B]
+    n_new = live.sum(dim=1).to(_I32)
+    cost = torch.where(live, chosen_price,
+                       torch.zeros((), dtype=_F32, device=dev)).sum(dim=1)
+    left = leftover.sum(dim=1).to(_I32)
+    # the first live bin of each probe (bin 0 when none): its offering
+    # flexibility and capacity type
+    b = torch.argmax(live.to(torch.uint8), dim=1)                       # [K]
+    k = torch.arange(K, device=dev)
+    reach = _offer_reachable(avail_f, state.zmask[k, b], state.cmask[k, b])
+    flex = (state.tmask[k, b] & reach).sum(dim=1).to(_I32)
+    zero = torch.zeros((), dtype=_I32, device=dev)
+    cap_c = torch.where(n_new > 0, chosen_c[k, b],
+                        torch.full((), -1, dtype=_I32, device=dev))
+    overflow = (left > 0) & (state.next_open >= B)
+    return ProbeSummary(leftover=left, n_new=n_new, new_cost=cost,
+                        cap_c=cap_c, flex=torch.where(n_new > 0, flex, zero),
+                        overflow=overflow)
+
+
+def pack_probe_fused(alloc: torch.Tensor, avail: torch.Tensor,
+                     price: torch.Tensor, gbufs: torch.Tensor,
+                     init_bufs: Optional[torch.Tensor],
+                     n_existing: torch.Tensor,
+                     B: int, G: int, T: int, Z: int, C: int, NP: int,
+                     A: int) -> torch.Tensor:
+    """K consolidation what-ifs in ONE batched device pass over fused
+    uploads; returns ONE [K,6] f32 buffer whose columns are
+    ``ProbeSummary._fields``: leftover, n_new, new_cost, cap_c, flex,
+    overflow (every count is far below f32's 2^24 exact-integer range).
+
+    ``gbufs`` [K,·] and ``init_bufs`` [K,·] (None = no existing bins) are
+    stacks of the single pack's fused buffers, each row padded to a
+    multiple of 4 bytes so one pass unpacks the whole batch in place;
+    ``n_existing`` is a [K] int32 tensor. The scan is vmapped over the
+    probe axis (``torch.func.vmap`` of ``_scan``, whose batching rules keep
+    one launch per op whatever K is); the finalization is not: the K
+    probes' B bins are flattened into ONE call of the cheapest-offering
+    kernel over K·B rows against the shared price panel, which is the
+    TPU kernel under ``jax.vmap``."""
+    R_ = alloc.shape[1]
+    avail_f = avail.to(_F32)
+    groups, pools = _unpack_inputs(gbufs, G, T, Z, C, NP, A, R_)
+    K = gbufs.shape[0]
+    if init_bufs is None:
+        init = BinState(*(x.expand((K,) + tuple(x.shape)) for x in
+                          empty_state(B, T, Z, C, R_, A, device=alloc.device)))
+    else:
+        init = _unpack_init(init_bufs, n_existing, B, T, Z, C, A, R_,
+                            device=alloc.device)
+    scan = torch.func.vmap(
+        lambda g, p, s: _scan(alloc, avail_f, g, p, s))
+    state, _assign, leftover = scan(groups, pools, init)
+    _t, _z, chosen_c, chosen_price = _finalize(state, avail, price)
+    s = _probe_summary(avail_f, state, leftover, chosen_c, chosen_price)
+    # ProbeSummary._fields IS the column order; the host decodes with
+    # ProbeSummary(*buf.T) so the contract lives in one place
+    return torch.stack([getattr(s, f).to(_F32) for f in ProbeSummary._fields],
+                       dim=1)

@@ -71,6 +71,23 @@ def dense_case(B: int = DENSE_B, T: int = 759, ZC: int = 10) -> Case:
     return random_case(np.random.default_rng(8192), B, T, ZC)
 
 
+# the batched probe's largest dispatch: the solver's top probe bucket
+# (solver/solve.py Solver._K_BUCKETS[-1]) of bin tables of 1,024 rows
+PROBE_K, PROBE_B = 32, 1024
+
+
+def probe_case(K: int = PROBE_K, B: int = PROBE_B, T: int = 759,
+               ZC: int = 10) -> Case:
+    """K probes' bin tables flattened into one K·B-row call against ONE
+    shared price panel, as the batched probe's finalization makes it
+    (ops/binpack.py pack_probe_fused): each probe's rows are a sparse
+    case, the price is the first probe's."""
+    rng = np.random.default_rng(K * 100003 + B)
+    parts = [sparse_case(rng, B, T, ZC) for _ in range(K)]
+    return (np.concatenate([p[0] for p in parts]),
+            np.concatenate([p[1] for p in parts]), parts[0][2])
+
+
 def _ties() -> Case:
     tm, zc, _ = random_case(np.random.default_rng(3), 512, 759, 10)
     return tm, zc, np.full((759, 10), 2.5, np.float32)

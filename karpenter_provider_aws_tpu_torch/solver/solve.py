@@ -21,13 +21,16 @@ trace spans (``solver.solve_relaxed``, ``solver.solve``,
 problem built with ``explain=True`` carries its constraint-elimination
 ledgers into the unplaced reasons.
 
+``probe_batch`` answers K consolidation what-ifs in one batched device
+pass (ops/binpack.py ``pack_probe_fused``) on the Solver's own device,
+with no fallback: a device error raises ``SolverDeviceError``.
+
 What the JAX package does beyond these paths raises
 ``NotImplementedError`` when reached, and nothing falls back to anything:
 the degradation ladder's host-FFD rung (a device error surfaces as
 ``SolverDeviceError``), the wave split of a group axis above the largest
-bucket, batched what-if probes, and the sharded mesh solve and its
-microloop tail. Absent without raising: fault injection and the device
-cost model.
+bucket, and the sharded mesh solve and its microloop tail. Absent without
+raising: fault injection and the device cost model.
 """
 
 from __future__ import annotations
@@ -137,6 +140,21 @@ class _MicroState:
     # ICE-masked view invalidates retention outright
     lattice: object = None
     price_version: int = -1
+
+
+@dataclass
+class ProbeResult:
+    """Host-side aggregates of one batched what-if probe (ops/binpack.py
+    pack_probe_fused). Enough to answer the consolidation criterion — "do
+    the pods fit on the remaining capacity + ≤1 cheaper node?" (reference
+    designs/consolidation.md) — without decoding a full NodePlan."""
+
+    feasible: bool            # every pod placed (no leftover, no overflow)
+    n_new: int                # new bins opened
+    new_cost: float           # $/hr over new bins
+    new_cap_type: Optional[str]  # capacity type of the single new bin
+    flex: int                 # feasible-type count of that bin (spot guard)
+    device_seconds: float = 0.0
 
 
 class _MicroIneligible(Exception):
@@ -349,6 +367,8 @@ class Solver:
         # retained microloop state (None = cold); reset by every
         # device-state invalidation
         self._micro: Optional[_MicroState] = None
+        # the last probe_batch dispatch: its buckets and raw [K,6] summary
+        self.last_probe: Optional[Dict[str, object]] = None
 
     def set_pipeline(self, enabled: bool) -> None:
         """Toggle the overlapped solve path (thread-safe)."""
@@ -1140,7 +1160,99 @@ class Solver:
         self.pipeline_stats["async_solves"] += 1
         return plan
 
-    # ---- not ported ----
+    # ---- batched what-if probes ----
 
-    def probe_batch(self, problems, existing_counts=None):
-        raise _not_ported("batched consolidation what-if probes")
+    _K_BUCKETS = (4, 8, 16, 32)
+    # each probe's fused rows are padded to a multiple of this many bytes,
+    # so the [K,·] stack unpacks in place (4-byte fields stay aligned)
+    _PROBE_ROW_ALIGN = 16
+
+    def _g_ceiling(self) -> int:
+        """Effective group-axis ceiling: the largest group bucket."""
+        return _G_BUCKETS[-1]
+
+    def _probe_stack(self, rows: Sequence[np.ndarray]) -> torch.Tensor:
+        """Equal-length rows as ONE [K,·] uint8 upload, each padded to a
+        multiple of ``_PROBE_ROW_ALIGN`` bytes."""
+        n = rows[0].size
+        width = -(-n // self._PROBE_ROW_ALIGN) * self._PROBE_ROW_ALIGN
+        buf = np.zeros((len(rows), width), np.uint8)
+        for k, r in enumerate(rows):
+            buf[k, :n] = r
+        return torch.from_numpy(buf).to(self.device)
+
+    @_locked
+    def probe_batch(self, problems: Sequence[Problem]) -> List[ProbeResult]:
+        """K consolidation what-ifs in ONE batched device pass.
+
+        Every problem is padded to a shared (K, G, B) bucket, stacked along
+        a leading probe axis, and handed to the batched pack
+        (ops/binpack.pack_probe_fused): one [K,·] group upload, one [K,·]
+        existing-bin upload, one cheapest-offering launch over the K·B
+        bins, and one [K,6] result back. The disruption controller's
+        prefix ladder + single-node scan ride this; the chosen probe is
+        then re-solved exactly once for its real NodePlan. A device error
+        raises ``SolverDeviceError``; nothing falls back. ``last_probe``
+        keeps the last dispatch's buckets and raw [K,6] summary."""
+        if not problems:
+            raise ValueError("probe_batch needs at least one problem")
+        if any(p.lattice is not problems[0].lattice for p in problems):
+            raise ValueError("a probe batch must share one lattice view")
+        K = len(problems)
+        if K > self._K_BUCKETS[-1]:
+            raise ValueError(f"probe batch {K} exceeds {self._K_BUCKETS[-1]}")
+        lat = self.lattice
+        G = _bucket(max(p.G for p in problems), _G_BUCKETS)
+        A = max(max((p.A for p in problems), default=0), 1)
+        NP = max(max((p.NP for p in problems), default=0), 1)
+        b_needed = max(p.E + min(int(p.count.sum()),
+                                 self._estimate_bins(p) + 64)
+                       for p in problems)
+        B = _bucket(max(b_needed, max(p.E for p in problems) + 1),
+                    _B_BUCKETS, clamp=True)
+        # pad K with repeats of problem 0 so the batch shapes stay bucketed
+        Kp = _bucket(K, self._K_BUCKETS, clamp=True)
+        idx = list(range(K)) + [0] * (Kp - K)
+        gbuf_np = [self._fused_inputs_np(problems[i], G, A, NP) for i in idx]
+        with trace.span("solver.pack_probe", probes=K, groups=G) as sp:
+            try:
+                avail, price = self._device_avail_price(problems[0])
+                gbufs = self._probe_stack(gbuf_np)
+                n_existing = torch.from_numpy(np.array(
+                    [problems[i].E for i in idx], np.int32)).to(self.device)
+                while True:
+                    ibufs = (self._probe_stack(
+                        [self._fused_init_np(problems[i], B, A) for i in idx])
+                        if any(p.E for p in problems) else None)
+                    td = time.perf_counter()
+                    summ = binpack.ProbeSummary(*binpack.pack_probe_fused(
+                        self._alloc, avail, price, gbufs, ibufs, n_existing,
+                        B, G, lat.T, lat.Z, lat.C, NP, A).cpu().numpy().T)
+                    device_s = time.perf_counter() - td
+                    if bool((summ.overflow[:K] > 0).any()):
+                        B, grew = _grow_bucket(B)
+                        if grew:
+                            continue
+                    break
+            except RuntimeError as e:
+                # kernel launch failure, device OOM, transfer failure
+                raise SolverDeviceError(f"{type(e).__name__}: {e}",
+                                        cause=e) from e
+            sp.set(bins=B, padded=Kp)
+        self.last_probe = {"K": K, "padded": Kp, "G": G, "B": B,
+                           "summary": np.stack(summ, axis=1)[:K]}
+        out: List[ProbeResult] = []
+        for k in range(K):
+            nn = int(summ.n_new[k])
+            cc = int(summ.cap_c[k])
+            out.append(ProbeResult(
+                feasible=(int(summ.leftover[k]) == 0
+                          and not bool(summ.overflow[k])
+                          and not problems[k].unschedulable),
+                n_new=nn,
+                new_cost=float(summ.new_cost[k]),
+                new_cap_type=(lat.capacity_types[cc]
+                              if nn > 0 and 0 <= cc < lat.C else None),
+                flex=int(summ.flex[k]),
+                device_seconds=device_s))
+        return out

@@ -17,6 +17,7 @@ reconcile cluster of ``bench.py``'s microloop harness
 """
 
 import numpy as np
+from typing import Tuple
 
 
 def real_lattice():
@@ -342,20 +343,25 @@ class ProvisionerStack:
     writes, nominations, events) and ``create`` (the ``CloudProvider.create``
     calls alone)."""
 
-    def __init__(self, lattice, pools, solver):
+    def __init__(self, lattice, pools, solver, clock=None,
+                 registration_delay: float = REGISTRATION_DELAY):
         from .cache.unavailable import UnavailableOfferings
         from .cloud import FakeCloud
         from .cloudprovider.cloudprovider import CloudProvider
         from .controllers.lifecycle import LifecycleController
         from .controllers.provisioning import Provisioner
         from .events import Recorder
+        from .kube.writer import DirectWriter
         from .metrics import Registry
         from .state.cluster import ClusterState
         from .utils.clock import FakeClock
         self.lattice = lattice
         self.solver = solver
-        self.clock = clock = FakeClock()
+        self.clock = clock = clock if clock is not None else FakeClock()
+        self.registration_delay = registration_delay
         self.cluster = ClusterState(clock)
+        # one writer for every controller, as the Operator wires them
+        self.writer = DirectWriter(self.cluster, clock)
         self.cloud = FakeCloud(clock)
         self.unavailable = UnavailableOfferings(clock)
         self.recorder = Recorder(clock)
@@ -367,11 +373,11 @@ class ProvisionerStack:
         self.provisioner = Provisioner(
             self.cluster, solver, self.node_pools, self.cloud_provider,
             self.unavailable, recorder=self.recorder, clock=clock,
-            metrics=self.metrics)
+            metrics=self.metrics, writer=self.writer)
         self.lifecycle = LifecycleController(
             self.cluster, self.cloud_provider, recorder=self.recorder,
-            clock=clock, registration_delay=REGISTRATION_DELAY,
-            metrics=self.metrics)
+            clock=clock, registration_delay=registration_delay,
+            metrics=self.metrics, writer=self.writer)
         self.timing = {}
         self._instrument()
 
@@ -425,7 +431,7 @@ class ProvisionerStack:
         lifecycle (registration binds the nominated pods); returns its
         host ms."""
         import time
-        self.clock.step(REGISTRATION_DELAY + 0.1)
+        self.clock.step(self.registration_delay + 0.1)
         t = time.perf_counter()
         self.lifecycle.reconcile()
         return (time.perf_counter() - t) * 1e3
@@ -540,3 +546,138 @@ class SmallChurn:
         for name in gone:
             cluster.delete_pod(name)
         return gone, added, False
+
+
+# ---- consolidation: the disruption controller over a simulated cluster ------
+
+class ConsolidationStack(ProvisionerStack):
+    """The direct consolidation stack (the simulation stratum, no
+    Operator): a ``ProvisionerStack`` plus the ``TerminationController``
+    and the ``DisruptionController`` (expiration, drift, emptiness and
+    consolidation, with its ``ConsolidationEngine`` as ``disruption.engine``),
+    all on the stack's clock and writer.
+
+    ``run_once`` runs the controllers in the JAX package's Operator order
+    (``operator/operator.py`` ``run_once``): provision when the batch is
+    ready (or ``force_provision``), lifecycle, disruption, termination. The
+    Operator's nodeclass, pricing, tagging, interruption and garbage
+    collection controllers are not ported and not run. ``settle`` is the
+    Operator's: passes until no pod is pending and every live claim has
+    its node."""
+
+    def __init__(self, lattice, pools, solver, clock=None,
+                 registration_delay: float = REGISTRATION_DELAY,
+                 drift_enabled: bool = True,
+                 spot_to_spot_consolidation: bool = False,
+                 termination_grace_period=None):
+        super().__init__(lattice, pools, solver, clock=clock,
+                         registration_delay=registration_delay)
+        from .controllers.disruption import DisruptionController
+        from .controllers.termination import TerminationController
+        self.node_classes = self.cloud_provider.node_classes
+        self.termination = TerminationController(
+            self.cluster, self.cloud_provider, self.recorder, self.clock,
+            metrics=self.metrics,
+            termination_grace_period=termination_grace_period,
+            writer=self.writer)
+        self.disruption = DisruptionController(
+            self.cluster, solver, self.node_pools, self.cloud_provider,
+            self.provisioner, self.termination, self.unavailable,
+            self.recorder, self.clock, drift_enabled=drift_enabled,
+            spot_to_spot_consolidation=spot_to_spot_consolidation,
+            metrics=self.metrics, writer=self.writer)
+
+    def run_once(self, force_provision: bool = False) -> None:
+        if force_provision or self.provisioner.batch_ready():
+            self.provisioner.provision_once()
+        self.lifecycle.reconcile()
+        self.disruption.reconcile()
+        self.termination.reconcile()
+
+    def settle(self, max_rounds: int = 50, step: float = 1.0) -> int:
+        """Run until no pending pods and every live claim has its node (or
+        the round budget runs out); returns the rounds used."""
+        for i in range(max_rounds):
+            self.run_once(force_provision=bool(self.cluster.pending_pods()))
+            if not self.cluster.pending_pods() and all(
+                    self.cluster.node_for_claim(c.name) is not None
+                    for c in self.cluster.snapshot_claims()
+                    if not c.deletion_timestamp):
+                return i + 1
+            self.clock.step(step)
+        return max_rounds
+
+    def seed_fleet(self, existing, pods) -> None:
+        """Stand up ``existing`` (``ExistingBin``s, each with an empty
+        ``used`` row) as registered nodes holding ``pods``, dealt to them
+        in order, as many per node as there are pods per bin. Each bin's
+        instance is started in ``FakeCloud`` at the bin's own type, zone
+        and capacity type, at the catalog's price there (+inf where the
+        catalog no longer offers it: a standing node the market withdrew),
+        and its NodeClaim (the provisioner's, pinned to that offering)
+        takes the instance's status; its pods are nominated to it, and one
+        lifecycle pass after the registration delay registers every node
+        and binds its pods."""
+        from .cloud.fake import LaunchOverride
+        from .solver.solve import PlannedNode
+        per = len(pods) // max(len(existing), 1)
+        if per * len(existing) != len(pods):
+            raise ValueError(f"{len(pods)} pods do not deal evenly onto "
+                             f"{len(existing)} nodes")
+        for p in pods:
+            self.cluster.add_pod(p)
+        lat = self.lattice
+        prov = self.provisioner
+        for i, b in enumerate(existing):
+            names = [p.name for p in pods[i * per: (i + 1) * per]]
+            claim = prov._make_claim(PlannedNode(
+                node_pool=b.node_pool, instance_type=b.instance_type,
+                zone=b.zone, capacity_type=b.capacity_type,
+                price_per_hour=0.0, pods=names,
+                feasible_types=(b.instance_type,), feasible_zones=(b.zone,),
+                feasible_capacity_types=(b.capacity_type,)))
+            self.writer.create_claim(claim)
+            price = float(lat.price[lat.name_to_idx[b.instance_type],
+                                    lat.zones.index(b.zone),
+                                    lat.capacity_types.index(b.capacity_type)])
+            fleet = self.cloud.create_fleet([LaunchOverride(
+                instance_type=b.instance_type, zone=b.zone,
+                capacity_type=b.capacity_type, price=price)])
+            self.cloud_provider._instance_to_claim(fleet.instance, claim)
+            self.writer.update_claim_status(claim)
+            for n in names:
+                self.cluster.nominate(n, claim.name)
+        self.register()
+
+    def fleet_cost(self) -> Tuple[float, int]:
+        """($/hr of the running instances the catalog prices, count of
+        running instances it does not price)."""
+        run = [i.price for i in self.cloud.list_instances()
+               if i.state == "running"]
+        priced = [p for p in run if np.isfinite(p)]
+        return float(sum(priced)), len(run) - len(priced)
+
+
+# the cfg4 fleet's NodePool: consolidation on, a short consolidate_after,
+# the default 10 % disruption budget
+CFG4_CONSOLIDATE_AFTER = 30.0
+
+
+def config4_fleet_stack(lattice, solver):
+    """cfg4 (``config4_consolidation_repack`` over ``lattice``: 500 nodes of
+    the three cheapest general-purpose multi-vCPU types, half spot and half
+    on-demand, in random zones, 1,500 pods of 500m/1Gi bound 3 per node)
+    seeded into a ``ConsolidationStack``: one NodePool ``default`` with
+    ``WhenUnderutilized``, ``consolidate_after`` of
+    ``CFG4_CONSOLIDATE_AFTER`` seconds and the default budget, and
+    spot-to-spot consolidation on, so the spot half meets the 15-type
+    flexibility guard rather than being skipped outright."""
+    from .apis.objects import NodePool, NodePoolDisruption
+    pods, _pools, existing = config4_consolidation_repack(lattice)
+    pool = NodePool(name="default", disruption=NodePoolDisruption(
+        consolidation_policy="WhenUnderutilized",
+        consolidate_after=CFG4_CONSOLIDATE_AFTER))
+    stack = ConsolidationStack(lattice, [pool], solver,
+                               spot_to_spot_consolidation=True)
+    stack.seed_fleet(existing, pods)
+    return stack

@@ -450,3 +450,133 @@ def populate(pkg: str, contents, clock=None):
     for p, target in contents["nominated"]:
         cluster.nominate(p, target)
     return cluster
+
+
+# ---- the consolidation stack of either package ----
+
+_FAMILY_LATTICES = {}
+
+
+def family_lattice(pkg: str, families):
+    """The synthetic catalog cut to ``families`` (cached per package)."""
+    key = (pkg, tuple(families))
+    lat = _FAMILY_LATTICES.get(key)
+    if lat is None:
+        L = mod(pkg, "lattice")
+        lat = L.build_lattice([s for s in L.build_catalog()
+                               if s.family in families])
+        _FAMILY_LATTICES[key] = lat
+    return lat
+
+
+class JaxConsolidationStack:
+    """The JAX package's controllers wired as the port's
+    ``workloads.ConsolidationStack`` wires its own (the JAX package has no
+    such stack; its Operator wires the same controllers and more): one
+    ``ClusterState``, ``FakeCloud``, ``UnavailableOfferings``,
+    ``CloudProvider``, ``Recorder``, metrics ``Registry`` and
+    ``DirectWriter`` on one clock, the ``Provisioner``, the
+    ``LifecycleController``, the ``TerminationController`` and the
+    ``DisruptionController``, run in the Operator's order."""
+
+    def __init__(self, lattice, pools, solver, clock=None,
+                 registration_delay=2.0, drift_enabled=True,
+                 spot_to_spot_consolidation=False,
+                 termination_grace_period=None):
+        m = lambda name: mod(JAX_PKG, name)  # noqa: E731
+        self.lattice = lattice
+        self.solver = solver
+        self.clock = clock if clock is not None else m("utils.clock").FakeClock()
+        self.registration_delay = registration_delay
+        self.cluster = m("state.cluster").ClusterState(self.clock)
+        self.writer = m("kube.writer").DirectWriter(self.cluster, self.clock)
+        self.cloud = m("cloud").FakeCloud(self.clock)
+        self.unavailable = m("cache.unavailable").UnavailableOfferings(self.clock)
+        self.recorder = m("events").Recorder(self.clock)
+        self.metrics = m("metrics").Registry()
+        self.cloud_provider = m("cloudprovider.cloudprovider").CloudProvider(
+            lattice, self.cloud, self.unavailable, self.recorder, self.clock)
+        self.node_classes = self.cloud_provider.node_classes
+        self.node_pools = {p.name: p for p in pools}
+        self.provisioner = m("controllers.provisioning").Provisioner(
+            self.cluster, solver, self.node_pools, self.cloud_provider,
+            self.unavailable, recorder=self.recorder, clock=self.clock,
+            metrics=self.metrics, writer=self.writer)
+        self.lifecycle = m("controllers.lifecycle").LifecycleController(
+            self.cluster, self.cloud_provider, recorder=self.recorder,
+            clock=self.clock, registration_delay=registration_delay,
+            metrics=self.metrics, writer=self.writer)
+        self.termination = m("controllers.termination").TerminationController(
+            self.cluster, self.cloud_provider, self.recorder, self.clock,
+            metrics=self.metrics,
+            termination_grace_period=termination_grace_period,
+            writer=self.writer)
+        self.disruption = m("controllers.disruption").DisruptionController(
+            self.cluster, solver, self.node_pools, self.cloud_provider,
+            self.provisioner, self.termination, self.unavailable,
+            self.recorder, self.clock, drift_enabled=drift_enabled,
+            spot_to_spot_consolidation=spot_to_spot_consolidation,
+            metrics=self.metrics, writer=self.writer)
+
+    def seed_fleet(self, existing, pods):
+        """``workloads.ConsolidationStack.seed_fleet`` with this package's
+        classes."""
+        from karpenter_provider_aws_tpu.cloud.fake import LaunchOverride
+        from karpenter_provider_aws_tpu.solver.solve import PlannedNode
+        per = len(pods) // len(existing)
+        for p in pods:
+            self.cluster.add_pod(p)
+        lat = self.lattice
+        for i, b in enumerate(existing):
+            names = [p.name for p in pods[i * per: (i + 1) * per]]
+            claim = self.provisioner._make_claim(PlannedNode(
+                node_pool=b.node_pool, instance_type=b.instance_type,
+                zone=b.zone, capacity_type=b.capacity_type,
+                price_per_hour=0.0, pods=names,
+                feasible_types=(b.instance_type,), feasible_zones=(b.zone,),
+                feasible_capacity_types=(b.capacity_type,)))
+            self.writer.create_claim(claim)
+            price = float(lat.price[lat.name_to_idx[b.instance_type],
+                                    lat.zones.index(b.zone),
+                                    lat.capacity_types.index(b.capacity_type)])
+            fleet = self.cloud.create_fleet([LaunchOverride(
+                instance_type=b.instance_type, zone=b.zone,
+                capacity_type=b.capacity_type, price=price)])
+            self.cloud_provider._instance_to_claim(fleet.instance, claim)
+            self.writer.update_claim_status(claim)
+            for n in names:
+                self.cluster.nominate(n, claim.name)
+        self.clock.step(self.registration_delay + 0.1)
+        self.lifecycle.reconcile()
+
+    def run_once(self, force_provision=False):
+        if force_provision or self.provisioner.batch_ready():
+            self.provisioner.provision_once()
+        self.lifecycle.reconcile()
+        self.disruption.reconcile()
+        self.termination.reconcile()
+
+    def settle(self, max_rounds=50, step=1.0):
+        for i in range(max_rounds):
+            self.run_once(force_provision=bool(self.cluster.pending_pods()))
+            if not self.cluster.pending_pods() and all(
+                    self.cluster.node_for_claim(c.name) is not None
+                    for c in self.cluster.snapshot_claims()
+                    if not c.deletion_timestamp):
+                return i + 1
+            self.clock.step(step)
+        return max_rounds
+
+
+def consolidation_stack(pkg: str, lattice, pools, clock_start=None, **opts):
+    """The consolidation stack of ``pkg`` over ``lattice`` and ``pools``:
+    the port's ``workloads.ConsolidationStack`` with a CPU Solver, or its
+    JAX-package twin; ``opts`` are the stack's keyword options."""
+    clock = (mod(pkg, "utils.clock").FakeClock() if clock_start is None
+             else mod(pkg, "utils.clock").FakeClock(start=clock_start))
+    S = mod(pkg, "solver.solve")
+    if pkg == JAX_PKG:
+        return JaxConsolidationStack(lattice, pools, S.Solver(lattice),
+                                     clock=clock, **opts)
+    return mod(pkg, "workloads").ConsolidationStack(
+        lattice, pools, S.Solver(lattice, device="cpu"), clock=clock, **opts)

@@ -252,8 +252,8 @@ class TestSolverParity:
 
 class TestNotPorted:
     def test_mesh_and_probe_raise(self):
-        """The pipelined path and solve_delta are ported; the mesh and the
-        batched probes still raise wherever they can be asked for."""
+        """The pipelined path, solve_delta and the batched probes are
+        ported; the mesh still raises wherever it can be asked for."""
         lat = cases.small_lattice(cases.TORCH_PKG)
         ts = TorchSolver(lat, device=CPU)
         prob = cases.problem(cases.TORCH_PKG, "generic")
@@ -264,8 +264,6 @@ class TestNotPorted:
             ts.solve_relaxed(pods, pools, mesh=object())
         with pytest.raises(NotImplementedError):
             ts.solve_delta(prob, mesh=object())
-        with pytest.raises(NotImplementedError):
-            ts.probe_batch([prob])
 
     def test_wave_split_raises(self):
         ts = TorchSolver(cases.small_lattice(cases.TORCH_PKG), device=CPU)
