@@ -72,7 +72,26 @@ Phases, in order; any failure exits non-zero and prints no result line:
    batched row, and the largest prefix and one single must equal a CPU
    Solver's probe. One dispatch is re-run under the profiler for the
    device's idle share;
-8. kernel timing: the kernel and its plain version at cfg5's and cfg10's
+8. operator: the Operator in direct mode (``operator.Operator`` with no
+   device, so on ``cuda``: every controller, the domain providers, the
+   webhooks' config checks and the introspection layer). (a) cfg4's fleet
+   seeded into it (``workloads.config4_fleet_operator``) through 8
+   ``run_once`` passes on the consolidation phase's schedule, each
+   printing the nodes removed, the fleet's $/hr, the kernel launches and
+   the wall time split by controller; every pass must remove the same
+   claims, leave the same $/hr and launch the kernel as often as the
+   consolidation phase's stack did in the same pass. (b) The cfg5 wave as
+   50,000 pending pods, in a cluster whose subnets are /20s
+   (``workloads.wave_cloud``), through one ``run_once(force_provision=True)``:
+   its plan must equal the CPU plan node by node, its SLO cost referee
+   (the host FFD, timed on its own line) must return a ratio of at most
+   1.02, and then the clock steps and the lifecycle controller runs until
+   every claim registered.
+   Both fail on a degraded plan, a host fallback, an SLO referee error, an
+   introspection provider reporting an error, a ``/metrics`` rendering
+   that ``metrics.lint_exposition`` does not pass clean, or no kernel
+   launch through the Operator;
+9. kernel timing: the kernel and its plain version at cfg5's and cfg10's
    own inputs (captured in a solve of each), at the first consolidation
    pass's probe dispatch (K x B rows in one call) and at the dense largest
    bin bucket (B=8192), and the card's launch floor (a one-element
@@ -92,6 +111,7 @@ import time
 import traceback
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+T0 = time.perf_counter()
 SOLVES = 12
 SMALL_PASSES = 12
 CONSOLIDATION_PASSES = 8
@@ -504,7 +524,7 @@ def _consolidation(torch, workloads, lattice, oa):
     stack = workloads.config4_fleet_stack(lattice, solver)
     seed_ms = (time.perf_counter() - t) * 1e3
     ctrl, eng = stack.disruption, stack.disruption.engine
-    cost0, unpriced = stack.fleet_cost()
+    cost0, unpriced = workloads.fleet_cost(stack)
     print(f"cfg4 fleet: {len(stack.cluster.nodes)} nodes, "
           f"{stack.cluster.pod_phase_counts()['bound']} pods bound, "
           f"${cost0:.4f}/hr over the priced offerings ({unpriced} nodes on "
@@ -628,7 +648,7 @@ def _consolidation(torch, workloads, lattice, oa):
                        ms=dict.fromkeys(("provision", "lifecycle", "disruption",
                                          "termination"), 0.0))
             poll_batch()
-            before_cost, _ = stack.fleet_cost()
+            before_cost, _ = workloads.fleet_cost(stack)
             claims_before = set(stack.cluster.claims)
             in_flight_before = list(ctrl._in_flight)
             counters_before = dict(eng.counters)
@@ -640,7 +660,7 @@ def _consolidation(torch, workloads, lattice, oa):
             launched = oa.LAUNCHES
             launches_per_pass.append(launched)
             stack.clock.step(stack.registration_delay + 0.1)
-            after_cost, _ = stack.fleet_cost()
+            after_cost, _ = workloads.fleet_cost(stack)
             for i, inp in enumerate(inputs):
                 max_err = max(max_err, measure.check_exact(
                     f"cfg4 pass {k} kernel call {i} inputs",
@@ -660,6 +680,7 @@ def _consolidation(torch, workloads, lattice, oa):
                 "referee_ms": [r["ms"] for r in rec["referee"]],
                 "accepted": [(len(c), s) for c, s in rec["accepted"]],
                 "removed": len(claims_before - set(stack.cluster.claims)),
+                "removed_claims": sorted(claims_before - set(stack.cluster.claims)),
                 "decided": sum(len(a.claims) for a in new_actions),
                 "replacements": sum(len(a.replacements) for a in new_actions),
                 "controller_ms": dict(rec["ms"]),
@@ -736,7 +757,7 @@ def _consolidation(torch, workloads, lattice, oa):
         result = stack.provisioner.provision_once()
         _check_pass("cfg4 final provisioning", result)
         stack.register()
-    end_cost, _ = stack.fleet_cost()
+    end_cost, _ = workloads.fleet_cost(stack)
     if stack.cluster.pending_pods():
         raise AssertionError(f"cfg4: {len(stack.cluster.pending_pods())} pods "
                              f"left pending at the end")
@@ -807,6 +828,218 @@ def _consolidation(torch, workloads, lattice, oa):
           f"{st['host_fallbacks']:.0f}; launches per pass {launches_per_pass}",
           flush=True)
     return out, sum(launches_per_pass), launches_per_pass, first["inputs"]
+
+
+def _operator(torch, workloads, lattice, oa, cpu_plan, consol):
+    """Phase 8: the Operator in direct mode on the card (``Operator`` with
+    no device: ``cuda``). (a) cfg4's fleet through 8 ``run_once`` passes,
+    each deciding as the consolidation phase's stack did; (b) the cfg5
+    wave through one forced pass, its plan equal to the CPU plan, then
+    registration. Returns its numbers and launches."""
+    from karpenter_provider_aws_tpu_torch import introspect
+    from karpenter_provider_aws_tpu_torch.metrics import lint_exposition
+    from karpenter_provider_aws_tpu_torch.operator import Operator, Options
+    from karpenter_provider_aws_tpu_torch.utils.clock import FakeClock
+
+    def on_card(op, name):
+        if op.device.type != "cuda" or op.solver.device.type != "cuda":
+            raise AssertionError(f"{name}: the Operator's Solver is on "
+                                 f"{op.solver.device}, not the card")
+
+    def capture_provisions(op, into):
+        orig = op.provisioner.provision_once
+
+        def provision_once(*a, **kw):
+            result = orig(*a, **kw)
+            into.append(result)
+            return result
+        op.provisioner.provision_once = provision_once
+
+    def check_surfaces(op, name):
+        """Every introspection provider reports, /metrics lints clean, and
+        the SLO cost referee raised nothing."""
+        snap = introspect.registry().collect()
+        bad = {k: v["error"] for k, v in snap.items() if "error" in v}
+        if bad:
+            raise AssertionError(f"{name}: introspection providers failed: {bad}")
+        problems = lint_exposition(op.metrics.render())
+        if problems:
+            raise AssertionError(f"{name}: /metrics lint: {problems[:5]}")
+        slo = op.slo.stats()
+        if slo["referee_errors"]:
+            raise AssertionError(f"{name}: {slo['referee_errors']} SLO "
+                                 f"cost-referee errors")
+        print(f"{name}: {len(snap)} introspection providers report, /metrics "
+              f"lints clean ({len(op.metrics.render().splitlines())} lines), "
+              f"SLO referee {slo['referee_runs']} run(s), "
+              f"{slo['referee_errors']} errors", flush=True)
+        return slo
+
+    out = {}
+    # (a) cfg4's fleet
+    t = time.perf_counter()
+    op = workloads.config4_fleet_operator(lattice)
+    seed_ms = (time.perf_counter() - t) * 1e3
+    on_card(op, "operator cfg4")
+    cost0, unpriced = workloads.fleet_cost(op)
+    if (cost0 != consol["fleet_cost_start"] or unpriced != consol["unpriced_nodes"]
+            or len(op.cluster.nodes) != consol["nodes"]):
+        raise AssertionError("operator cfg4: the fleet did not seed as the "
+                             "stack's did")
+    print(f"operator cfg4: {len(op.cluster.nodes)} nodes seeded in "
+          f"{seed_ms:.1f} ms, ${cost0:.4f}/hr", flush=True)
+    ms = workloads.time_controllers(op)
+    provisions = []
+    capture_provisions(op, provisions)
+    eng = op.disruption.engine
+    delay = op.options.registration_delay
+    op.clock.step(workloads.CFG4_CONSOLIDATE_AFTER + 1.0)
+    rows = []
+    for k in range(CONSOLIDATION_PASSES):
+        for _ in range(2):
+            op.provisioner.batch_ready()
+            op.clock.step(0.6)
+        before = set(op.cluster.claims)
+        fallbacks = eng.counters["host_fallbacks"]
+        ms.clear()
+        provisions.clear()
+        oa.LAUNCHES = 0
+        t = time.perf_counter()
+        op.run_once()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+        launched = oa.LAUNCHES
+        op.clock.step(delay + 0.1)
+        removed = sorted(before - set(op.cluster.claims))
+        cost, _ = workloads.fleet_cost(op)
+        ref = consol["passes"][k]
+        row = {"pass": k, "wall_ms": wall_ms, "launches": launched,
+               "removed": len(removed), "cost_after": cost,
+               "controller_ms": dict(ms),
+               "pending_after": len(op.cluster.pending_pods())}
+        rows.append(row)
+        print(f"operator cfg4 pass {k}: {len(removed)} nodes removed, fleet "
+              f"${cost:.4f}/hr, {launched} kernel launch(es) through the "
+              f"Operator, wall {wall_ms:.3f} ms (controllers "
+              f"{ {n: round(v, 3) for n, v in ms.items()} } ms)", flush=True)
+        for res in provisions:
+            _check_pass(f"operator cfg4 pass {k} provisioning", res)
+        if eng.counters["host_fallbacks"] != fallbacks:
+            raise AssertionError(f"operator cfg4 pass {k}: host fallback")
+        if removed != ref["removed_claims"] or cost != ref["cost_after"]:
+            raise AssertionError(
+                f"operator cfg4 pass {k}: removed {len(removed)} nodes to "
+                f"${cost}/hr, the stack removed {ref['removed']} to "
+                f"${ref['cost_after']}/hr")
+        if launched != ref["launches"] or launched < 1:
+            raise AssertionError(f"operator cfg4 pass {k}: {launched} kernel "
+                                 f"launches, the stack's pass {ref['launches']}")
+    # the evictees of the last pass's terminations take their pass, as in
+    # the consolidation phase
+    for _ in range(2):
+        op.provisioner.batch_ready()
+        op.clock.step(0.6)
+    if op.cluster.pending_pods():
+        _check_pass("operator cfg4 final provisioning",
+                    op.provisioner.provision_once())
+        op.clock.step(delay + 0.1)
+        op.lifecycle.reconcile()
+    end_cost, _ = workloads.fleet_cost(op)
+    if op.cluster.pending_pods() or end_cost != consol["fleet_cost_end"]:
+        raise AssertionError(f"operator cfg4: ${end_cost}/hr and "
+                             f"{len(op.cluster.pending_pods())} pods pending at "
+                             f"the end, the stack ${consol['fleet_cost_end']}/hr")
+    print(f"operator cfg4: every pass decided as the stack's (removed claims "
+          f"and $/hr), ${cost0:.4f}/hr -> ${end_cost:.4f}/hr, "
+          f"{len(op.cluster.nodes)} nodes", flush=True)
+    slo4 = check_surfaces(op, "operator cfg4")
+    out["cfg4"] = {"passes": rows, "fleet_cost_end": end_cost, "seed_ms": seed_ms,
+                   "engine": eng.stats(), "slo": slo4}
+
+    # (b) the cfg5 wave
+    # the wave's 1,840 nodes need /20 subnets (workloads.wave_cloud): the
+    # fake network's default /24s stop a wave at ~250 launches a zone
+    pods, pools, existing = workloads.config5_full_scale()
+    clock = FakeClock()
+    op = Operator(options=Options(registration_delay=workloads.REGISTRATION_DELAY),
+                  lattice=lattice, cloud=workloads.wave_cloud(clock), clock=clock,
+                  node_pools=pools)
+    on_card(op, "operator cfg5")
+    ms = workloads.time_controllers(op)
+    provisions = []
+    capture_provisions(op, provisions)
+    referee = []
+    orig_referee = op.slo.maybe_cost_referee
+
+    def maybe_cost_referee(plan, build):
+        t = time.perf_counter()
+        ratio = orig_referee(plan, build)
+        referee.append(((time.perf_counter() - t) * 1e3, ratio))
+        return ratio
+    op.slo.maybe_cost_referee = maybe_cost_referee
+    for p in pods:
+        op.cluster.add_pod(p)
+    oa.LAUNCHES = 0
+    t = time.perf_counter()
+    op.run_once(force_provision=True)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t) * 1e3
+    launched = oa.LAUNCHES
+    wave_ms = dict(ms)
+    if len(provisions) != 1:
+        raise AssertionError(f"operator cfg5: {len(provisions)} provisioning passes")
+    result = provisions[0]
+    _check_pass("operator cfg5 wave", result)
+    plan = result.plan
+    referee_ms = sum(r[0] for r in referee)
+    ratios = [r[1] for r in referee if r[1] is not None]
+    print(f"operator cfg5 wave: {len(result.created_claims)} claims, "
+          f"{result.launched} launched, {result.pods_scheduled} pods scheduled, "
+          f"{launched} kernel launch(es) through the Operator; pass wall "
+          f"{wall_ms:.3f} ms (controllers "
+          f"{ {n: round(v, 3) for n, v in wave_ms.items()} } ms)", flush=True)
+    print(f"operator cfg5 wave: of it the SLO cost referee (host FFD) "
+          f"{referee_ms:.3f} ms, cost ratio {ratios}", flush=True)
+    if launched < 1:
+        raise AssertionError("operator cfg5: the kernel never launched")
+    if _node_rows(plan) != _node_rows(cpu_plan) \
+            or plan.existing_assignments != cpu_plan.existing_assignments:
+        raise AssertionError("operator cfg5: the plan differs from the CPU plan")
+    if result.launched != len(result.created_claims) \
+            or result.pods_scheduled != len(pods):
+        raise AssertionError(f"operator cfg5: {result.launched} of "
+                             f"{len(result.created_claims)} claims launched, "
+                             f"{result.pods_scheduled} pods scheduled")
+    if not ratios or not all(r <= 1.02 for r in ratios):
+        raise AssertionError(f"operator cfg5: SLO referee cost ratio {ratios}")
+    print(f"operator cfg5 wave: plan == cpu plan, node by node "
+          f"({len(plan.new_nodes)} nodes, ${plan.new_node_cost:.2f}/hr)",
+          flush=True)
+    # registration: the lifecycle controller alone, as the provisioner
+    # phase registers (a whole pass would also let disruption act on the
+    # fresh nodes)
+    reg_rounds, reg = 0, []
+    while reg_rounds < 5 and not all(
+            op.cluster.node_for_claim(c.name) is not None
+            for c in op.cluster.snapshot_claims()):
+        op.clock.step(op.options.registration_delay + 0.1)
+        ms.clear()
+        t = time.perf_counter()
+        op.lifecycle.reconcile()
+        reg.append((time.perf_counter() - t) * 1e3)
+        reg_rounds += 1
+    _registered("operator cfg5", op, len(pods))
+    print(f"operator cfg5 wave: registration of {len(op.cluster.nodes)} nodes "
+          f"bound {len(pods)} pods in {reg_rounds} lifecycle pass(es), "
+          f"{[round(w, 3) for w in reg]} ms", flush=True)
+    slo5 = check_surfaces(op, "operator cfg5")
+    out["cfg5_wave"] = {"wall_ms": wall_ms, "controller_ms": wave_ms,
+                        "referee_ms": referee_ms, "referee_ratios": ratios,
+                        "claims": len(result.created_claims), "launches": launched,
+                        "registration_ms": reg, "slo": slo5}
+    launches = {"operator_cfg4": sum(r["launches"] for r in rows),
+                "operator_cfg5": launched}
+    return out, launches
 
 
 def main() -> int:
@@ -969,7 +1202,13 @@ def _run(torch) -> int:
         _consolidation(torch, workloads, lattice, oa)
     max_err = max(max_err, consol["max_abs_err"])
 
-    # ---- 8. kernel times: the main paths' own inputs, the dense largest
+    # ---- 8. the Operator in direct mode: cfg4's fleet and the cfg5 wave
+    _phase("operator: cfg4's fleet and the cfg5 wave through Operator.run_once")
+    operator, op_launches = _operator(torch, workloads, lattice, oa, cpu_plan,
+                                      consol)
+    launches.update(op_launches)
+
+    # ---- 9. kernel times: the main paths' own inputs, the dense largest
     # bucket, the launch floor
     _phase("kernel timing")
     solver = Solver(lattice)
@@ -1010,6 +1249,8 @@ def _run(torch) -> int:
         raise AssertionError(f"modules of JAX or the JAX package loaded: {leaked[:5]}")
 
     _phase("")
+    total_s = time.perf_counter() - T0
+    print(f"total seconds of the script: {total_s:.1f}", flush=True)
     print(json.dumps({"kernels": [{
         "name": "cheapest_offering", "route": "cuda",
         "source": "karpenter_provider_aws_tpu_torch/csrc/offering_argmin.cu",
@@ -1026,12 +1267,13 @@ def _run(torch) -> int:
         "dense": timed["dense"],
     }], "cfg5": cfg5, "cfg10": {k: v for k, v in steady.items()
                                 if k != "launches_per_pass"},
-        "consolidation": consol,
+        "consolidation": consol, "operator": operator,
         "provisioner": {"cfg5_wave": prov["cfg5_wave"],
                         "cfg10_first_wave": prov["cfg10_first_wave"],
                         "cfg10": {k: v for k, v in prov["cfg10"].items()
                                   if k != "rows"}},
-        "phase_seconds": _PHASE["seconds"]}), flush=True)
+        "phase_seconds": _PHASE["seconds"], "total_seconds": total_s}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

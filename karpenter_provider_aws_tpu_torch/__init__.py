@@ -7,9 +7,10 @@ the JAX package's pure-numpy modules (apis, lattice, masks, problem
 building, the FFD oracle) it carries as its own copies, in the same
 layout, so each module's counterpart is found by its path.
 
-Entry points: ``solver.Solver(lattice, device=None)`` — the device is
-``cuda`` unless the caller asks for ``"cpu"`` — and, over it, the
-provisioning controller (``controllers.Provisioner`` on a
-``state.ClusterState``, with ``cloudprovider.CloudProvider`` over
-``cloud.FakeCloud``; ``workloads.ProvisionerStack`` wires one).
+Entry points: ``operator.Operator(..., device=None)``, the control plane
+in direct mode with every controller over one Solver, and beneath it
+``solver.Solver(lattice, device=None)``. The device is ``cuda`` unless
+the caller asks for ``"cpu"``.
 """
+
+__version__ = "0.4.0"

@@ -1,11 +1,9 @@
-"""Controllers. The provisioner, the lifecycle (registration), termination
-and disruption controllers are ported; garbage collection, tagging and the
-nodeclass controller wait for the Operator."""
-
 from .provisioning import Provisioner
 from .lifecycle import LifecycleController
+from .garbagecollection import GarbageCollectionController
 from .termination import TerminationController
 from .disruption import DisruptionController
+from .tagging import TaggingController
 
-__all__ = ["Provisioner", "LifecycleController", "TerminationController",
-           "DisruptionController"]
+__all__ = ["Provisioner", "LifecycleController", "GarbageCollectionController",
+           "TerminationController", "DisruptionController", "TaggingController"]

@@ -1,5 +1,6 @@
 """Kubernetes-object write seam (the port's kube subpackage holds only
-the simulation-stratum writer; the API stratum waits for the Operator)."""
+the simulation-stratum writer, which the Operator's direct mode uses; the
+API stratum is not ported)."""
 
 from .writer import DirectWriter, FencedWriteError, WriterCounts
 

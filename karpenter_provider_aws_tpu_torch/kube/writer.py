@@ -10,7 +10,8 @@ immediate.
 Not ported yet: ``ApiWriter``, which writes to the fake apiserver through
 the typed client and lets the mirror follow through informers. It needs
 the kube API stratum (``kube/apiserver.py``, ``kube/client.py``), which
-waits for the Operator; this module imports neither.
+is not ported (the Operator runs in direct mode); this module imports
+neither.
 """
 
 from __future__ import annotations

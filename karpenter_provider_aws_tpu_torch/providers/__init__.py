@@ -1,9 +1,11 @@
-"""Cloud providers. Only the AMI family table is ported (the fake cloud's
-network builds its images from it); the subnet, security-group,
-instance-profile, launch-template, pricing and version providers wait
-for the Operator."""
-
+from .subnet import SubnetProvider
+from .securitygroup import SecurityGroupProvider
+from .instanceprofile import InstanceProfileProvider
 from .amifamily import AMI_FAMILIES, AMIProvider, resolve_ami_family, storage_config
+from .launchtemplate import LaunchTemplateProvider
+from .pricing import PricingProvider
+from .version import VersionProvider
 
-__all__ = ["AMI_FAMILIES", "AMIProvider", "resolve_ami_family",
-           "storage_config"]
+__all__ = ["SubnetProvider", "SecurityGroupProvider", "InstanceProfileProvider",
+           "AMIProvider", "AMI_FAMILIES", "resolve_ami_family",
+           "LaunchTemplateProvider", "PricingProvider", "VersionProvider"]

@@ -29,15 +29,16 @@ What the JAX package does beyond these paths raises
 ``NotImplementedError`` when reached, and nothing falls back to anything:
 the degradation ladder's host-FFD rung (a device error surfaces as
 ``SolverDeviceError``), the wave split of a group axis above the largest
-bucket, and the sharded mesh solve and its microloop tail. Absent without
-raising: fault injection and the device cost model.
+bucket, and the sharded mesh solve and its microloop tail (a ``mesh``
+other than None raises at construction). Absent without raising: fault
+injection. Every completed solve attributes its measured compute stage to
+its (G, B) shape in the device cost model (solver/costmodel.py).
 """
 
 from __future__ import annotations
 
 import hashlib
 import logging
-import threading
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -51,7 +52,7 @@ from ..device import DeviceLike, resolve_device
 from ..errors import SolverCapacityError, SolverDeviceError, SolverError
 from ..lattice.tensors import Lattice
 from ..ops import binpack
-from . import taxonomy
+from . import costmodel, taxonomy
 from .explain import unplaced_reason
 from .pipeline import (ResidentInputCache, StageTimer, fetch_async,
                        plan_changed)
@@ -294,15 +295,22 @@ class Solver:
     ``device`` None means ``cuda`` and raises when CUDA is absent; pass
     ``device="cpu"`` for the plain PyTorch path on the CPU. ``pipeline``
     picks the overlapped path (default) or the strictly sequential one.
-    Thread-safe: every public solve entry point serializes on an internal
-    RLock."""
+    ``clock`` is the injected clock (the Operator's; the JAX package's
+    device-retry backoff sleeps on it) and ``mesh`` must be None: the
+    sharded solve is not ported. Thread-safe: every public solve entry
+    point serializes on an internal RLock."""
 
     # the steady-state delta path (IncrementalProblemBuilder +
     # solve_delta) runs in this process, on this Solver's device
     supports_delta = True
 
     def __init__(self, lattice: Lattice, device: DeviceLike = None,
-                 pipeline: bool = True):
+                 pipeline: bool = True, clock=None, mesh=None):
+        if mesh is not None:
+            raise _not_ported("the sharded mesh solve (ROADMAP.md A10)")
+        self.mesh = None
+        from ..utils.clock import WALL
+        self._clock = clock if clock is not None else WALL
         self.device = resolve_device(device)
         # the pack's only matmul (_offer_reachable) is a 0/1 count that
         # must stay exact: full float32, never TF32
@@ -314,7 +322,10 @@ class Solver:
         self._avail = torch.as_tensor(lattice.available, device=dev)
         self._price = torch.as_tensor(lattice.price, device=dev)
         self._price_version = lattice.price_version
-        self._solve_lock = threading.RLock()
+        # instrumented (introspect/contention.py): solve-lock wait is
+        # exactly "how long a caller queued behind another solve"
+        from ..introspect import contention
+        self._solve_lock = contention.rlock("solver_solve")
         # per group-bucket: (fresh-estimate bucket, bucket actually needed)
         # of the last solve; a same-or-larger fresh estimate starts at the
         # size that worked (each overflow retry costs a full device pass)
@@ -387,6 +398,11 @@ class Solver:
         self._resident.invalidate()
         self._micro = None
 
+    @property
+    def mesh_devices(self) -> int:
+        """Devices every solve runs over (always 1: no mesh)."""
+        return 1
+
     def stats(self) -> Dict[str, object]:
         """Introspection snapshot (counter reads only; never takes the
         solve lock, so it never queues behind an in-flight solve)."""
@@ -394,6 +410,9 @@ class Solver:
             "pipeline": bool(self.pipeline),
             "est_cache_entries": len(self._est_cache),
             "b_hint_entries": len(self._b_hint),
+            # one device, no shards: the mesh gauges read 1 and 0
+            "mesh_devices": self.mesh_devices,
+            "mesh_shard_imbalance": 0.0,
             "micro_engaged": self._micro is not None,
         }
         for k, v in self.pipeline_stats.items():
@@ -703,6 +722,9 @@ class Solver:
         avail, price = self._device_avail_price(problem)
         prep = None
         while True:
+            # per-dispatch compute baseline: the cost model attributes
+            # only the final dispatch's compute to the final (G, B) shape
+            compute_ms0 = stages.ms.get("compute", 0.0)
             td = time.perf_counter()
             try:
                 if use_efused:
@@ -786,6 +808,11 @@ class Solver:
         plan.warnings = list(problem.warnings)
         plan.stage_ms = stages.ms
         plan.pipelined = pipelined
+        # last-vs-best per shape: was the device slow, or everything
+        # around it (solver/costmodel.py)
+        costmodel.model().observe_solve(
+            costmodel.shape_key(G, B),
+            stages.ms.get("compute", 0.0) - compute_ms0)
         if pipelined:
             # once per completed solve, not per overflow-regrow dispatch
             self.pipeline_stats["async_solves"] += 1
@@ -1090,6 +1117,7 @@ class Solver:
             # layout drift, a new (ICE-masked) lattice view, or a reprice:
             # the retained result was solved against other inputs
             ms = None
+        compute_ms0 = stages.ms.get("compute", 0.0)
         try:
             with stages.span("upload"):
                 comb_dev = self._resident.upload(key, combined_np,
@@ -1157,6 +1185,9 @@ class Solver:
         plan.warnings = list(problem.warnings)
         plan.stage_ms = stages.ms
         plan.pipelined = True
+        costmodel.model().observe_solve(
+            costmodel.shape_key(G, B),
+            stages.ms.get("compute", 0.0) - compute_ms0)
         self.pipeline_stats["async_solves"] += 1
         return plan
 

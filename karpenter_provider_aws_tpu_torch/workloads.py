@@ -328,7 +328,8 @@ REGISTRATION_DELAY = 2.0
 
 
 class ProvisionerStack:
-    """A direct provisioning stack (the simulation stratum, no Operator):
+    """A direct provisioning stack (the simulation stratum, without the
+    Operator's other controllers):
     one ``ClusterState``, ``FakeCloud``, ``UnavailableOfferings``,
     ``CloudProvider``, ``Recorder`` and metrics ``Registry`` on one
     ``FakeClock``, the ``Provisioner`` over ``solver`` (the delta path on
@@ -551,19 +552,20 @@ class SmallChurn:
 # ---- consolidation: the disruption controller over a simulated cluster ------
 
 class ConsolidationStack(ProvisionerStack):
-    """The direct consolidation stack (the simulation stratum, no
-    Operator): a ``ProvisionerStack`` plus the ``TerminationController``
-    and the ``DisruptionController`` (expiration, drift, emptiness and
-    consolidation, with its ``ConsolidationEngine`` as ``disruption.engine``),
-    all on the stack's clock and writer.
+    """The direct consolidation stack (the simulation stratum, without the
+    Operator's other controllers): a ``ProvisionerStack`` plus the
+    ``TerminationController`` and the ``DisruptionController``
+    (expiration, drift, emptiness and consolidation, with its
+    ``ConsolidationEngine`` as ``disruption.engine``), all on the stack's
+    clock and writer.
 
     ``run_once`` runs the controllers in the JAX package's Operator order
     (``operator/operator.py`` ``run_once``): provision when the batch is
     ready (or ``force_provision``), lifecycle, disruption, termination. The
     Operator's nodeclass, pricing, tagging, interruption and garbage
-    collection controllers are not ported and not run. ``settle`` is the
-    Operator's: passes until no pod is pending and every live claim has
-    its node."""
+    collection controllers are not run here (``operator.Operator`` runs
+    them all). ``settle`` is the Operator's: passes until no pod is
+    pending and every live claim has its node."""
 
     def __init__(self, lattice, pools, solver, clock=None,
                  registration_delay: float = REGISTRATION_DELAY,
@@ -607,60 +609,72 @@ class ConsolidationStack(ProvisionerStack):
             self.clock.step(step)
         return max_rounds
 
-    def seed_fleet(self, existing, pods) -> None:
-        """Stand up ``existing`` (``ExistingBin``s, each with an empty
-        ``used`` row) as registered nodes holding ``pods``, dealt to them
-        in order, as many per node as there are pods per bin. Each bin's
-        instance is started in ``FakeCloud`` at the bin's own type, zone
-        and capacity type, at the catalog's price there (+inf where the
-        catalog no longer offers it: a standing node the market withdrew),
-        and its NodeClaim (the provisioner's, pinned to that offering)
-        takes the instance's status; its pods are nominated to it, and one
-        lifecycle pass after the registration delay registers every node
-        and binds its pods."""
-        from .cloud.fake import LaunchOverride
-        from .solver.solve import PlannedNode
-        per = len(pods) // max(len(existing), 1)
-        if per * len(existing) != len(pods):
-            raise ValueError(f"{len(pods)} pods do not deal evenly onto "
-                             f"{len(existing)} nodes")
-        for p in pods:
-            self.cluster.add_pod(p)
-        lat = self.lattice
-        prov = self.provisioner
-        for i, b in enumerate(existing):
-            names = [p.name for p in pods[i * per: (i + 1) * per]]
-            claim = prov._make_claim(PlannedNode(
-                node_pool=b.node_pool, instance_type=b.instance_type,
-                zone=b.zone, capacity_type=b.capacity_type,
-                price_per_hour=0.0, pods=names,
-                feasible_types=(b.instance_type,), feasible_zones=(b.zone,),
-                feasible_capacity_types=(b.capacity_type,)))
-            self.writer.create_claim(claim)
-            price = float(lat.price[lat.name_to_idx[b.instance_type],
-                                    lat.zones.index(b.zone),
-                                    lat.capacity_types.index(b.capacity_type)])
-            fleet = self.cloud.create_fleet([LaunchOverride(
-                instance_type=b.instance_type, zone=b.zone,
-                capacity_type=b.capacity_type, price=price)])
-            self.cloud_provider._instance_to_claim(fleet.instance, claim)
-            self.writer.update_claim_status(claim)
-            for n in names:
-                self.cluster.nominate(n, claim.name)
-        self.register()
 
-    def fleet_cost(self) -> Tuple[float, int]:
-        """($/hr of the running instances the catalog prices, count of
-        running instances it does not price)."""
-        run = [i.price for i in self.cloud.list_instances()
-               if i.state == "running"]
-        priced = [p for p in run if np.isfinite(p)]
-        return float(sum(priced)), len(run) - len(priced)
+def seed_fleet(target, existing, pods) -> None:
+    """Stand up ``existing`` (``ExistingBin``s, each with an empty ``used``
+    row) as registered nodes holding ``pods``, dealt to them in order, as
+    many per node as there are pods per bin, in ``target``: a
+    ``ConsolidationStack`` or an ``operator.Operator`` (anything with their
+    cluster, lattice, provisioner, writer, cloud, cloud provider, lifecycle
+    controller and clock). Each bin's instance is started in ``FakeCloud``
+    at the bin's own type, zone and capacity type, at the catalog's price
+    there (+inf where the catalog no longer offers it: a standing node the
+    market withdrew), and its NodeClaim (the provisioner's, pinned to that
+    offering) takes the instance's status; its pods are nominated to it,
+    and one lifecycle pass after the registration delay registers every
+    node and binds its pods."""
+    from .cloud.fake import LaunchOverride
+    from .solver.solve import PlannedNode
+    per = len(pods) // max(len(existing), 1)
+    if per * len(existing) != len(pods):
+        raise ValueError(f"{len(pods)} pods do not deal evenly onto "
+                         f"{len(existing)} nodes")
+    for p in pods:
+        target.cluster.add_pod(p)
+    lat = target.lattice
+    prov = target.provisioner
+    for i, b in enumerate(existing):
+        names = [p.name for p in pods[i * per: (i + 1) * per]]
+        claim = prov._make_claim(PlannedNode(
+            node_pool=b.node_pool, instance_type=b.instance_type,
+            zone=b.zone, capacity_type=b.capacity_type,
+            price_per_hour=0.0, pods=names,
+            feasible_types=(b.instance_type,), feasible_zones=(b.zone,),
+            feasible_capacity_types=(b.capacity_type,)))
+        target.writer.create_claim(claim)
+        price = float(lat.price[lat.name_to_idx[b.instance_type],
+                                lat.zones.index(b.zone),
+                                lat.capacity_types.index(b.capacity_type)])
+        fleet = target.cloud.create_fleet([LaunchOverride(
+            instance_type=b.instance_type, zone=b.zone,
+            capacity_type=b.capacity_type, price=price)])
+        target.cloud_provider._instance_to_claim(fleet.instance, claim)
+        target.writer.update_claim_status(claim)
+        for n in names:
+            target.cluster.nominate(n, claim.name)
+    target.clock.step(target.lifecycle.registration_delay + 0.1)
+    target.lifecycle.reconcile()
+
+
+def fleet_cost(target) -> Tuple[float, int]:
+    """($/hr of ``target``'s running instances the catalog prices, count of
+    running instances it does not price)."""
+    run = [i.price for i in target.cloud.list_instances()
+           if i.state == "running"]
+    priced = [p for p in run if np.isfinite(p)]
+    return float(sum(priced)), len(run) - len(priced)
 
 
 # the cfg4 fleet's NodePool: consolidation on, a short consolidate_after,
 # the default 10 % disruption budget
 CFG4_CONSOLIDATE_AFTER = 30.0
+
+
+def _cfg4_pool():
+    from .apis.objects import NodePool, NodePoolDisruption
+    return NodePool(name="default", disruption=NodePoolDisruption(
+        consolidation_policy="WhenUnderutilized",
+        consolidate_after=CFG4_CONSOLIDATE_AFTER))
 
 
 def config4_fleet_stack(lattice, solver):
@@ -672,12 +686,85 @@ def config4_fleet_stack(lattice, solver):
     ``CFG4_CONSOLIDATE_AFTER`` seconds and the default budget, and
     spot-to-spot consolidation on, so the spot half meets the 15-type
     flexibility guard rather than being skipped outright."""
-    from .apis.objects import NodePool, NodePoolDisruption
     pods, _pools, existing = config4_consolidation_repack(lattice)
-    pool = NodePool(name="default", disruption=NodePoolDisruption(
-        consolidation_policy="WhenUnderutilized",
-        consolidate_after=CFG4_CONSOLIDATE_AFTER))
-    stack = ConsolidationStack(lattice, [pool], solver,
+    stack = ConsolidationStack(lattice, [_cfg4_pool()], solver,
                                spot_to_spot_consolidation=True)
-    stack.seed_fleet(existing, pods)
+    seed_fleet(stack, existing, pods)
     return stack
+
+
+def config4_fleet_operator(lattice, device=None):
+    """cfg4's fleet, as ``config4_fleet_stack`` seeds it, in an
+    ``operator.Operator`` (direct mode) on ``device`` (None = ``cuda``):
+    the same NodePool, registration delay and spot-to-spot consolidation,
+    on its own ``FakeClock`` and ``FakeCloud``."""
+    from .cloud import FakeCloud
+    from .operator import Operator, Options
+    from .utils.clock import FakeClock
+    clock = FakeClock()
+    op = Operator(options=Options(registration_delay=REGISTRATION_DELAY,
+                                  spot_to_spot_consolidation=True),
+                  lattice=lattice, cloud=FakeCloud(clock), clock=clock,
+                  node_pools=[_cfg4_pool()], device=device)
+    pods, _pools, existing = config4_consolidation_repack(lattice)
+    seed_fleet(op, existing, pods)
+    return op
+
+
+# usable addresses of a /20 subnet (4,096 less the 5 AWS reserves): a
+# cluster that launches the cfg5 wave's 1,840 nodes at once has subnets of
+# this size; the fake network's default /24 subnets (250 addresses, each
+# launch booking one until the subnet cache refreshes) stop a wave at about
+# 250 launches a zone, as the reference's subnet provider does
+WAVE_SUBNET_IPS = 4091
+
+
+def wave_cloud(clock):
+    """A ``FakeCloud`` on ``clock`` whose subnets are /20s
+    (``WAVE_SUBNET_IPS`` addresses each), for a wave of thousands of nodes
+    through the Operator's subnet-aware ``CloudProvider``."""
+    from .cloud import FakeCloud
+    cloud = FakeCloud(clock)
+    for i, sub in enumerate(sorted(cloud.network.subnets.values(),
+                                   key=lambda s: s.id)):
+        sub.cidr = f"10.{i}.0.0/20"
+        sub.available_ips = WAVE_SUBNET_IPS
+    return cloud
+
+
+# the Operator's controllers in its run_once order, by the name a pass's
+# wall time is split under: (attribute path, method)
+OPERATOR_CONTROLLERS = (
+    ("provisioning", "provisioner", "provision_once"),
+    ("nodeclass", "nodeclass_controller", "reconcile"),
+    ("pricing", "pricing_controller", "reconcile"),
+    ("lifecycle", "lifecycle", "reconcile"),
+    ("tagging", "tagging", "reconcile"),
+    ("interruption", "interruption", "reconcile"),
+    ("disruption", "disruption", "reconcile"),
+    ("termination", "termination", "reconcile"),
+    ("gc", "gc", "reconcile"),
+    ("emit_gauges", None, "emit_gauges"),
+)
+
+
+def time_controllers(op):
+    """Wrap ``op``'s controllers (``OPERATOR_CONTROLLERS``) so that each
+    call adds its host milliseconds to the returned dict, by controller;
+    the caller clears it between passes."""
+    import time
+    ms = {}
+    for name, attr, method in OPERATOR_CONTROLLERS:
+        obj = op if attr is None else getattr(op, attr)
+        if obj is None:
+            continue
+        fn = getattr(obj, method)
+
+        def timed(*a, _fn=fn, _name=name, **kw):
+            t = time.perf_counter()
+            try:
+                return _fn(*a, **kw)
+            finally:
+                ms[_name] = ms.get(_name, 0.0) + (time.perf_counter() - t) * 1e3
+        setattr(obj, method, timed)
+    return ms

@@ -519,8 +519,7 @@ class JaxConsolidationStack:
             metrics=self.metrics, writer=self.writer)
 
     def seed_fleet(self, existing, pods):
-        """``workloads.ConsolidationStack.seed_fleet`` with this package's
-        classes."""
+        """``workloads.seed_fleet`` with this package's classes."""
         from karpenter_provider_aws_tpu.cloud.fake import LaunchOverride
         from karpenter_provider_aws_tpu.solver.solve import PlannedNode
         per = len(pods) // len(existing)

@@ -12,15 +12,15 @@ skip-ledger codes and events (savings within 1e-5 relative). Pure
 functions (the cron parser, the NodePool template hash) are compared on
 the same inputs.
 
-The JAX package's NodePool admission checks in ``TestScheduledBudgets``
-(``webhooks.validate_node_pool``) are left to the Operator's slice, which
-ports the webhooks: ``test_webhook_requires_schedule_with_duration`` is not
-replayed, and of ``test_review_regressions`` only the cron half is.
+The NodePool admission checks of ``TestScheduledBudgets``
+(``webhooks.validate_node_pool``) run on both packages' webhooks and must
+return the same errors.
 
 One scenario, the multi-node repack, also runs against the JAX package's
-``Operator`` itself: the stack leaves out the Operator's nodeclass,
-pricing, tagging, interruption and garbage-collection controllers, and
-the decisions must not change for it.
+``Operator`` itself and against the port's: the stack leaves out the
+Operator's nodeclass, pricing, tagging, interruption and
+garbage-collection controllers, and the decisions must not change for
+it.
 """
 
 import pytest
@@ -393,10 +393,30 @@ def sc_consolidation_resumes_after_window(env):
         "search never re-armed after the budget window closed"
 
 
+def sc_webhook_requires_schedule_with_duration(env):
+    validate_node_pool = cases.mod(env.pkg, "webhooks").validate_node_pool
+    pool = env.A.NodePool(name="x", disruption=env.O.NodePoolDisruption(
+        budgets=[env.O.DisruptionBudget(nodes="1", schedule="0 0 * * *")]))
+    errs = validate_node_pool(pool)
+    assert any("set together" in e for e in errs)
+    pool2 = env.A.NodePool(name="x", disruption=env.O.NodePoolDisruption(
+        budgets=[env.O.DisruptionBudget(nodes="1", schedule="bad cron here",
+                                        duration=60.0)]))
+    errs2 = validate_node_pool(pool2)
+    assert any("bad budget schedule" in e for e in errs2)
+    return errs, errs2
+
+
 def sc_review_regressions(env):
-    # the cron half; the zero-duration admission check is the webhooks'
     with pytest.raises(ValueError):
         cron(env)("0, 0 * * *")
+    validate_node_pool = cases.mod(env.pkg, "webhooks").validate_node_pool
+    pool = env.A.NodePool(name="x", disruption=env.O.NodePoolDisruption(
+        budgets=[env.O.DisruptionBudget(nodes="0", schedule="0 0 * * *",
+                                        duration=0.0)]))
+    errs = validate_node_pool(pool)
+    assert any("duration must be > 0" in e for e in errs)
+    return errs
 
 
 def sc_step_syntax_vixie_semantics(env):
@@ -741,6 +761,8 @@ SCENARIOS = {
     "test_disruption.py::TestScheduledBudgets::test_consolidation_resumes_after_window":
         (sc_consolidation_resumes_after_window,
          {**D, "pools": scheduled_pools, "clock_start": 12 * 86400.0}),
+    "test_disruption.py::TestScheduledBudgets::test_webhook_requires_schedule_with_duration":
+        (sc_webhook_requires_schedule_with_duration, D),
     "test_disruption.py::TestScheduledBudgets::test_review_regressions":
         (sc_review_regressions, D),
     "test_disruption.py::TestScheduledBudgets::test_step_syntax_vixie_semantics":
@@ -803,10 +825,8 @@ def _jax_tests(filename):
     return out
 
 
-# the admission check of the webhooks, which the Operator's slice ports
-NOT_REPLAYED = {
-    "test_disruption.py::TestScheduledBudgets::test_webhook_requires_schedule_with_duration",
-}
+# every test is replayed
+NOT_REPLAYED = set()
 
 
 def test_scenarios_cover_the_jax_tests():
@@ -816,20 +836,22 @@ def test_scenarios_cover_the_jax_tests():
     assert want == set(SCENARIOS) | NOT_REPLAYED
 
 
-def _operator_env(lattice):
-    from karpenter_provider_aws_tpu.apis import NodePool, Operator as ReqOp, Requirement
-    from karpenter_provider_aws_tpu.apis import wellknown as wk
-    from karpenter_provider_aws_tpu.apis.objects import NodePoolDisruption
-    from karpenter_provider_aws_tpu.cloud import FakeCloud
-    from karpenter_provider_aws_tpu.operator import Operator, Options
-    from karpenter_provider_aws_tpu.utils.clock import FakeClock
-    clock = FakeClock()
-    pool = NodePool(name="default",
-                    disruption=NodePoolDisruption(consolidate_after=10.0),
-                    requirements=[Requirement(wk.LABEL_CAPACITY_TYPE, ReqOp.IN,
-                                              ("on-demand",))])
-    return Operator(options=Options(registration_delay=1.0), lattice=lattice,
-                    cloud=FakeCloud(clock), clock=clock, node_pools=[pool])
+def _operator_env(pkg, lattice):
+    """``pkg``'s whole Operator (direct mode; the port's on the CPU) over
+    the stack's pool and registration delay."""
+    m = lambda name: cases.mod(pkg, name)  # noqa: E731
+    A, wk, O = m("apis"), m("apis.wellknown"), m("apis.objects")
+    clock = m("utils.clock").FakeClock()
+    pool = A.NodePool(name="default",
+                      disruption=O.NodePoolDisruption(consolidate_after=10.0),
+                      requirements=[A.Requirement(wk.LABEL_CAPACITY_TYPE,
+                                                  A.Operator.IN, ("on-demand",))])
+    kw = {"device": "cpu"} if pkg == cases.TORCH_PKG else {}
+    operator = m("operator")
+    return operator.Operator(
+        options=operator.Options(registration_delay=1.0), lattice=lattice,
+        cloud=m("cloud").FakeCloud(clock), clock=clock, node_pools=[pool],
+        **kw)
 
 
 def decisions(stack_or_operator):
@@ -853,28 +875,38 @@ def decisions(stack_or_operator):
 
 
 def test_multi_node_repack_equal_to_the_jax_operator():
-    """The stack against the JAX package's whole Operator: the controllers
-    the stack leaves out do not change the disruption decisions."""
+    """The stack against the JAX package's whole Operator and the port's:
+    the controllers the stack leaves out do not change the disruption
+    decisions, and the two Operators decide alike."""
 
     class OperatorEnv(Env):
-        def __init__(self):
-            self.pkg = cases.JAX_PKG
+        def __init__(self, pkg):
+            self.pkg = pkg
             m = lambda name: cases.mod(self.pkg, name)  # noqa: E731
             self.A, self.wk, self.O = m("apis"), m("apis.wellknown"), m("apis.objects")
             self.taxonomy = m("solver.taxonomy")
             self.lattice = cases.family_lattice(self.pkg, DISRUPTION_FAMILIES)
-            self.stack = _operator_env(self.lattice)
+            self.stack = _operator_env(pkg, self.lattice)
             self.log = []
 
-    op = OperatorEnv()
+    op = OperatorEnv(cases.JAX_PKG)
     sc_multi_node_repack(op)
+    port_op = OperatorEnv(cases.TORCH_PKG)
+    sc_multi_node_repack(port_op)
     port = Env(cases.TORCH_PKG, families=DISRUPTION_FAMILIES,
                **_pools(consolidate_after=10.0))
     sc_multi_node_repack(port)
-    assert [tag for tag, _ in port.log] == [tag for tag, _ in op.log]
-    for (tag, a), (_, b) in zip(op.log, port.log):
-        for k in ("claims", "nodes", "pods", "in_flight", "counters", "ledger"):
-            assert b[k] == a[k], f"{tag}: {k}"
-    assert decisions(port) == decisions(op)
-    assert port.disruption.engine.stats()["savings_per_hour"] == pytest.approx(
-        op.disruption.engine.stats()["savings_per_hour"], rel=1e-5)
+    for other in (port, port_op):
+        assert [tag for tag, _ in other.log] == [tag for tag, _ in op.log]
+        for (tag, a), (_, b) in zip(op.log, other.log):
+            for k in ("claims", "nodes", "pods", "in_flight", "counters", "ledger"):
+                assert b[k] == a[k], f"{tag}: {k}"
+        assert decisions(other) == decisions(op)
+        assert other.disruption.engine.stats()["savings_per_hour"] == pytest.approx(
+            op.disruption.engine.stats()["savings_per_hour"], rel=1e-5)
+    # the two Operators also agree on the events the Operator adds (less
+    # the SLO's, which a wall-clock pass latency raises)
+    events = [[(e.time, e.reason, e.object_name, e.message)
+               for e in o.recorder.events() if e.reason != "SloBudgetBurn"]
+              for o in (op, port_op)]
+    assert events[1] == events[0]

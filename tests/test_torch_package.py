@@ -89,6 +89,27 @@ def test_every_module_imports_without_jax():
     assert f"imported {len(mods)}" in out.stdout
 
 
+def test_guard_covers_the_operator_modules():
+    """The import guards above check the Operator and every module it
+    constructs: its subpackages, the webhooks, the providers, the
+    controllers and the introspection layer."""
+    mods = {_module_name(p) for p in PORT_FILES}
+    port = "karpenter_provider_aws_tpu_torch"
+    for name in ("operator", "operator.operator", "operator.options",
+                 "interruption", "interruption.controller",
+                 "interruption.messages", "interruption.queue",
+                 "parallel", "parallel.mesh", "webhooks",
+                 "cloudprovider.decorator", "controllers.tagging",
+                 "controllers.garbagecollection", "controllers.nodeclass",
+                 "providers.version", "providers.subnet",
+                 "providers.securitygroup", "providers.instanceprofile",
+                 "providers.launchtemplate", "providers.pricing",
+                 "utils.logging", "utils.fanout", "solver.costmodel",
+                 "introspect.registry", "introspect.slo", "introspect.sampler",
+                 "introspect.headroom", "introspect.profiler"):
+        assert f"{port}.{name}" in mods, name
+
+
 def test_solver_defaults_to_cuda_and_raises_without_it(monkeypatch):
     from karpenter_provider_aws_tpu_torch.lattice import build_catalog, build_lattice
     from karpenter_provider_aws_tpu_torch.solver import Solver

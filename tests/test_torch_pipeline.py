@@ -260,6 +260,9 @@ class TestSolverPaths:
         jkeys, tkeys = set(js.stats()), set(ts.stats())
         assert tkeys <= jkeys
         missing = {k for k in jkeys - tkeys if not k.startswith("degraded_")}
-        assert missing == {"faults_injected", "mesh_devices",
-                           "mesh_shard_imbalance"}
+        assert missing == {"faults_injected"}
+        # one device: the mesh keys report a single-device solver
+        assert (ts.stats()["mesh_devices"], ts.stats()["mesh_shard_imbalance"]) \
+            == (js.stats()["mesh_devices"], js.stats()["mesh_shard_imbalance"]) \
+            == (1, 0.0)
         assert set(ts.pipeline_stats) == set(js.pipeline_stats)

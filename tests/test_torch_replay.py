@@ -1,0 +1,379 @@
+"""Replays of the JAX package's own test files against both packages
+(shared helpers; no tests of their own).
+
+A replayed file is loaded twice: once as it is, and once with every
+``karpenter_provider_aws_tpu`` import pointed at the port. Each of its
+tests then runs on both copies, with its own checks, on the same inputs
+(the files build them from fixed seeds and a ``FakeClock``). On the port
+side ``Operator`` and ``Solver`` get ``device="cpu"`` unless the test
+names a device. While a test runs, every object of the kinds in
+``RECORDED`` that it makes (the Operator, FakeCloud, the domain
+providers, metric registries, interruption queues) is recorded, and at
+its end the two packages' objects are compared kind by kind, in the order
+they were made:
+
+- the Operator: claims, nodes with their labels, pod bindings, events
+  (less those a wall-clock measurement raises, ``WALL_TIME_EVENTS``),
+  the disruption controller's in-flight actions and engine counters, and
+  the names of the introspection providers;
+- FakeCloud: every call it served (launches, tags, terminations, in
+  order) and its instances with their tags;
+- each domain provider: the contents of its TTL cache; the pricing
+  provider: the lattice's prices and price version;
+- each metrics registry: its families (name, kind, labels), the value of
+  every gauge and counter series and the observation count of every
+  histogram series. Series that measure wall time (``WALL_TIME``) and
+  the build-info labels (``jax_version`` and ``backend`` name the
+  runtime) are compared by presence only, and the headroom rows of
+  ``WALL_TIME_RESOURCES`` not at all;
+- each interruption queue: its messages and what is still pending.
+
+Everything is compared for equality; the only float slack is
+``REL`` on the engine's savings. A test the port cannot run yet is named
+in its file's ``NOT_REPLAYED`` with the roadmap item that brings it.
+"""
+
+import ast
+import contextlib
+import inspect
+import pathlib
+import re
+import sys
+import types
+
+import pytest
+
+import test_torch_cases as cases
+
+TESTS = pathlib.Path(__file__).resolve().parent
+REL = 1e-5
+
+# metric families whose values follow the wall clock (pass and solve
+# latencies, lock waits, the SLO burn built on them, the headroom
+# forecaster's rates over sampled rings) or name the runtime
+WALL_TIME = re.compile(
+    r"(duration_seconds|lock_wait|latency|slo_|_burn|build_info|"
+    r"headroom_fill_rate|headroom_seconds_to_exhaustion|"
+    r"karpenter_solver_)")
+
+# events a wall-clock measurement raises: a pass slower than the SLO's
+# latency budget for long enough (the JAX package's first passes compile)
+WALL_TIME_EVENTS = ("SloBudgetBurn",)
+# headroom rows whose depth follows the wall clock: burn captures fire on
+# slow passes, and the events ring also holds the events above
+WALL_TIME_RESOURCES = ("burn_captures", "events_ring")
+
+_PKG_RE = re.compile(r"\bkarpenter_provider_aws_tpu\b")
+
+
+def jax_tests(filename):
+    """``file::Class::test`` for every test method of a JAX test file."""
+    src = (TESTS / filename).read_text()
+    out = []
+    for node in ast.parse(src).body:
+        if isinstance(node, ast.ClassDef):
+            out += [f"{filename}::{node.name}::{f.name}" for f in node.body
+                    if isinstance(f, ast.FunctionDef)
+                    and f.name.startswith("test_")]
+    return out
+
+
+def replayed(filename, not_replayed):
+    """The tests of ``filename`` to replay; ``not_replayed`` must name
+    only tests that exist, each with the roadmap item that brings it."""
+    names = jax_tests(filename)
+    stale = set(not_replayed) - set(names)
+    assert not stale, f"NOT_REPLAYED names no test of {filename}: {stale}"
+    for name, why in not_replayed.items():
+        assert re.match(r"^(A|B)\d+[a-z]?\b", why), (name, why)
+    return [n for n in names if n not in not_replayed]
+
+
+def _unported(name, item):
+    def stub(*args, **kwargs):
+        raise NotImplementedError(f"{name} is not ported ({item})")
+    return stub
+
+
+_LOADED = {}
+
+
+def load(filename, pkg, stubs=()):
+    """The test module ``filename`` with its imports pointed at ``pkg``.
+    ``stubs`` are (source line, bound name, roadmap item): on the port
+    side each such module-level import of an unported module binds a stub
+    that raises when used."""
+    key = (filename, pkg)
+    if key in _LOADED:
+        return _LOADED[key]
+    src = (TESTS / filename).read_text()
+    if pkg == cases.TORCH_PKG:
+        for line, name, item in stubs:
+            assert line in src, line
+            src = src.replace(line, f"{name} = _unported({name!r}, {item!r})")
+        src = _PKG_RE.sub(cases.TORCH_PKG, src)
+    name = f"replay_{pkg}_{pathlib.Path(filename).stem}"
+    module = types.ModuleType(name)
+    module.__file__ = str(TESTS / filename)
+    module._unported = _unported
+    module._replay_pkg = pkg
+    module._module_fixtures = {}
+    sys.modules[name] = module
+    exec(compile(src, module.__file__, "exec"), module.__dict__)
+    _LOADED[key] = module
+    return module
+
+
+# ---- fixtures ----
+
+def _fixture_parts(obj):
+    fn = obj._get_wrapped_function()
+    return fn, obj._fixture_function_marker.scope
+
+
+class _Fixtures:
+    """Resolves a test's arguments from its module's fixtures (module or
+    function scope, plain or generator) and pytest's ``monkeypatch`` and
+    ``tmp_path``."""
+
+    def __init__(self, module, tmp_path):
+        self.module = module
+        self.tmp_path = tmp_path
+        self.values = {}
+        self.finalizers = []
+
+    def get(self, name):
+        if name in self.values:
+            return self.values[name]
+        if name == "monkeypatch":
+            mp = pytest.MonkeyPatch()
+            self.finalizers.append(mp.undo)
+            value = mp
+        elif name == "tmp_path":
+            self.tmp_path.mkdir(parents=True, exist_ok=True)
+            value = self.tmp_path
+        else:
+            obj = self.module.__dict__.get(name)
+            if obj is None or not hasattr(obj, "_fixture_function_marker"):
+                raise LookupError(f"fixture {name!r} is not replayable")
+            fn, scope = _fixture_parts(obj)
+            cache = self.module._module_fixtures
+            if scope == "module" and name in cache:
+                value = cache[name]
+            else:
+                value = self._call(fn)
+                if scope == "module":
+                    cache[name] = value
+        self.values[name] = value
+        return value
+
+    def _call(self, fn):
+        args = {p: self.get(p) for p in inspect.signature(fn).parameters}
+        if inspect.isgeneratorfunction(fn):
+            gen = fn(**args)
+            value = next(gen)
+            self.finalizers.append(lambda: next(gen, None))
+            return value
+        return fn(**args)
+
+    def close(self):
+        while self.finalizers:
+            self.finalizers.pop()()
+
+
+# ---- what is recorded and how it is observed ----
+
+def _tuple_items(d):
+    return tuple(sorted((str(k), repr(v)) for k, v in d.items()))
+
+
+def observe_operator(op):
+    cl = op.cluster
+    eng = op.disruption.engine
+    stats = eng.stats()
+    introspect = sys.modules[type(op).__module__.split(".")[0]
+                             + ".introspect"]
+    return {
+        "claims": sorted((c.name, c.node_pool, c.instance_type, c.zone,
+                          c.capacity_type, c.phase.value,
+                          c.deletion_timestamp is not None)
+                         for c in cl.snapshot_claims()),
+        "nodes": sorted((n.name, n.node_claim, _tuple_items(n.labels))
+                        for n in cl.snapshot_nodes()),
+        "pods": sorted((p.name, p.node_name) for p in cl.snapshot_pods()),
+        "events": [(e.time, e.type, e.reason, e.object_kind, e.object_name,
+                    e.message) for e in op.recorder.events()
+                   if e.reason not in WALL_TIME_EVENTS],
+        "in_flight": [(a.reason, list(a.claims), list(a.replacements))
+                      for a in op.disruption._in_flight],
+        "engine": {k: v for k, v in stats.items() if k != "savings_per_hour"},
+        "savings": stats["savings_per_hour"],
+        "introspect": sorted(introspect.registry().names()),
+    }
+
+
+def observe_cloud(cloud):
+    return {
+        "calls": [(verb, repr(args)) for verb, args in cloud.calls],
+        "instances": sorted((i.id, i.instance_type, i.zone, i.capacity_type,
+                             i.state, _tuple_items(i.tags), i.image_id,
+                             i.subnet_id, tuple(i.security_group_ids),
+                             i.private_ip)
+                            for i in cloud.instances.values()),
+    }
+
+
+def observe_cache(provider):
+    return sorted((str(k), repr(v)) for k, v in provider._cache.items())
+
+
+def observe_pricing(provider):
+    lat = provider.lattice
+    return {"price_version": lat.price_version, "price": lat.price.tobytes(),
+            "updated": provider.last_update is not None}
+
+
+def observe_registry(reg):
+    families, values, present = [], {}, set()
+    for m in sorted(reg._metrics.values(), key=lambda m: m.name):
+        families.append((m.name, m.kind, tuple(m.labelnames)))
+        wall = bool(WALL_TIME.search(m.name))
+        if m.kind == "histogram":
+            for k, n in m._totals.items():
+                present.add((m.name, k))
+                if not wall:
+                    values[(m.name, k)] = (n, tuple(m._counts[k]))
+        else:
+            for k, v in m._values.items():
+                if m.name.startswith("karpenter_headroom_") \
+                        and k and k[0] in WALL_TIME_RESOURCES:
+                    continue
+                if m.name == "karpenter_build_info":
+                    present.add((m.name, k[:1]))
+                    continue
+                present.add((m.name, k))
+                if not wall:
+                    values[(m.name, k)] = v
+    return {"families": families, "values": values, "present": present}
+
+
+def observe_queue(queue):
+    return {"name": queue.name,
+            "messages": sorted((k, repr(v)) for k, v in queue._messages.items()),
+            "pending": list(queue._pending)}
+
+
+# (module, class) -> observer, for every kind a replayed test may make
+RECORDED = {
+    ("operator.operator", "Operator"): observe_operator,
+    ("cloud.fake", "FakeCloud"): observe_cloud,
+    ("providers.subnet", "SubnetProvider"): observe_cache,
+    ("providers.securitygroup", "SecurityGroupProvider"): observe_cache,
+    ("providers.instanceprofile", "InstanceProfileProvider"): observe_cache,
+    ("providers.amifamily", "AMIProvider"): observe_cache,
+    ("providers.launchtemplate", "LaunchTemplateProvider"): observe_cache,
+    ("providers.version", "VersionProvider"): observe_cache,
+    ("providers.pricing", "PricingProvider"): observe_pricing,
+    ("metrics", "Registry"): observe_registry,
+    ("interruption.queue", "FakeQueue"): observe_queue,
+}
+
+
+@contextlib.contextmanager
+def recording(pkg):
+    """Record every object of a RECORDED kind made while this is open;
+    on the port side default ``Operator`` and ``Solver`` to the CPU."""
+    made = []
+    with pytest.MonkeyPatch.context() as mp:
+        for (modname, clsname) in RECORDED:
+            cls = getattr(cases.mod(pkg, modname), clsname)
+            orig = cls.__init__
+            port_op = pkg == cases.TORCH_PKG and clsname == "Operator"
+
+            def init(self, *args, _orig=orig, _kind=(modname, clsname),
+                     _cpu=port_op, **kwargs):
+                if _cpu:
+                    kwargs.setdefault("device", "cpu")
+                _orig(self, *args, **kwargs)
+                made.append((_kind, self))
+
+            mp.setattr(cls, "__init__", init)
+        # the package's process-wide state starts as in a fresh process
+        # and is restored afterwards, so a replay neither sees nor leaves
+        # what another test of the same process did: the introspection
+        # registry and its published surfaces, lock-contention accounting
+        # and the device cost model
+        introspect = cases.mod(pkg, "introspect")
+        mp.setattr(introspect.registry(), "_providers", {})
+        for name in ("_SAMPLER", "_PROFILER", "_BURN_CAPTURE", "_EXPLAIN",
+                     "_HEADROOM"):
+            mp.setattr(introspect, name, None)
+        contention = cases.mod(pkg, "introspect.contention")
+        mp.setattr(contention, "_registry", {})
+        mp.setattr(contention, "_order_edges", {})
+        mp.setattr(contention, "_metric_hist", None)
+        costmodel = cases.mod(pkg, "solver.costmodel")
+        mp.setattr(costmodel, "_MODEL", costmodel.DeviceCostModel())
+        if pkg == cases.TORCH_PKG:
+            solver_cls = cases.mod(pkg, "solver.solve").Solver
+            solver_init = solver_cls.__init__
+
+            def sinit(self, lattice, *args, **kwargs):
+                if not args:
+                    kwargs.setdefault("device", "cpu")
+                solver_init(self, lattice, *args, **kwargs)
+
+            mp.setattr(solver_cls, "__init__", sinit)
+        yield made
+
+
+def _observations(made):
+    by_kind = {}
+    for kind, obj in made:
+        by_kind.setdefault(kind, []).append(RECORDED[kind](obj))
+    return by_kind
+
+
+def run_test(module, test_id, tmp_path):
+    """Run one test of ``module`` (``file::Class::test``); returns the
+    observations of what it made, taken at its end."""
+    _, clsname, meth = test_id.split("::")
+    instance = getattr(module, clsname)()
+    fn = getattr(instance, meth)
+    fx = _Fixtures(module, tmp_path)
+    try:
+        with recording(module._replay_pkg) as made:
+            fn(**{p: fx.get(p) for p in inspect.signature(fn).parameters})
+            return _observations(made)
+    finally:
+        fx.close()
+
+
+def _same(j, t, where):
+    if isinstance(j, dict) and isinstance(t, dict) and "savings" in j:
+        assert t["savings"] == pytest.approx(j["savings"], rel=REL,
+                                             abs=1e-9), f"{where}: savings"
+        j = {k: v for k, v in j.items() if k != "savings"}
+        t = {k: v for k, v in t.items() if k != "savings"}
+    if isinstance(j, dict) and isinstance(t, dict):
+        assert set(t) == set(j), f"{where}: keys {set(t) ^ set(j)}"
+        for k in j:
+            _same(j[k], t[k], f"{where}.{k}")
+    else:
+        assert t == j, f"{where} differs"
+
+
+def replay(filename, test_id, tmp_path, stubs=()):
+    """Run ``test_id`` on the JAX package and on the port, and require the
+    same observations of everything both made."""
+    obs = {}
+    for pkg in (cases.JAX_PKG, cases.TORCH_PKG):
+        module = load(filename, pkg, stubs)
+        obs[pkg] = run_test(module, test_id, tmp_path / pkg)
+    j, t = obs[cases.JAX_PKG], obs[cases.TORCH_PKG]
+    assert {k[1]: len(v) for k, v in t.items()} \
+        == {k[1]: len(v) for k, v in j.items()}
+    for kind in j:
+        for i, (a, b) in enumerate(zip(j[kind], t[kind])):
+            _same(a, b, f"{kind[1]}[{i}]")
+    return j, t
