@@ -91,12 +91,58 @@ Phases, in order; any failure exits non-zero and prints no result line:
    introspection provider reporting an error, a ``/metrics`` rendering
    that ``metrics.lint_exposition`` does not pass clean, or no kernel
    launch through the Operator;
-9. kernel timing: the kernel and its plain version at cfg5's and cfg10's
+9. wave split: (a) cfg7 (``workloads.config7_highG_wave_split``: 4,608
+   pods with distinct signatures over the real catalog, past the largest
+   group bucket of 4,096) through ``Solver.solve`` on the card,
+   ``WAVE_SOLVES`` solves per path, sequential and pipelined in turns. Every solve must be a ``wave-split`` plan for
+   ``g-overflow`` in 5 waves with no retry, launch the kernel exactly once
+   a wave (counted around the solve), place every pod within 1.02x of the
+   FFD oracle's cost, and equal the first plan node by node; the pipelined
+   path must prefetch 4 waves. Each path's first solve captures every
+   wave's kernel inputs (their B is printed) and the last wave's are held exactly
+   against the plain version. (b) cfg7's first 320 pods under
+   ``FaultInjector(g_limit=64)`` (5 waves) on the card and on the CPU: the
+   plans must be equal node by node;
+10. ladder: each rung forced by a ``FaultInjector`` on cfg10's 20,000
+   pending pods, each on a fresh Solver with a ``FakeClock``: one device
+   error is retried (the plan equal to the unfaulted one, the clock 0.05 s
+   on), two land on the host FFD (``device-error``, its plan equal to
+   ``solve_host_ffd``, no launch), ``b_limit=32`` lands there too
+   (``b-exhausted``); after ``inject_faults(None)`` each Solver solves on
+   the device again with its counts unchanged. A launch that fails for
+   real (the wrapper's launcher made to return error 700) must raise
+   ``SolverDeviceError`` after one retry, and a kernel that does not build
+   ``KernelBuildError`` with no retry: no host plan stands in for the
+   card. Then a fault mid-microloop
+   on one of cfg10's steady passes: the pass aborts the microloop once,
+   and it and the next equal their sequential referees;
+11. weather: the ``squall`` scenario (``weather/scenario.py``: a 15 s storm
+   over two zones with device errors, junk messages and an ICE spell)
+   against cfg4's fleet in an Operator on the card
+   (``workloads.weather_operator``, a fresh real catalog): 60 ticks of 1 s
+   with 2 pods a tick through ``run_once(force_provision=True)``, then
+   ``WEATHER_RECOVERY`` passes with the injector cleared. It must reprice
+   the lattice, engage the ladder, take one rung for each fault fired that
+   the microloop did not consume and none at all in recovery, send storm messages and count the junk malformed,
+   drain the queue with no handler error, hold consolidation, launch the
+   kernel on every un-faulted provisioning pass that placed pods, leave
+   nothing pending or leaked, keep the SLO cost burn at most 1.0, and
+   replay its timeline byte for byte. It prints the pass wall p50 split
+   by controller, the rung each provisioning pass took and the fleet's
+   $/hr before and after;
+12. kernel timing: the kernel and its plain version at cfg5's and cfg10's
    own inputs (captured in a solve of each), at the first consolidation
-   pass's probe dispatch (K x B rows in one call) and at the dense largest
-   bin bucket (B=8192), and the card's launch floor (a one-element
-   in-place add), each the median of 100 device times from CUDA events,
-   queued behind a device sleep so that no host gap is timed.
+   pass's probe dispatch (K x B rows in one call), at cfg7's last wave and
+   at the dense largest bin bucket (B=8192), and the card's launch floor
+   (a one-element in-place add), each the median of 100 device times from
+   CUDA events, queued behind a device sleep so that no host gap is timed.
+
+No fallback may hide the card: every Solver the script makes is kept,
+and after each phase each must have no FaultInjector attached and exactly
+the ``degraded_counts`` its phase allowed (none but cfg7's wave split and
+the injected rungs). A real CUDA fault (a sticky illegal address, say) is
+retried and then carried by the host FFD, so its plan alone would pass;
+its count fails the phase.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``. The script imports
@@ -115,6 +161,12 @@ T0 = time.perf_counter()
 SOLVES = 12
 SMALL_PASSES = 12
 CONSOLIDATION_PASSES = 8
+WAVE_SOLVES = 3            # cfg7 solves per path, the paths in turns
+WAVE_CUT_PODS = 320        # cfg7's cut for the card-against-CPU wave split
+WAVE_CUT_G_LIMIT = 64      # its injected group ceiling: 5 waves
+LADDER_PASSES = 4          # cfg10 steady passes of the mid-microloop fault
+LADDER_FAULT_PASS = 1      # the pass the fault lands on
+WEATHER_RECOVERY = 40      # recovery passes after the squall
 
 
 def _fail(msg: str) -> int:
@@ -1042,6 +1094,554 @@ def _operator(torch, workloads, lattice, oa, cpu_plan, consol):
     return out, launches
 
 
+# every Solver the script makes, and the rungs off the device path each
+# may have taken (id -> expected degraded_counts; absent = none)
+_SOLVERS = []
+_ALLOWED = {}
+
+
+def _track_solvers(solver_cls) -> None:
+    """Keep every Solver the script makes (the Operator's included), so
+    that ``_check_solvers`` can hold each to the rungs it was allowed."""
+    init = solver_cls.__init__
+
+    def tracked(self, *a, **kw):
+        init(self, *a, **kw)
+        _SOLVERS.append(self)
+    solver_cls.__init__ = tracked
+
+
+def _check_solvers(torch, name) -> None:
+    """No fallback hides the card: every Solver made so far ends with no
+    FaultInjector attached and exactly the ``degraded_counts`` its phase
+    allowed (none, unless a fault was injected or the wave split is the
+    point). On the card a real CUDA fault raises once its retry failed,
+    but a retry that recovered leaves only a plan that passes: its count
+    fails the phase here."""
+    torch.cuda.synchronize()
+    for s in _SOLVERS:
+        want = _ALLOWED.get(id(s), {})
+        if s.faults is not None:
+            raise AssertionError(f"{name}: a Solver ends with a FaultInjector "
+                                 f"attached ({s.faults})")
+        if dict(s.degraded_counts) != want:
+            raise AssertionError(f"{name}: a Solver left the device path: "
+                                 f"degraded_counts {s.degraded_counts}, "
+                                 f"expected {want}")
+    print(f"{name}: all {len(_SOLVERS)} Solvers so far off the device path "
+          f"only where allowed", flush=True)
+
+
+def _placed(plan) -> int:
+    return sum(len(n.pods) for n in plan.new_nodes) + sum(
+        len(v) for v in plan.existing_assignments.values())
+
+
+def _wave_split(torch, workloads, lattice, oa):
+    """Phase 9: (a) cfg7, 4,608 distinct signatures, through the wave split
+    on the card, sequential and pipelined; (b) its first 320 pods under
+    ``FaultInjector(g_limit=64)``, card against CPU. Returns its numbers,
+    launches and the last wave's kernel inputs."""
+    from karpenter_provider_aws_tpu_torch import measure
+    from karpenter_provider_aws_tpu_torch.solver import FaultInjector, Solver
+    from karpenter_provider_aws_tpu_torch.solver.oracle import ffd_oracle
+    from karpenter_provider_aws_tpu_torch.solver.problem import build_problem
+
+    pods, pools, _ = workloads.config7_highG_wave_split()
+    t = time.perf_counter()
+    problem = build_problem(pods, pools, lattice)
+    build_ms = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    oracle = ffd_oracle(problem)
+    ceiling = Solver._WAVE_G_TARGET
+    waves = -(-problem.G // ceiling)
+    print(f"cfg7: {len(pods)} pods, G={problem.G} (build {build_ms:.1f} ms), "
+          f"{waves} waves of <= {ceiling} groups expected; ffd oracle "
+          f"{oracle.num_new_nodes} nodes, ${oracle.new_node_cost:.3f}/hr "
+          f"({time.perf_counter() - t:.1f} s)", flush=True)
+    solvers = {"cfg7_sequential": Solver(lattice, pipeline=False),
+               "cfg7_pipelined": Solver(lattice)}
+    first, inputs, wave_b = None, None, None
+    e2e = {path: [] for path in solvers}
+    stages = {path: {} for path in solvers}
+    order = []
+    for i in range(WAVE_SOLVES):
+        order += list(solvers) if i % 2 == 0 else list(solvers)[::-1]
+    solves = {path: 0 for path in solvers}
+    launched_per_solve = set()
+    for path in order:
+        s = solvers[path]
+        pre = s.pipeline_stats["prefetched_waves"]
+        first_of_path = solves[path] == 0
+        oa.LAUNCHES = 0
+        t = time.perf_counter()
+        if first_of_path:
+            # the first solve of each path also captures every wave's
+            # kernel inputs (five small copies against seconds of issue)
+            plan, captured = measure.captured_kernel_inputs(
+                lambda: s.solve(problem))
+        else:
+            plan = s.solve(problem)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        launched = oa.LAUNCHES
+        launched_per_solve.add(launched)
+        solves[path] += 1
+        prefetched = s.pipeline_stats["prefetched_waves"] - pre
+        ratio = plan.new_node_cost / oracle.new_node_cost
+        placed = _placed(plan)
+        print(f"{path} solve {solves[path]}{' (inputs captured)' if first_of_path else ''}: "
+              f"{ms:.1f} ms, {plan.solver_path}/{plan.degraded_reason}, "
+              f"{plan.waves} waves, {launched} launches, {len(plan.new_nodes)} "
+              f"nodes ${plan.new_node_cost:.3f}/hr (ratio {ratio:.6f}), {placed} "
+              f"placed, prefetched {prefetched}", flush=True)
+        if (plan.solver_path, plan.degraded_reason, plan.waves,
+                plan.device_retries) != ("wave-split", "g-overflow", waves, 0):
+            raise AssertionError(f"{path}: {plan.solver_path}/"
+                                 f"{plan.degraded_reason}, {plan.waves} waves, "
+                                 f"{plan.device_retries} retries")
+        if launched != waves:
+            raise AssertionError(f"{path}: {launched} kernel launches, "
+                                 f"expected {waves}")
+        if placed != len(pods) or plan.unschedulable:
+            raise AssertionError(f"{path}: placed {placed}/{len(pods)}, "
+                                 f"{len(plan.unschedulable)} unschedulable")
+        if not ratio <= 1.02:
+            raise AssertionError(f"{path}: cost ratio {ratio} above 1.02")
+        if prefetched != (waves - 1 if s.pipeline else 0):
+            raise AssertionError(f"{path}: {prefetched} prefetched waves")
+        if any(k.startswith("__wave") for k in plan.existing_assignments):
+            raise AssertionError(f"{path}: a wave's pseudo bin leaked")
+        if first is None:
+            first = plan
+        elif not _same_plan(plan, first):
+            raise AssertionError(f"{path}: the plan differs from "
+                                 f"{order[0]}'s first plan")
+        if first_of_path:
+            if len(captured) != waves:
+                raise AssertionError(f"{path}: {len(captured)} kernel calls "
+                                     f"captured, expected {waves}")
+            wave_b = [int(c[0].shape[0]) for c in captured]
+            inputs = captured[-1]
+        e2e[path].append(ms)
+        for k, v in plan.stage_ms.items():
+            stages[path].setdefault(k, []).append(v)
+    for path, s in solvers.items():
+        _ALLOWED[id(s)] = {"wave_split": solves[path]}
+    tm, zc, pr = inputs
+    err = measure.check_exact("cfg7 last wave", oa.cheapest_offering(tm, zc, pr),
+                              oa.cheapest_offering_ref(tm, zc, pr))
+    out = {"pods": len(pods), "groups": problem.G, "waves": waves,
+           "wave_B": wave_b, "nodes": len(first.new_nodes),
+           "cost": first.new_node_cost, "oracle_cost": oracle.new_node_cost,
+           "oracle_nodes": oracle.num_new_nodes, "max_abs_err": err}
+    for path in solvers:
+        med = {k: statistics.median(v) for k, v in stages[path].items()}
+        out[path] = {"e2e_p50_ms": statistics.median(e2e[path]),
+                     "e2e_ms": e2e[path], "stage_p50_ms": med}
+        print(f"{path}: e2e p50 {out[path]['e2e_p50_ms']:.3f} ms over "
+              f"{WAVE_SOLVES} solves {[round(x, 3) for x in e2e[path]]}; stage "
+              f"p50 ms { {k: round(v, 3) for k, v in med.items()} }", flush=True)
+    print(f"cfg7: sequential and pipelined plans equal node by node; wave B "
+          f"{wave_b}; last wave's kernel inputs exact against the plain "
+          f"version", flush=True)
+
+    # (b) a cut of cfg7 under an injected group ceiling, card against CPU
+    cut = pods[:WAVE_CUT_PODS]
+    plans = {}
+    for name, kw in (("card", {}), ("cpu", {"device": "cpu"})):
+        s = Solver(lattice, **kw)
+        s.inject_faults(FaultInjector(g_limit=WAVE_CUT_G_LIMIT))
+        prob = build_problem(cut, pools, lattice)
+        oa.LAUNCHES = 0
+        t = time.perf_counter()
+        plan = s.solve(prob)
+        if s.device.type == "cuda":
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        fired = dict(s.faults.fired)
+        s.inject_faults(None)
+        _ALLOWED[id(s)] = {"wave_split": 1}
+        print(f"cfg7 cut, {name}: G={prob.G}, {plan.solver_path}, {plan.waves} "
+              f"waves, {oa.LAUNCHES} launches, {len(plan.new_nodes)} nodes "
+              f"${plan.new_node_cost:.3f}/hr, {ms:.1f} ms, fired {fired}",
+              flush=True)
+        want_waves = -(-prob.G // WAVE_CUT_G_LIMIT)
+        if (plan.solver_path, plan.waves, fired) != (
+                "wave-split", want_waves, {"g_overflow": 1}):
+            raise AssertionError(f"cfg7 cut, {name}: {plan.solver_path}, "
+                                 f"{plan.waves} waves, fired {fired}")
+        if name == "card" and oa.LAUNCHES != want_waves:
+            raise AssertionError(f"cfg7 cut: {oa.LAUNCHES} launches on the card")
+        if _placed(plan) != len(cut) or plan.unschedulable:
+            raise AssertionError(f"cfg7 cut, {name}: placed {_placed(plan)}")
+        plans[name] = plan
+    if not _same_plan(plans["card"], plans["cpu"]):
+        raise AssertionError("cfg7 cut: the card's plan differs from the CPU's")
+    print(f"cfg7 cut ({len(cut)} pods, g_limit {WAVE_CUT_G_LIMIT}, "
+          f"{plans['card'].waves} waves): card plan == cpu plan, node by node",
+          flush=True)
+    out["cut"] = {"pods": len(cut), "g_limit": WAVE_CUT_G_LIMIT,
+                  "waves": plans["card"].waves}
+    # every solve launched ``waves`` times (checked above): the one reading
+    (per_solve,) = launched_per_solve
+    launches = {"cfg7_per_solve": per_solve}
+    return out, launches, inputs
+
+
+def _ladder(torch, workloads, lattice, oa):
+    """Phase 10: each rung of the degradation ladder forced on the card by
+    a FaultInjector, on cfg10's problem, each on a fresh Solver with a
+    FakeClock; then a fault mid-microloop on cfg10's steady passes."""
+    from karpenter_provider_aws_tpu_torch.solver import FaultInjector, Solver
+    from karpenter_provider_aws_tpu_torch.solver.problem import build_problem
+    from karpenter_provider_aws_tpu_torch.utils.clock import FakeClock
+
+    pods, pools, shapes = workloads.config10_steady_state()
+    # the 20k pending pods alone (their own bins, so that a b_limit of 32
+    # exhausts the table rather than cutting the existing nodes off)
+    problem = build_problem(pods, pools, lattice)
+    out = {}
+
+    def run(name, faults):
+        clock = FakeClock()
+        s = Solver(lattice, clock=clock)
+        if faults is not None:
+            s.inject_faults(faults)
+        t0 = clock.monotonic()
+        oa.LAUNCHES = 0
+        t = time.perf_counter()
+        plan = s.solve(problem)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        row = {"path": plan.solver_path, "reason": plan.degraded_reason,
+               "retries": plan.device_retries, "launches": oa.LAUNCHES,
+               "degraded_counts": dict(s.degraded_counts),
+               "fired": dict(faults.fired) if faults else {},
+               "backoff_s": clock.monotonic() - t0, "ms": ms}
+        out[name] = row
+        print(f"ladder {name}: {row}", flush=True)
+        return s, plan, row
+
+    _, ref, row = run("unfaulted", None)
+    if row["path"] != "device" or row["launches"] < 1 or ref.degraded:
+        raise AssertionError(f"ladder unfaulted: {row}")
+    cases = (
+        ("device_errors=1", FaultInjector(device_errors=1),
+         ("device", "", 1, {"device_retry": 1}, {"device_error": 1})),
+        ("device_errors=2", FaultInjector(device_errors=2),
+         ("host-ffd", "device-error", 1, {"device_retry": 1, "host_ffd": 1},
+          {"device_error": 2})),
+        ("b_limit=32", FaultInjector(b_limit=32),
+         ("host-ffd", "b-exhausted", 0, {"host_ffd": 1}, {"b_exhausted": 1})),
+    )
+    for name, faults, want in cases:
+        s, plan, row = run(name, faults)
+        got = (row["path"], row["reason"], row["retries"],
+               row["degraded_counts"], row["fired"])
+        if got != want:
+            raise AssertionError(f"ladder {name}: {got}, expected {want}")
+        if abs(row["backoff_s"] - 0.05 * row["retries"]) > 1e-9:
+            raise AssertionError(f"ladder {name}: the clock advanced "
+                                 f"{row['backoff_s']} s")
+        if name == "device_errors=1":
+            if not _same_plan(plan, ref) or row["launches"] < 1:
+                raise AssertionError(f"ladder {name}: the retried plan differs "
+                                     f"from the unfaulted one")
+        elif name == "device_errors=2":
+            if row["launches"] != 0:
+                raise AssertionError(f"ladder {name}: {row['launches']} launches "
+                                     f"on the failed attempts")
+            if not _same_plan(plan, s.solve_host_ffd(problem)):
+                raise AssertionError(f"ladder {name}: the plan differs from "
+                                     f"solve_host_ffd")
+        elif row["launches"] < 1:
+            raise AssertionError(f"ladder {name}: the overflowing pack never "
+                                 f"launched")
+        if _placed(plan) != len(pods):
+            raise AssertionError(f"ladder {name}: placed {_placed(plan)}")
+        counts = dict(s.degraded_counts)
+        s.inject_faults(None)
+        oa.LAUNCHES = 0
+        again = s.solve(problem)
+        torch.cuda.synchronize()
+        if (dict(s.degraded_counts) != counts or again.solver_path != "device"
+                or not _same_plan(again, ref) or oa.LAUNCHES < 1):
+            raise AssertionError(f"ladder {name}: after inject_faults(None) "
+                                 f"{again.solver_path}, {s.degraded_counts}")
+        _ALLOWED[id(s)] = counts
+
+    # real failures on the card raise instead of landing on the host FFD: a
+    # launch that fails is retried once, a kernel that does not build is not
+    from karpenter_provider_aws_tpu_torch.errors import (KernelBuildError,
+                                                          SolverDeviceError)
+
+    def failing_launch():
+        return lambda *a: 700     # cudaErrorIllegalAddress
+
+    def failing_build():
+        raise KernelBuildError("nvcc failed for offering_argmin.cu")
+
+    launcher = oa._launcher
+    for name, fake, raised, want in (
+            ("launch fails", failing_launch, SolverDeviceError,
+             {"device_retry": 1}),
+            ("build fails", failing_build, KernelBuildError, {})):
+        clock = FakeClock()
+        s = Solver(lattice, clock=clock)
+        oa._launcher = fake
+        try:
+            s.solve(problem)
+        except raised as e:
+            got = f"{type(e).__name__}: {e}"
+        else:
+            raise AssertionError(f"ladder {name}: the solve did not raise")
+        finally:
+            oa._launcher = launcher
+        counts = dict(s.degraded_counts)
+        print(f"ladder {name}: raised {got}; degraded_counts {counts}; clock "
+              f"{clock.monotonic():.2f} s", flush=True)
+        if counts != want:
+            raise AssertionError(f"ladder {name}: degraded_counts {counts}, "
+                                 f"expected {want}")
+        oa.LAUNCHES = 0
+        again = s.solve(problem)
+        torch.cuda.synchronize()
+        if again.degraded or not _same_plan(again, ref) or oa.LAUNCHES < 1:
+            raise AssertionError(f"ladder {name}: the next solve "
+                                 f"{again.solver_path}, {oa.LAUNCHES} launches")
+        out[name] = {"raised": got, "degraded_counts": counts}
+        _ALLOWED[id(s)] = counts
+
+    # a fault mid-microloop, on one of cfg10's steady passes
+    churn = workloads.SteadyStateChurn(lattice, pods, shapes)
+    s = Solver(lattice, clock=FakeClock())
+    referee = Solver(lattice, pipeline=False)
+    rows = []
+    for pass_i, res, plan, ms, legs in workloads.steady_state_passes(
+            s, lattice, pools, churn, LADDER_PASSES):
+        torch.cuda.synchronize()
+        st = dict(s.pipeline_stats)
+        if pass_i >= 0:
+            same = _same_plan(plan, referee.solve(res.problem))
+            rows.append({"pass": pass_i, "micro_aborts": st["micro_aborts"],
+                         "micro_solves": st["micro_solves"],
+                         "faulted": pass_i == LADDER_FAULT_PASS,
+                         "equal_to_sequential": same})
+            print(f"ladder microloop pass {pass_i}: {ms:.3f} ms, "
+                  f"{rows[-1]}", flush=True)
+            if not same:
+                raise AssertionError(f"ladder microloop pass {pass_i}: the plan "
+                                     f"differs from the sequential referee")
+        if pass_i == LADDER_FAULT_PASS:
+            if s.faults is None or s.faults.fired != {"device_error": 1} \
+                    or st["micro_aborts"] != aborts0 + 1:
+                raise AssertionError(f"ladder microloop: the fault did not "
+                                     f"abort the pass ({st['micro_aborts']})")
+            s.inject_faults(None)
+        if pass_i == LADDER_FAULT_PASS - 1:
+            aborts0 = st["micro_aborts"]
+            s.inject_faults(FaultInjector(device_errors=1))
+    if rows[-1]["micro_aborts"] != 1 or rows[-1]["micro_solves"] != \
+            rows[LADDER_FAULT_PASS]["micro_solves"] + (
+                len(rows) - 1 - LADDER_FAULT_PASS):
+        raise AssertionError(f"ladder microloop: {rows[-1]}")
+    out["microloop"] = rows
+    return out
+
+
+def _weather(torch, workloads, oa):
+    """Phase 11: the squall scenario against cfg4's fleet in an Operator on
+    the card (``workloads.weather_operator``, the real catalog): 60 ticks
+    of 1 s with 2 pods a tick, then 40 recovery passes with the injector
+    cleared, as the JAX package's tools/smoke_weather.py runs it."""
+    from karpenter_provider_aws_tpu_torch.apis import Pod
+    from karpenter_provider_aws_tpu_torch.weather import WeatherSimulator, named
+
+    lattice = workloads.real_lattice()
+    scenario = named("squall")
+    t = time.perf_counter()
+    op, sim = workloads.weather_operator(lattice, scenario)
+    seed_ms = (time.perf_counter() - t) * 1e3
+    if op.solver.device.type != "cuda":
+        raise AssertionError("weather: the Operator's Solver is not on the card")
+    queue = op.interruption_queue
+    ms = workloads.time_controllers(op)
+    price_v0 = lattice.price_version
+    cost0, _ = workloads.fleet_cost(op)
+    provisions = []
+    orig = op.provisioner.provision_once
+
+    def provision_once(*a, **kw):
+        fired0 = dict(op.solver.faults.fired) if op.solver.faults else {}
+        l0 = oa.LAUNCHES
+        result = orig(*a, **kw)
+        fired = dict(op.solver.faults.fired) if op.solver.faults else {}
+        provisions.append((result, oa.LAUNCHES - l0, fired != fired0))
+        return result
+    op.provisioner.provision_once = provision_once
+    # an injected fault consumed by the microloop aborts its pass and takes
+    # no rung: count those, so that rungs + micro faults equal the faults
+    from karpenter_provider_aws_tpu_torch.errors import SolverDeviceError
+    micro_faults = [0]
+    solve_micro = op.solver._solve_micro
+
+    def counted_micro(*a, **kw):
+        try:
+            return solve_micro(*a, **kw)
+        except SolverDeviceError as e:
+            if e.injected:
+                micro_faults[0] += 1
+            raise
+    op.solver._solve_micro = counted_micro
+    print(f"weather: cfg4's {len(op.cluster.nodes)} nodes seeded in "
+          f"{seed_ms:.1f} ms, ${cost0:.4f}/hr; squall over "
+          f"{scenario.duration_seconds:.0f} s", flush=True)
+    rows, serial = [], 0
+    rungs = {}
+
+    def one_pass(phase, add):
+        nonlocal serial
+        for cpu, mem in add:
+            serial += 1
+            op.cluster.add_pod(Pod(name=f"w{serial}",
+                                   requests={"cpu": cpu, "memory": mem}))
+        ms.clear()
+        provisions.clear()
+        oa.LAUNCHES = 0
+        t = time.perf_counter()
+        op.run_once(force_provision=True)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+        for result, launched, faulted in provisions:
+            plan = result.plan
+            if plan is None:
+                if result.degraded:
+                    raise AssertionError(f"weather {phase}: a pass failed to "
+                                         f"solve ({result.degraded_reason})")
+                continue
+            rung = plan.solver_path + (f"/{plan.degraded_reason}"
+                                       if plan.degraded else "") + (
+                f" after {plan.device_retries} retry" if plan.device_retries
+                else "")
+            rungs[rung] = rungs.get(rung, 0) + 1
+            if plan.solver_path == "host-ffd" and \
+                    plan.degraded_reason != "device-error":
+                raise AssertionError(f"weather {phase}: host FFD for "
+                                     f"{plan.degraded_reason}")
+            solved = bool(plan.new_nodes or plan.existing_assignments)
+            if solved and not faulted and launched < 1:
+                raise AssertionError(f"weather {phase}: an un-faulted pass "
+                                     f"solved without launching the kernel")
+        rows.append({"phase": phase, "wall_ms": wall, "launches": oa.LAUNCHES,
+                     "controller_ms": dict(ms)})
+
+    ticks = int(scenario.duration_seconds / scenario.tick_seconds)
+    for _ in range(ticks):
+        one_pass("storm", [("500m", "1Gi")] * 2)
+        op.clock.step(scenario.tick_seconds)
+        sim.advance()
+    storm_ticks = sim.ticks
+    faults = op.solver.faults
+    fired = dict(faults.fired) if faults is not None else {}
+    counts = dict(op.solver.degraded_counts)
+    storm_micro_faults = micro_faults[0]
+    wstats = sim.stats()
+    sim.stop()
+    op.solver.inject_faults(None)
+    for r in range(WEATHER_RECOVERY):
+        one_pass("recovery", [("250m", "512Mi")] if r % 4 == 0 else [])
+        op.clock.step(10.0)
+    # the last recovery pass's consolidation evicted pods that take their
+    # provisioning pass only in the next one, as in the operator phase:
+    # provisioning and registration alone (no more disruption) place them
+    evictees = len(op.cluster.pending_pods())
+    if evictees:
+        provisions.clear()
+        op.provisioner.provision_once()
+        op.clock.step(op.options.registration_delay + 0.1)
+        op.lifecycle.reconcile()
+        for result, _launched, _faulted in provisions:
+            _check_pass("weather: the last evictees' pass", result)
+    print(f"weather: {evictees} pods evicted by the last recovery pass's "
+          f"consolidation, placed by one provisioning pass", flush=True)
+    slo = op.slo.update()
+    intr = op.interruption.stats()
+    claimed = {c.provider_id for c in op.cluster.claims.values() if c.provider_id}
+    leaked = [x for x in op.cloud.list_instances()
+              if x.provider_id not in claimed]
+    cost1, _ = workloads.fleet_cost(op)
+    replay = WeatherSimulator.replay(scenario, lattice, storm_ticks, seed=sim.seed)
+    holds = op.disruption.engine.counters["weather_holds"]
+
+    def p50(phase, key=None):
+        xs = [r["wall_ms"] if key is None else r["controller_ms"].get(key, 0.0)
+              for r in rows if r["phase"] == phase]
+        return statistics.median(xs)
+    split = {ph: {name: p50(ph, name) for name, _a, _m
+                  in workloads.OPERATOR_CONTROLLERS} for ph in ("storm", "recovery")}
+    out = {"ticks": storm_ticks, "timeline_events": len(sim.timeline),
+           "last_evictees": evictees,
+           "fired": fired, "degraded_counts": counts, "rungs": rungs,
+           "micro_faults": storm_micro_faults,
+           "messages_sent": wstats["messages_sent"], "junk_sent": wstats["junk_sent"],
+           "received_malformed": intr.get("received_malformed", 0),
+           "handler_errors": intr.get("handler_errors", 0),
+           "weather_holds": holds, "latency_burn": slo["latency_burn"],
+           "cost_burn": slo["cost_burn"], "latency_p50_ms": slo["latency_p50_ms"],
+           "fleet_cost_before": cost0, "fleet_cost_after": cost1,
+           "price_versions": lattice.price_version - price_v0,
+           "storm_pass_p50_ms": p50("storm"),
+           "recovery_pass_p50_ms": p50("recovery"),
+           "controller_p50_ms": split,
+           "launches": sum(r["launches"] for r in rows)}
+    for ph in ("storm", "recovery"):
+        print(f"weather {ph}: pass wall p50 {out[ph + '_pass_p50_ms']:.3f} ms "
+              f"(controllers p50 { {k: round(v, 3) for k, v in split[ph].items()} })",
+              flush=True)
+    print(f"weather: rungs taken by provisioning passes {rungs}; fired {fired}; "
+          f"degraded_counts {counts}; microloop faults {storm_micro_faults}; "
+          f"messages {wstats['messages_sent']} (junk "
+          f"{wstats['junk_sent']}, malformed counted "
+          f"{out['received_malformed']}), handler errors "
+          f"{out['handler_errors']}, weather holds {holds}; fleet "
+          f"${cost0:.4f}/hr -> ${cost1:.4f}/hr; latency burn "
+          f"{slo['latency_burn']}, cost burn {slo['cost_burn']}", flush=True)
+    failures = []
+    if lattice.price_version == price_v0:
+        failures.append("the lattice was never repriced")
+    if sum(counts.values()) == 0:
+        failures.append(f"the ladder never engaged ({counts})")
+    if counts.get("device_retry", 0) + counts.get("host_ffd", 0) \
+            + out["micro_faults"] != fired.get("device_error", 0):
+        failures.append(f"rungs {counts} and {out['micro_faults']} microloop "
+                        f"faults do not add up to the injected {fired}")
+    if dict(op.solver.degraded_counts) != counts:
+        failures.append(f"the ladder moved during recovery: "
+                        f"{op.solver.degraded_counts} after {counts}")
+    if wstats["messages_sent"] == 0 or wstats["junk_sent"] == 0:
+        failures.append(f"the storm sent no messages ({wstats})")
+    if out["received_malformed"] == 0:
+        failures.append("junk was sent but none counted malformed")
+    if out["handler_errors"] != 0 or len(queue) != 0:
+        failures.append(f"handler errors {out['handler_errors']}, "
+                        f"{len(queue)} messages stranded")
+    if holds <= 0:
+        failures.append("the consolidation engine was never held")
+    if op.cluster.pending_pods():
+        failures.append(f"{len(op.cluster.pending_pods())} pods pending")
+    if leaked:
+        failures.append(f"{len(leaked)} instances leaked")
+    if slo["cost_burn"] > 1.0:
+        failures.append(f"cost burn {slo['cost_burn']} > 1.0")
+    if replay != sim.timeline:
+        failures.append("the replayed timeline differs from the recorded one")
+    if failures:
+        raise AssertionError("weather: " + "; ".join(failures))
+    _ALLOWED[id(op.solver)] = counts
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -1070,6 +1670,8 @@ def _run(torch) -> int:
     from karpenter_provider_aws_tpu_torch.solver import Solver
     from karpenter_provider_aws_tpu_torch.solver.oracle import ffd_oracle
     from karpenter_provider_aws_tpu_torch.solver.problem import build_problem
+
+    _track_solvers(Solver)
 
     # ---- 1. card
     _phase("card")
@@ -1183,32 +1785,56 @@ def _run(torch) -> int:
           flush=True)
     print("(pipelined stages: compute is the host's issue time, download "
           "holds the wait for the card)", flush=True)
+    _check_solvers(torch, "main path")
 
     # ---- 5. steady state
     _phase(f"steady state: cfg10 (20k pods, 120 nodes, "
            f"{workloads.STEADY_PASSES} passes)")
     steady, steady_problem = _steady_state(torch, workloads, lattice, oa)
     launches["cfg10_steady_state"] = sum(steady["launches_per_pass"])
+    _check_solvers(torch, "steady state")
 
     # ---- 6. the provisioning controller
     _phase("provisioner: the cfg5 wave and cfg10 through provision_once")
     prov, prov_launches = _provisioner(torch, workloads, lattice, oa, cpu_plan)
     launches.update(prov_launches)
     max_err = max(max_err, prov["max_abs_err"])
+    _check_solvers(torch, "provisioner")
 
     # ---- 7. consolidation: cfg4's fleet
     _phase("consolidation: cfg4 (500 under-utilized nodes x real catalog)")
     consol, launches["cfg4_consolidation"], consol_per_pass, probe_inputs = \
         _consolidation(torch, workloads, lattice, oa)
     max_err = max(max_err, consol["max_abs_err"])
+    _check_solvers(torch, "consolidation")
 
     # ---- 8. the Operator in direct mode: cfg4's fleet and the cfg5 wave
     _phase("operator: cfg4's fleet and the cfg5 wave through Operator.run_once")
     operator, op_launches = _operator(torch, workloads, lattice, oa, cpu_plan,
                                       consol)
     launches.update(op_launches)
+    _check_solvers(torch, "operator")
 
-    # ---- 9. kernel times: the main paths' own inputs, the dense largest
+    # ---- 9. the wave split: cfg7 on the card, and a cut card against CPU
+    _phase("wave split: cfg7 (4,608 distinct signatures x real catalog)")
+    oa.LAUNCHES = 0
+    wave, wave_launches, cfg7_inputs = _wave_split(torch, workloads, lattice, oa)
+    launches.update(wave_launches)
+    max_err = max(max_err, wave["max_abs_err"])
+    _check_solvers(torch, "wave split")
+
+    # ---- 10. the degradation ladder, each rung forced by a FaultInjector
+    _phase("ladder: injected faults on cfg10's problem and steady passes")
+    ladder = _ladder(torch, workloads, lattice, oa)
+    _check_solvers(torch, "ladder")
+
+    # ---- 11. weather: the squall against cfg4's fleet in an Operator
+    _phase("weather: the squall against cfg4's fleet through Operator.run_once")
+    weather = _weather(torch, workloads, oa)
+    launches["weather"] = weather["launches"]
+    _check_solvers(torch, "weather")
+
+    # ---- 12. kernel times: the main paths' own inputs, the dense largest
     # bucket, the launch floor
     _phase("kernel timing")
     solver = Solver(lattice)
@@ -1219,7 +1845,7 @@ def _run(torch) -> int:
     timed = {}
     for name, (tm, zc, pr) in (
             ("cfg5", cfg5_inputs), ("cfg10", cfg10_inputs),
-            ("cfg4_probe", probe_inputs),
+            ("cfg4_probe", probe_inputs), ("cfg7_last_wave", cfg7_inputs),
             ("dense", measure.on_device(offering_cases.dense_case(), dev))):
         max_err = max(max_err, measure.check_exact(
             f"{name} inputs", oa.cheapest_offering(tm, zc, pr),
@@ -1239,6 +1865,7 @@ def _run(torch) -> int:
               f"{n_ops} compares)", flush=True)
     floor_ms = measure.launch_floor_ms(dev)
     print(f"launch floor (one-element in-place add): {floor_ms:.6f} ms", flush=True)
+    _check_solvers(torch, "kernel timing")
 
     # ---- nothing of JAX was loaded
     leaked = sorted(m for m in sys.modules
@@ -1264,10 +1891,15 @@ def _run(torch) -> int:
                        "launches": launches["cfg4_consolidation"],
                        "launches_per_pass": consol_per_pass,
                        "launches_per_probe_dispatch": 1},
+        "cfg7_last_wave": {**timed["cfg7_last_wave"],
+                           "launches": launches["cfg7_per_solve"],
+                           "launches_per_solve": launches["cfg7_per_solve"],
+                           "wave_B": wave["wave_B"]},
         "dense": timed["dense"],
     }], "cfg5": cfg5, "cfg10": {k: v for k, v in steady.items()
                                 if k != "launches_per_pass"},
         "consolidation": consol, "operator": operator,
+        "wave_split": wave, "ladder": ladder, "weather": weather,
         "provisioner": {"cfg5_wave": prov["cfg5_wave"],
                         "cfg10_first_wave": prov["cfg10_first_wave"],
                         "cfg10": {k: v for k, v in prov["cfg10"].items()

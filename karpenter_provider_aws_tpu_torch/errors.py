@@ -7,10 +7,14 @@ solver feedback loop hangs off ``UnfulfillableCapacityError``: each
 the next solve through the UnavailableOfferings cache.
 
 The device solve can fail in ways a plan cannot express: a bin table that
-cannot grow past its top bucket, or a failed kernel launch or device
-allocation. Each failure surfaces to the caller as one of these classes;
-this package has no degradation ladder that would turn them into a
-host-computed plan.
+cannot grow past its ceiling, or a failed kernel launch, device
+allocation or transfer. The Solver's degradation ladder
+(solver/solve.py ``_solve_problem``) reads these classes: a capacity
+error goes straight to the host FFD, a device error is retried once
+(``retryable``) and then lands there too, except on a CUDA device, where
+only an ``injected`` one does and a real one raises. A CUDA source that
+does not build or load raises ``KernelBuildError``, which no rung
+carries.
 """
 
 from __future__ import annotations
@@ -72,9 +76,19 @@ class SolverDeviceError(SolverError):
 
     retryable = True
 
-    def __init__(self, message: str, cause: BaseException = None):
+    def __init__(self, message: str, cause: BaseException = None,
+                 injected: bool = False):
         super().__init__(message)
         self.cause = cause
+        # raised by a FaultInjector (solver/faults.py), not by the device
+        self.injected = injected
+
+
+class KernelBuildError(RuntimeError):
+    """A CUDA source of the package did not compile or load (no ``nvcc``,
+    a compiler error, a library the loader refuses). Not device weather:
+    the same build fails again, so the ladder never retries it and no
+    rung carries the solve."""
 
 
 def is_retryable_solver_error(err: BaseException) -> bool:

@@ -5,7 +5,8 @@ compiles in seconds without PyTorch's headers. The shared library goes to
 ``karpenter_provider_aws_tpu_torch/_build/`` (listed in ``.gitignore``),
 named by a hash of the source and the flags, so an edited source is rebuilt
 and an unchanged one is loaded as it is. Nothing is built at import: the
-first launch builds, or a caller (``chip_smoke.py``) builds ahead.
+first launch builds, or a caller (``chip_smoke.py``) builds ahead. A
+source that does not build or load raises ``KernelBuildError``.
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ import subprocess
 import tempfile
 import threading
 from typing import Dict
+
+from ..errors import KernelBuildError
 
 PKG_DIR = pathlib.Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -43,8 +46,8 @@ def nvcc_path() -> str:
     cand = pathlib.Path(home) / "bin" / "nvcc"
     if cand.exists():
         return str(cand)
-    raise RuntimeError("nvcc not found (PATH, CUDA_HOME, /usr/local/cuda): "
-                       "the CUDA kernels are built from source at first use")
+    raise KernelBuildError("nvcc not found (PATH, CUDA_HOME, /usr/local/cuda): "
+                           "the CUDA kernels are built from source at first use")
 
 
 def library_path(name: str) -> pathlib.Path:
@@ -69,8 +72,9 @@ def build(name: str) -> pathlib.Path:
         proc = subprocess.run(cmd, capture_output=True, text=True)
         BUILD_LOGS[name] = proc.stdout + proc.stderr
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}.cu "
-                               f"(exit {proc.returncode}):\n{BUILD_LOGS[name]}")
+            raise KernelBuildError(f"nvcc failed for {name}.cu "
+                                   f"(exit {proc.returncode}):\n"
+                                   f"{BUILD_LOGS[name]}")
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
@@ -83,6 +87,10 @@ def load(name: str) -> ctypes.CDLL:
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(build(name)))
+            path = build(name)
+            try:
+                lib = ctypes.CDLL(str(path))
+            except OSError as e:
+                raise KernelBuildError(f"cannot load {path.name}: {e}") from e
             _LIBS[name] = lib
         return lib

@@ -15,24 +15,42 @@ the steady-state entry point: its microloop keeps the whole fused
 problem resident on the card, ships only the changed blocks, and fetches
 the plan only when an on-device fingerprint says it moved.
 
+The degradation ladder of ``_solve_problem`` is the JAX package's: a
+group axis past the largest bucket (4,096, or an injected ``g_limit``)
+goes through the wave-split planner (``_solve_waves``: waves of at most
+1,024 groups on the card, open bins carried between them); a bin table
+that cannot grow past its ceiling lands on the host FFD (``b-exhausted``);
+a device failure (``SolverDeviceError``: a kernel launch error, device
+OOM, a failed transfer, or an injected fault) is retried once after a
+backoff on the injected clock and then lands on the host FFD
+(``device-error``); any other error goes straight to the host FFD
+(``internal-error``). Every rung off the primary path is counted in
+``degraded_counts`` and marks the plan ``degraded``. ``inject_faults``
+attaches a ``FaultInjector`` (solver/faults.py) that forces each rung.
+
+On a CUDA device the host FFD carries only what cannot be the card's
+fault: a structural ceiling (``SolverCapacityError``) and an injected
+device fault. A real device error that outlives its retry, a kernel that
+does not build (``KernelBuildError``, never retried) and a host-side bug
+on the device path raise to the caller, so no plan made on the host
+stands in for a card that does not work. On the CPU the ladder is the
+reference's in full: the host is the solve's own device there.
+
 ``solve_relaxed``, ``solve`` and ``solve_delta`` open the JAX package's
 trace spans (``solver.solve_relaxed``, ``solver.solve``,
-``solver.solve_delta``, and a ``stage.*`` span per stage timer), and a
-problem built with ``explain=True`` carries its constraint-elimination
-ledgers into the unplaced reasons.
+``solver.solve_delta``, ``solver.wave``, ``solver.host_ffd`` and a
+``stage.*`` span per stage timer), and a problem built with
+``explain=True`` carries its constraint-elimination ledgers into the
+unplaced reasons.
 
 ``probe_batch`` answers K consolidation what-ifs in one batched device
 pass (ops/binpack.py ``pack_probe_fused``) on the Solver's own device,
 with no fallback: a device error raises ``SolverDeviceError``.
 
-What the JAX package does beyond these paths raises
-``NotImplementedError`` when reached, and nothing falls back to anything:
-the degradation ladder's host-FFD rung (a device error surfaces as
-``SolverDeviceError``), the wave split of a group axis above the largest
-bucket, and the sharded mesh solve and its microloop tail (a ``mesh``
-other than None raises at construction). Absent without raising: fault
-injection. Every completed solve attributes its measured compute stage to
-its (G, B) shape in the device cost model (solver/costmodel.py).
+The sharded mesh solve and its microloop tail are not ported: a ``mesh``
+other than None raises ``NotImplementedError``. Every completed solve
+attributes its measured compute stage to its (G, B) shape in the device
+cost model (solver/costmodel.py).
 """
 
 from __future__ import annotations
@@ -40,7 +58,7 @@ from __future__ import annotations
 import hashlib
 import logging
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -49,11 +67,14 @@ import torch
 from .. import trace
 from ..apis.resources import R
 from ..device import DeviceLike, resolve_device
-from ..errors import SolverCapacityError, SolverDeviceError, SolverError
+from ..errors import (KernelBuildError, SolverCapacityError,
+                      SolverDeviceError, SolverError,
+                      is_retryable_solver_error)
 from ..lattice.tensors import Lattice
 from ..ops import binpack
 from . import costmodel, taxonomy
 from .explain import unplaced_reason
+from .faults import FaultInjector
 from .pipeline import (ResidentInputCache, StageTimer, fetch_async,
                        plan_changed)
 from .problem import Problem
@@ -102,9 +123,9 @@ class NodePlan:
     solve_seconds: float
     device_seconds: float
     warnings: List[str] = field(default_factory=list)
-    # degradation-ladder provenance, kept field for field with the JAX
-    # package's NodePlan so both serialize alike; this path always
-    # reports the primary rung
+    # degradation-ladder provenance: which rung produced the plan
+    # ("device" | "wave-split" | "host-ffd") and why it left the primary
+    # path
     degraded: bool = False
     degraded_reason: str = ""
     solver_path: str = "device"
@@ -295,10 +316,10 @@ class Solver:
     ``device`` None means ``cuda`` and raises when CUDA is absent; pass
     ``device="cpu"`` for the plain PyTorch path on the CPU. ``pipeline``
     picks the overlapped path (default) or the strictly sequential one.
-    ``clock`` is the injected clock (the Operator's; the JAX package's
-    device-retry backoff sleeps on it) and ``mesh`` must be None: the
-    sharded solve is not ported. Thread-safe: every public solve entry
-    point serializes on an internal RLock."""
+    ``clock`` is the injected clock (the Operator's): the device-retry
+    backoff sleeps on it. ``mesh`` must be None: the sharded solve is not
+    ported. Thread-safe: every public solve entry point serializes on an
+    internal RLock."""
 
     # the steady-state delta path (IncrementalProblemBuilder +
     # solve_delta) runs in this process, on this Solver's device
@@ -312,6 +333,9 @@ class Solver:
         from ..utils.clock import WALL
         self._clock = clock if clock is not None else WALL
         self.device = resolve_device(device)
+        # whether the host FFD may carry a real device error or a host bug
+        # (the module docstring): on the CPU only, never on the card
+        self._host_ffd_carries_all = self.device.type != "cuda"
         # the pack's only matmul (_offer_reachable) is a 0/1 count that
         # must stay exact: full float32, never TF32
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -332,6 +356,11 @@ class Solver:
         self._b_hint: Dict[int, Tuple[int, int]] = {}
         # content-keyed memo of _estimate_bins' per-group fit caps
         self._est_cache: Dict[bytes, np.ndarray] = {}
+        # degradation ladder state: an optional FaultInjector (tests force
+        # each failure mode deterministically) and plain counters of every
+        # off-primary-path event
+        self.faults: Optional[FaultInjector] = None
+        self.degraded_counts: Dict[str, int] = {}
         # the overlapped solve path: resident input deltas, the result
         # copy started at dispatch, decode prep while the card computes.
         # Off = the strictly sequential path
@@ -410,6 +439,7 @@ class Solver:
             "pipeline": bool(self.pipeline),
             "est_cache_entries": len(self._est_cache),
             "b_hint_entries": len(self._b_hint),
+            "faults_injected": self.faults is not None,
             # one device, no shards: the mesh gauges read 1 and 0
             "mesh_devices": self.mesh_devices,
             "mesh_shard_imbalance": 0.0,
@@ -419,11 +449,61 @@ class Solver:
             out[k] = v
         for k, v in self.link_stats.items():
             out["link_" + k] = v
+        for k, v in self.degraded_counts.items():
+            out["degraded_" + k.replace("-", "_")] = v
         for k, v in self._resident.stats().items():
             out["resident_" + k] = v
         return out
 
     _EST_CACHE_MAX = 128
+    _DEVICE_RETRIES = 1          # transient device failures retried this often
+    _RETRY_BACKOFF_SECONDS = 0.05
+    _WAVE_G_TARGET = 1024        # per-wave group budget
+
+    # ---- degradation ladder plumbing ----
+
+    def inject_faults(self, faults: Optional[FaultInjector]) -> None:
+        """Attach (or clear) a FaultInjector; see solver/faults.py."""
+        with self._solve_lock:
+            self.faults = faults
+
+    def _count_degraded(self, key: str) -> None:
+        self.degraded_counts[key] = self.degraded_counts.get(key, 0) + 1
+
+    def _g_ceiling(self) -> int:
+        """Effective group-axis ceiling: the largest group bucket, or an
+        injected fake ceiling so tests exercise the wave split at small G."""
+        top = _G_BUCKETS[-1]
+        f = self.faults
+        if f is not None and f.g_limit:
+            return max(1, min(int(f.g_limit), top))
+        return top
+
+    def _b_ceiling(self) -> int:
+        """Effective bin-table ceiling (snapped down to a bucket value)."""
+        top = _B_BUCKETS[-1]
+        f = self.faults
+        if f is not None and f.b_limit:
+            snapped = [b for b in _B_BUCKETS if b <= int(f.b_limit)]
+            return snapped[-1] if snapped else _B_BUCKETS[0]
+        return top
+
+    def _maybe_inject_device_fault(self) -> None:
+        f = self.faults
+        if f is not None and f.take_device_error():
+            raise SolverDeviceError("injected device fault", injected=True)
+
+    def _host_ffd_may_carry(self, err: BaseException) -> bool:
+        """Whether the host-FFD rung may carry a solve that failed with
+        ``err`` (the module docstring): a structural ceiling or an injected
+        fault always; a kernel that did not build never; anything else
+        only off the card."""
+        if isinstance(err, SolverCapacityError) or getattr(
+                err, "injected", False):
+            return True
+        if isinstance(err, KernelBuildError):
+            return False
+        return self._host_ffd_carries_all
 
     def _estimate_bins(self, problem: Problem) -> int:
         """Lower-bound estimate of bins the pack will open: each group
@@ -588,7 +668,14 @@ class Solver:
         max_rounds = min(1 + sum(depth.values()), 64)
         best = None
         total_solve = total_device = 0.0
+        # degradation provenance aggregates across rounds: the returned
+        # plan reports the WORST rung any round landed on, so one degraded
+        # relaxation round is never laundered into a clean-looking plan
+        path_order = {"device": 0, "wave-split": 1, "host-ffd": 2}
+        worst_path, any_degraded, reasons = "device", False, []
+        total_retries, max_waves = 0, 1
         stage_total: Dict[str, float] = {}
+        any_pipelined = False
         for _ in range(max_rounds):
             if problem0 is not None and not relax:
                 problem = problem0
@@ -604,8 +691,17 @@ class Solver:
             plan = self.solve(problem)
             total_solve += plan.solve_seconds
             total_device += plan.device_seconds
+            total_retries += plan.device_retries
+            max_waves = max(max_waves, plan.waves)
+            any_pipelined = any_pipelined or plan.pipelined
             for k, v in plan.stage_ms.items():
                 stage_total[k] = stage_total.get(k, 0.0) + v
+            if plan.degraded:
+                any_degraded = True
+                if plan.degraded_reason and plan.degraded_reason not in reasons:
+                    reasons.append(plan.degraded_reason)
+            if path_order.get(plan.solver_path, 0) > path_order[worst_path]:
+                worst_path = plan.solver_path
             # a relaxation round re-packs globally and may regress a pod
             # relaxation cannot help — keep the best plan seen, not the last
             if best is None or ((len(plan.unschedulable), plan.new_node_cost)
@@ -624,7 +720,13 @@ class Solver:
                 relax[n] = relax.get(n, 0) + 1
         best.solve_seconds = total_solve
         best.device_seconds = total_device
+        best.degraded = any_degraded
+        best.degraded_reason = reasons[0] if reasons else best.degraded_reason
+        best.solver_path = worst_path
+        best.device_retries = total_retries
+        best.waves = max_waves
         best.stage_ms = stage_total
+        best.pipelined = any_pipelined
         return best
 
     @_locked
@@ -638,27 +740,72 @@ class Solver:
             return plan
 
     def _solve_problem(self, problem: Problem, mesh=None) -> NodePlan:
-        """Solve one built problem into a NodePlan on this Solver's device.
-
-        Raises ``SolverDeviceError`` when the device call fails and
-        ``NotImplementedError`` where the JAX package would leave the
-        primary path (wave split, host-FFD rung, mesh)."""
+        """Solve one built problem into a NodePlan on this Solver's
+        device, degrading gracefully (the ladder in the module docstring).
+        The ladder never raises for input shape or injected faults:
+        adversarial batches degrade in latency, not availability. A
+        ``mesh`` raises (``NotImplementedError``), and so, on a CUDA
+        device, does every failure that :meth:`_host_ffd_may_carry`
+        refuses, once its retry (if it earns one) failed too."""
         t0 = time.perf_counter()
         if mesh is not None:
             raise _not_ported("the sharded mesh solve")
         if problem.G == 0:
             return NodePlan([], {}, dict(problem.unschedulable), 0.0,
                             time.perf_counter() - t0, 0.0)
-        if problem.G > _G_BUCKETS[-1]:
-            raise _not_ported(
-                f"the wave split of {problem.G} groups (above the largest "
-                f"group bucket {_G_BUCKETS[-1]})")
-        try:
-            return self._solve_device(problem, t0)
-        except SolverCapacityError as e:
-            raise _not_ported(
-                f"the host-FFD rung of the degradation ladder (reached: {e})"
-            ) from e
+        retries = 0
+        while True:
+            try:
+                if problem.G > self._g_ceiling():
+                    # provenance counts ONCE per solve, not per retry
+                    if retries == 0:
+                        self._count_degraded("wave_split")
+                        if self.faults is not None and self.faults.g_limit:
+                            self.faults.note("g_overflow")
+                    plan = self._solve_waves(problem, t0)
+                else:
+                    plan = self._solve_device(problem, t0)
+                plan.device_retries = retries
+                return plan
+            except SolverCapacityError as e:
+                # structural ceiling: retrying the same path cannot help
+                reason = "b-exhausted" if e.axis == "B" else "g-overflow"
+                detail = str(e)
+                break
+            except Exception as e:
+                # only errors the taxonomy marks retryable (a kernel launch
+                # failure, device OOM or failed transfer, which the device
+                # path wraps as SolverDeviceError) earn a backoff and a
+                # re-solve; a deterministic host-side failure goes straight
+                # to the fallback (off the card; on it, it raises), never
+                # misreported as device trouble
+                if is_retryable_solver_error(e):
+                    # the failure may have taken the resident device
+                    # buffers with it: drop them so the retry, and every
+                    # later solve, re-uploads instead of delta-hitting them
+                    self._invalidate_device_state()
+                if is_retryable_solver_error(e) and retries < self._DEVICE_RETRIES:
+                    retries += 1
+                    self._count_degraded("device_retry")
+                    self._clock.sleep(self._RETRY_BACKOFF_SECONDS * retries)
+                    continue
+                if not self._host_ffd_may_carry(e):
+                    raise
+                reason = ("device-error" if isinstance(e, SolverDeviceError)
+                          else "internal-error")
+                detail = f"{type(e).__name__}: {e}"
+                break
+        self._count_degraded("host_ffd")
+        with trace.span("solver.host_ffd", reason=reason, degraded=True):
+            plan = self.solve_host_ffd(problem)
+        plan.solve_seconds = time.perf_counter() - t0
+        plan.degraded = True
+        plan.degraded_reason = reason
+        plan.solver_path = "host-ffd"
+        plan.device_retries = retries
+        plan.warnings = list(problem.warnings) + [
+            f"solver degraded to host FFD ({reason}: {detail})"]
+        return plan
 
     def _b_budget_single(self, problem: Problem,
                          G: int) -> Tuple[int, int]:
@@ -677,7 +824,7 @@ class Solver:
             B = max(fresh, prev[1])
         else:
             B = fresh
-        return fresh, min(B, _B_BUCKETS[-1])
+        return fresh, min(B, self._b_ceiling())
 
     def _stage_upload(self, key: Tuple, buf: np.ndarray,
                       pipelined: bool) -> torch.Tensor:
@@ -689,37 +836,53 @@ class Solver:
         self._sync()
         return dev
 
-    def _solve_device(self, problem: Problem,
-                      t0: Optional[float] = None) -> NodePlan:
+    def _solve_device(self, problem: Problem, t0: Optional[float] = None,
+                      gbuf: Optional[torch.Tensor] = None,
+                      overlap=None) -> NodePlan:
         """The primary path: one bucketed device pack. Raises
-        SolverCapacityError when the bin table cannot grow past its top
-        bucket and SolverDeviceError when the device call fails.
+        SolverCapacityError when the bin table cannot grow past its
+        ceiling and SolverDeviceError when the device call fails; the
+        ladder in :meth:`_solve_problem` owns what happens next.
 
         The pipelined variant (``self.pipeline``) overlaps host work with
         the in-flight pack: the group and init buffers ride the resident
         cache, nothing synchronises between dispatch and fetch, the result
         copy starts right after dispatch (solver/pipeline.py
-        ``fetch_async``) and decode prep fills the wait. So its
-        ``compute`` stage is the host's issue time and ``download`` holds
-        the wait for the card; the sequential variant synchronises after
-        each stage, so there ``compute`` is the device time."""
+        ``fetch_async``), the ``overlap`` callable (the wave planner's
+        "upload wave k+1 while wave k computes" hook) runs between
+        dispatch and fetch, and decode prep fills the rest of the wait.
+        So its ``compute`` stage is the host's issue time and ``download``
+        holds the wait for the card; the sequential variant synchronises
+        after each stage, so there ``compute`` is the device time.
+        ``gbuf`` is an already-uploaded fused group+pool buffer; when
+        given, the caller paid its build and upload stages (possibly
+        inside a previous wave's compute window)."""
         t0 = time.perf_counter() if t0 is None else t0
         pipelined = self.pipeline
         stages = StageTimer()
         G = _bucket(problem.G, _G_BUCKETS)
         fresh, B = self._b_budget_single(problem, G)
+        if problem.E > B:
+            # the existing bins alone overflow the bin-table ceiling
+            if self.faults is not None and self.faults.b_limit:
+                self.faults.note("b_exhausted")
+            raise SolverCapacityError(
+                f"{problem.E} existing bins exceed the bin-table ceiling "
+                f"B={B}", axis="B")
         lat = self.lattice
         NP, A = max(problem.NP, 1), max(problem.A, 1)
 
-        with stages.span("build"):
-            fused_np = self._fused_inputs_np(problem, G)
+        fused_np = None
+        if gbuf is None:
+            with stages.span("build"):
+                fused_np = self._fused_inputs_np(problem, G)
         # the group buffer is uploaded once across overflow regrows and
         # the (small) existing-bin buffer once per dispatch, except on the
         # sequential path with existing bins, where groups + bins ride one
         # combined upload per dispatch (the bin table grows with B)
-        use_efused = pipelined or problem.E == 0
-        gbuf = None
+        use_efused = pipelined or gbuf is not None or problem.E == 0
         avail, price = self._device_avail_price(problem)
+        overlap_pending = overlap
         prep = None
         while True:
             # per-dispatch compute baseline: the cost model attributes
@@ -734,6 +897,7 @@ class Solver:
                             # entry a steady-state solve delta-refreshes
                             gbuf = self._stage_upload(
                                 ("g", G, fused_np.size), fused_np, pipelined)
+                    self._maybe_inject_device_fault()
                     init_dev = None
                     if problem.E:
                         with stages.span("build"):
@@ -749,6 +913,7 @@ class Solver:
                         if not pipelined:
                             self._sync()
                 else:
+                    self._maybe_inject_device_fault()
                     with stages.span("build"):
                         init_np = self._fused_init_np(problem, B)
                         combined_np = np.concatenate([fused_np, init_np])
@@ -764,14 +929,19 @@ class Solver:
                 # start streaming the result the moment the pack finishes;
                 # the host fills the wait below
                 pending = fetch_async(dev_buf) if pipelined else None
-            except SolverError:
+            except (SolverError, KernelBuildError):
                 raise
             except RuntimeError as e:
                 # kernel launch failure, device OOM, transfer failure
                 raise SolverDeviceError(
                     f"{type(e).__name__}: {e}", cause=e) from e
-            # host work outside the device-error wrap: a bug here must not
-            # pass for a device fault
+            # host work outside the device-error wrap: a bug here (next-wave
+            # input building, decode prep) must surface as internal-error,
+            # not pass for a device fault. The card keeps computing the
+            # dispatched pack meanwhile.
+            if overlap_pending is not None:
+                overlap_pending()
+                overlap_pending = None
             if pipelined and prep is None:
                 prep = self._decode_prep(problem)
             try:
@@ -789,9 +959,14 @@ class Solver:
             overflowed = (dec.leftover.sum() > 0) and dec.next_open >= B
             if overflowed:
                 nb, grew = _grow_bucket(B)
-                if grew:
+                if grew and nb <= self._b_ceiling():
                     B = nb
                     continue
+                # growth exhausted: never decode a plan that silently drops
+                # the leftover; the ladder degrades to the host FFD, whose
+                # bin table is unbounded
+                if self.faults is not None and self.faults.b_limit:
+                    self.faults.note("b_exhausted")
                 raise SolverCapacityError(
                     f"bin table exhausted at B={B} with "
                     f"{int(dec.leftover.sum())} pod(s) left over", axis="B")
@@ -818,12 +993,251 @@ class Solver:
             self.pipeline_stats["async_solves"] += 1
         return plan
 
-    # ---- host-FFD solve (on request only) ----
+    # ---- wave-split planner (group-axis graceful degradation) ----
+
+    def _solve_waves(self, problem: Problem, t0: float) -> NodePlan:
+        """Solve a problem whose group axis exceeds the group ceiling by
+        partitioning it into bucket-sized WAVES and solving them in
+        sequence on the device.
+
+        Groups are already FFD-ordered (build_problem sorts descending), so
+        waves run cost-ordered exactly like the sequential reference: the
+        first wave packs the biggest groups, later waves fill in around
+        them. Open-bin state carries BETWEEN waves: every node an earlier
+        wave planned re-enters the next wave's problem as a pre-initialized
+        existing bin (with its real chosen-type allocatable and its
+        affinity-class presence counts), and placements onto REAL existing
+        capacity update that capacity's remaining headroom, so packing
+        quality stays within the host-FFD envelope instead of each wave
+        opening its own fresh fleet.
+
+        The pipelined planner double-buffers the wave INPUTS: wave k+1's
+        fused group+pool buffer depends only on its group slice (never on
+        carry state), so it builds and uploads while wave k computes. The
+        carry state itself (the small init buffer) is derived at the stage
+        boundary from wave k's decode, exactly as in the sequential
+        planner, which is why the two produce byte-identical plans."""
+        ceiling = self._g_ceiling()
+        wave = max(1, min(self._WAVE_G_TARGET, ceiling))
+        bounds = [(lo, min(lo + wave, problem.G))
+                  for lo in range(0, problem.G, wave)]
+        n_waves = len(bounds)
+        pipelined = self.pipeline
+        stages = StageTimer()
+
+        def wave_gbuf(i: int) -> torch.Tensor:
+            """Wave i's fused group+pool upload through the resident cache
+            (pipelined path only): carry-independent, so the loop runs this
+            inside wave i-1's compute window (the _solve_device ``overlap``
+            hook)."""
+            lo_i, hi_i = bounds[i]
+            gp = self._wave_slice(problem, lo_i, hi_i)
+            Gw = _bucket(gp.G, _G_BUCKETS)
+            with stages.span("build"):
+                fnp = self._fused_inputs_np(gp, Gw)
+            with stages.span("upload"):
+                # a transfer failure is device weather (retryable), even in
+                # the previous wave's overlap window; the device count in
+                # the key, as the JAX package keys it
+                try:
+                    return self._resident.upload(("w", 1, i, Gw, fnp.size),
+                                                 fnp)
+                except RuntimeError as e:
+                    raise SolverDeviceError(f"{type(e).__name__}: {e}",
+                                            cause=e) from e
+
+        A = problem.A
+        # pod name -> group index (req/match/owner lookups while carrying
+        # bin state across waves)
+        gi_of: Dict[str, int] = {}
+        for gi, g in enumerate(problem.groups):
+            for name in g.pod_names:
+                gi_of[name] = gi
+        # pool identity -> index; virtual pools share a base name but
+        # differ by custom labels, so the key carries both
+        pool_idx: Dict[Tuple[str, frozenset], int] = {}
+        for i, p in enumerate(problem.node_pools):
+            pool_idx.setdefault(
+                (p.base_name or p.name, frozenset(p.custom_labels.items())), i)
+        e_idx = {b.name: i for i, b in enumerate(problem.existing)}
+
+        # mutable copies of the real existing-bin running state
+        e_used = problem.e_used.copy()
+        e_pm = problem.e_pm.copy()
+        e_po = problem.e_po.copy()
+
+        # carried open bins: one pseudo existing bin per node planned by an
+        # earlier wave (parallel lists; index = pseudo bin id)
+        pseudo_nodes: List[PlannedNode] = []
+        pseudo_used: List[np.ndarray] = []
+        pseudo_np: List[int] = []
+        pseudo_pm: List[np.ndarray] = []
+        pseudo_po: List[np.ndarray] = []
+        pseudo_by_name: Dict[str, int] = {}
+
+        merged_assign: Dict[str, List[str]] = {}
+        merged_unsched: Dict[str, str] = dict(problem.unschedulable)
+        device_s = 0.0
+
+        def register_pod(pn: str, used: np.ndarray, pm: np.ndarray,
+                         po: np.ndarray) -> None:
+            gi = gi_of[pn]
+            used += problem.req[gi]
+            if A:
+                pm += problem.g_match[gi]
+                po |= problem.g_owner[gi]
+
+        # only the pipelined planner pre-builds wave inputs: the sequential
+        # path keeps the single combined group+init upload inside
+        # _solve_device
+        next_gbuf = wave_gbuf(0) if pipelined else None
+        for i, (lo, hi) in enumerate(bounds):
+            sub = self._wave_problem(problem, lo, hi, e_used, e_pm, e_po,
+                                     pseudo_nodes, pseudo_used, pseudo_np,
+                                     pseudo_pm, pseudo_po)
+            gbuf_i, next_gbuf = next_gbuf, None
+            holder: Dict[str, torch.Tensor] = {}
+            overlap = None
+            if pipelined and i + 1 < n_waves:
+                def overlap(j=i + 1):
+                    # runs between wave i's dispatch and its result fetch:
+                    # wave j's upload rides wave i's compute
+                    holder["gbuf"] = wave_gbuf(j)
+                    self.pipeline_stats["prefetched_waves"] += 1
+            with trace.span("solver.wave", wave=i, groups=hi - lo,
+                            prefetched=gbuf_i is not None and i > 0):
+                plan_w = self._solve_device(sub, gbuf=gbuf_i,
+                                            overlap=overlap)
+            # _solve_device ran the hook once its dispatch succeeded
+            next_gbuf = holder.get("gbuf")
+            device_s += plan_w.device_seconds
+            stages.merge(plan_w.stage_ms)
+            merged_unsched.update(plan_w.unschedulable)
+            for node_name, pod_names in plan_w.existing_assignments.items():
+                pi = pseudo_by_name.get(node_name)
+                if pi is not None:
+                    # pods joining an earlier wave's planned node
+                    pseudo_nodes[pi].pods.extend(pod_names)
+                    for pn in pod_names:
+                        register_pod(pn, pseudo_used[pi], pseudo_pm[pi],
+                                     pseudo_po[pi])
+                else:
+                    merged_assign.setdefault(node_name, []).extend(pod_names)
+                    ei = e_idx[node_name]
+                    for pn in pod_names:
+                        register_pod(pn, e_used[ei], e_pm[ei], e_po[ei])
+            for node in plan_w.new_nodes:
+                np_i = pool_idx.get(
+                    (node.node_pool, frozenset(node.extra_labels.items())), 0)
+                used = problem.ds_overhead[np_i].copy()
+                pm = np.zeros((A,), np.int32)
+                po = np.zeros((A,), bool)
+                for pn in node.pods:
+                    register_pod(pn, used, pm, po)
+                # the name is positional: _wave_problem re-derives it from
+                # the pseudo index, so later waves' assignments route back
+                pseudo_by_name[f"__wave:{len(pseudo_nodes)}__"] = \
+                    len(pseudo_nodes)
+                pseudo_nodes.append(node)
+                pseudo_used.append(used)
+                pseudo_np.append(np_i)
+                pseudo_pm.append(pm)
+                pseudo_po.append(po)
+
+        new_nodes = [n for n in pseudo_nodes if n.pods]
+        cost = float(sum(n.price_per_hour for n in new_nodes))
+        return NodePlan(
+            new_nodes=new_nodes, existing_assignments=merged_assign,
+            unschedulable=merged_unsched, new_node_cost=cost,
+            solve_seconds=time.perf_counter() - t0, device_seconds=device_s,
+            warnings=list(problem.warnings) + [
+                f"wave-split: G={problem.G} over ceiling {ceiling}, "
+                f"{n_waves} wave(s) of ≤{wave} groups"],
+            degraded=True, degraded_reason="g-overflow",
+            solver_path="wave-split", waves=n_waves,
+            stage_ms=stages.ms, pipelined=pipelined, mesh_devices=1)
+
+    def _wave_slice(self, problem: Problem, lo: int, hi: int) -> Problem:
+        """Groups [lo, hi) with carry-INDEPENDENT fields only: exactly
+        what the wave's fused group+pool buffer reads
+        (ops/binpack.group_layout names no existing-bin field), so the
+        pipelined planner can build wave k+1's upload before wave k's
+        results exist. _wave_problem layers the carried bin state on top
+        of this at the stage boundary."""
+        sl = slice(lo, hi)
+        return replace(
+            problem,
+            groups=problem.groups[sl], unschedulable={}, warnings=[],
+            req=problem.req[sl], count=problem.count[sl],
+            g_type=problem.g_type[sl], g_zone=problem.g_zone[sl],
+            g_cap=problem.g_cap[sl], g_np=problem.g_np[sl],
+            max_per_bin=problem.max_per_bin[sl],
+            g_spread=problem.g_spread[sl], single_bin=problem.single_bin[sl],
+            g_match=problem.g_match[sl], g_owner=problem.g_owner[sl],
+            g_need=problem.g_need[sl], strict_custom=problem.strict_custom[sl])
+
+    def _wave_problem(self, problem: Problem, lo: int, hi: int,
+                      e_used: np.ndarray, e_pm: np.ndarray, e_po: np.ndarray,
+                      pseudo_nodes: List[PlannedNode],
+                      pseudo_used: List[np.ndarray], pseudo_np: List[int],
+                      pseudo_pm: List[np.ndarray],
+                      pseudo_po: List[np.ndarray]) -> Problem:
+        """One wave's sub-problem: groups [lo, hi) plus the carried bin
+        state, real existing bins at their RUNNING usage and every earlier
+        wave's planned node as a fixed pre-initialized bin."""
+        lat = self.lattice
+        from .problem import ExistingBin
+        existing = list(problem.existing)
+        if pseudo_nodes:
+            k = len(pseudo_nodes)
+            p_type = np.array([lat.name_to_idx[n.instance_type]
+                               for n in pseudo_nodes], np.int32)
+            p_zone = np.array([lat.zones.index(n.zone)
+                               for n in pseudo_nodes], np.int32)
+            p_cap = np.array([lat.capacity_types.index(n.capacity_type)
+                              for n in pseudo_nodes], np.int32)
+            p_np = np.asarray(pseudo_np, np.int32)
+            p_used = np.stack(pseudo_used).astype(np.float32)
+            # a planned node's allocatable is its chosen type's, clamped by
+            # its pool's kubelet ceiling: what the launch will deliver
+            p_alloc = np.minimum(
+                lat.alloc[p_type],
+                problem.np_alloc_cap[p_np]).astype(np.float32)
+            p_pm = (np.stack(pseudo_pm).astype(np.int32) if problem.A
+                    else np.zeros((k, 0), np.int32))
+            p_po = (np.stack(pseudo_po).astype(bool) if problem.A
+                    else np.zeros((k, 0), bool))
+            for i, n in enumerate(pseudo_nodes):
+                existing.append(ExistingBin(
+                    name=f"__wave:{i}__", node_pool=n.node_pool,
+                    instance_type=n.instance_type, zone=n.zone,
+                    capacity_type=n.capacity_type, used=p_used[i],
+                    alloc_override=p_alloc[i]))
+            e_used2 = np.concatenate([e_used, p_used])
+            e_alloc2 = np.concatenate([problem.e_alloc, p_alloc])
+            e_type2 = np.concatenate([problem.e_type, p_type])
+            e_zone2 = np.concatenate([problem.e_zone, p_zone])
+            e_cap2 = np.concatenate([problem.e_cap, p_cap])
+            e_np2 = np.concatenate([problem.e_np, p_np])
+            e_pm2 = np.concatenate([e_pm, p_pm])
+            e_po2 = np.concatenate([e_po, p_po])
+        else:
+            e_used2, e_alloc2 = e_used, problem.e_alloc
+            e_type2, e_zone2 = problem.e_type, problem.e_zone
+            e_cap2, e_np2 = problem.e_cap, problem.e_np
+            e_pm2, e_po2 = e_pm, e_po
+        return replace(
+            self._wave_slice(problem, lo, hi),
+            existing=existing, e_used=e_used2, e_alloc=e_alloc2,
+            e_type=e_type2, e_zone=e_zone2, e_cap=e_cap2, e_np=e_np2,
+            e_pm=e_pm2, e_po=e_po2)
+
+    # ---- host-FFD fallback (bottom rung of the ladder) ----
 
     def solve_host_ffd(self, problem: Problem) -> NodePlan:
         """Pure-host sequential FFD (solver/oracle.py) decoded into a
-        NodePlan. Runs only when a caller asks for it: no solve falls back
-        to it."""
+        NodePlan. No device dependency, no shape ceilings: the bottom rung
+        of the degradation ladder."""
         from .oracle import ffd_oracle
         t0 = time.perf_counter()
         plat = problem.lattice
@@ -1008,11 +1422,13 @@ class Solver:
         exactly those blocks as one in-place scatter, dispatches against
         the resident problem state, and fetches the plan back only when
         the on-device changed-plan fingerprint says it moved. A pass
-        outside the microloop's envelope, or one whose device work fails,
-        re-solves through :meth:`solve` on the same device (pipelined)
-        and counts ``micro_aborts``; a failure first drops every retained
-        device buffer. Forces the pipelined path for the call. Plans are
-        identical to :meth:`solve` of the same problem.
+        outside the microloop's envelope (a group axis past the group
+        ceiling, a bin-table overflow), or one whose device work fails
+        (an injected fault included), re-solves through the standard
+        ladder on the same device (pipelined) and counts ``micro_aborts``;
+        a failure first drops every retained device buffer. Forces the
+        pipelined path for the call. Plans are identical to :meth:`solve`
+        of the same problem.
 
         ``overlap`` (zero-arg callable) is the admission-bookkeeping seam:
         it runs inside the device compute window (between dispatch and the
@@ -1048,8 +1464,9 @@ class Solver:
                 except Exception:
                     # the retained device state may be half-written (the
                     # scatter is in place): rebuild from scratch rather than
-                    # re-dispatch against it; the standard solve raises if
-                    # the device fails again. Counted and logged, never silent
+                    # re-dispatch against it, and let the standard ladder
+                    # own retry and fallback. Counted and logged, never
+                    # silent
                     _LOG.warning("microloop pass failed; dropping the resident "
                                  "state and re-solving", exc_info=True)
                     self.pipeline_stats["micro_aborts"] += 1
@@ -1087,17 +1504,20 @@ class Solver:
         host bytes against the current pod names.
 
         Raises :class:`_MicroIneligible` outside the envelope (a group
-        axis above the largest bucket, bin-table overflow)."""
+        axis above the group ceiling, bin-table overflow), and
+        ``SolverDeviceError`` when the device work fails."""
         t0 = time.perf_counter()
         if problem.G == 0:
             raise _MicroIneligible("empty")
-        if problem.G > _G_BUCKETS[-1]:
+        if problem.G > self._g_ceiling():
             raise _MicroIneligible("wave-scale G")
         lat = self.lattice
         NP, A = max(problem.NP, 1), max(problem.A, 1)
         stages = StageTimer()
         G = _bucket(problem.G, _G_BUCKETS)
         fresh, B = self._b_budget_single(problem, G)
+        if problem.E > B:
+            raise _MicroIneligible("existing bins past the bin-table ceiling")
 
         with stages.span("build"):
             fused_np = self._fused_inputs_np(problem, G)
@@ -1122,6 +1542,7 @@ class Solver:
             with stages.span("upload"):
                 comb_dev = self._resident.upload(key, combined_np,
                                                  donate=True)
+            self._maybe_inject_device_fault()
             td = time.perf_counter()
             avail, price = self._device_avail_price(problem)
             with stages.span("compute"):
@@ -1134,7 +1555,7 @@ class Solver:
                     new_dev = binpack.pack_packed_efused(
                         self._alloc, avail, price, comb_dev, None, 0, B,
                         G, lat.T, lat.Z, lat.C, NP, A, lean=True)
-        except SolverError:
+        except (SolverError, KernelBuildError):
             raise
         except RuntimeError as e:
             raise SolverDeviceError(f"{type(e).__name__}: {e}",
@@ -1197,10 +1618,6 @@ class Solver:
     # each probe's fused rows are padded to a multiple of this many bytes,
     # so the [K,·] stack unpacks in place (4-byte fields stay aligned)
     _PROBE_ROW_ALIGN = 16
-
-    def _g_ceiling(self) -> int:
-        """Effective group-axis ceiling: the largest group bucket."""
-        return _G_BUCKETS[-1]
 
     def _probe_stack(self, rows: Sequence[np.ndarray]) -> torch.Tensor:
         """Equal-length rows as ONE [K,·] uint8 upload, each padded to a
@@ -1265,6 +1682,8 @@ class Solver:
                         if grew:
                             continue
                     break
+            except KernelBuildError:
+                raise
             except RuntimeError as e:
                 # kernel launch failure, device OOM, transfer failure
                 raise SolverDeviceError(f"{type(e).__name__}: {e}",

@@ -14,6 +14,11 @@ real 759-type catalog (``real_lattice``) and three NodePools.
 reconcile cluster of ``bench.py``'s microloop harness
 (``run_microloop_config``): 20k pods, 120 partly used existing nodes, and
 12 passes of about 1.5 % of the pods leaving and 1.5 % arriving.
+
+``config7_highG_wave_split`` is the adversarial-diversity wave: 4,608
+distinct signatures, past the largest group bucket, so the solve takes
+the wave split. ``weather_operator`` puts cfg4's fleet in an Operator
+under a ``WeatherSimulator``.
 """
 
 import numpy as np
@@ -181,6 +186,19 @@ def config5_full_scale():
     ]
     return pods, pools, []
 
+
+
+def config7_highG_wave_split():
+    """The adversarial-diversity wave (``bench.config7_highG_wave_split``):
+    4,608 pods with DISTINCT scheduling signatures (unique cpu requests
+    defeat signature grouping), so the group axis overflows the largest
+    group bucket and the solve takes the wave-split planner."""
+    from .apis import Pod
+    pods = [Pod(name=f"hg{i}",
+                requests={"cpu": f"{100 + i}m",
+                          "memory": f"{256 + (i % 8) * 64}Mi"})
+            for i in range(4608)]
+    return pods, _pools_default(), []
 
 
 def config10_steady_state():
@@ -693,11 +711,12 @@ def config4_fleet_stack(lattice, solver):
     return stack
 
 
-def config4_fleet_operator(lattice, device=None):
+def config4_fleet_operator(lattice, device=None, interruption_queue=None):
     """cfg4's fleet, as ``config4_fleet_stack`` seeds it, in an
     ``operator.Operator`` (direct mode) on ``device`` (None = ``cuda``):
     the same NodePool, registration delay and spot-to-spot consolidation,
-    on its own ``FakeClock`` and ``FakeCloud``."""
+    on its own ``FakeClock`` and ``FakeCloud``, reading
+    ``interruption_queue`` when one is given."""
     from .cloud import FakeCloud
     from .operator import Operator, Options
     from .utils.clock import FakeClock
@@ -705,10 +724,34 @@ def config4_fleet_operator(lattice, device=None):
     op = Operator(options=Options(registration_delay=REGISTRATION_DELAY,
                                   spot_to_spot_consolidation=True),
                   lattice=lattice, cloud=FakeCloud(clock), clock=clock,
-                  node_pools=[_cfg4_pool()], device=device)
+                  node_pools=[_cfg4_pool()], device=device,
+                  interruption_queue=interruption_queue)
     pods, _pools, existing = config4_consolidation_repack(lattice)
     seed_fleet(op, existing, pods)
     return op
+
+
+def weather_operator(lattice, scenario, device=None):
+    """cfg4's fleet (``config4_fleet_operator``) in an Operator on
+    ``device`` (None = ``cuda``) that reads a ``FakeQueue``, with a
+    ``WeatherSimulator`` of ``scenario`` attached and started on the
+    Operator's clock: it reprices through the pricing provider, holds
+    pools through ``FakeCloud`` capacity and ``UnavailableOfferings``,
+    sends storms to the queue, injects device errors into the Solver's
+    ``FaultInjector`` and advises the consolidation engine (its
+    ``weather_advisory``). Returns ``(op, sim)``; the queue is
+    ``op.interruption_queue``."""
+    from .interruption.queue import FakeQueue
+    from .weather import WeatherSimulator
+    op = config4_fleet_operator(lattice, device=device,
+                                interruption_queue=FakeQueue("weather"))
+    sim = WeatherSimulator(scenario, lattice, clock=op.clock,
+                           pricing=op.pricing_provider, cloud=op.cloud,
+                           unavailable=op.unavailable,
+                           queue=op.interruption_queue, solver=op.solver,
+                           metrics=op.metrics).start()
+    op.disruption.engine.weather_advisory = sim.consolidation_advisory
+    return op, sim
 
 
 # usable addresses of a /20 subnet (4,096 less the 5 AWS reserves): a

@@ -16,9 +16,8 @@ events, and each checkpoint the scenario logs along the way. Savings in
 $/hr are held within 1e-5 relative (the probes' float32 cost sums run in
 another order); everything else must be equal.
 
-The JAX package's ``FaultInjector(g_limit=1)`` (the host-fallback case)
-has no port; on the port side the same ceiling is set by replacing the
-Solver's ``_g_ceiling``.
+The host-fallback case sets the group ceiling with each package's own
+``FaultInjector(g_limit=1)``.
 """
 
 import math
@@ -239,11 +238,8 @@ def sc_wave_scale_set_flagged_and_counted(env):
     eng = env.disruption.engine
     eng._cache.clear()
     dispatches = eng.counters["vmapped_whatifs"]
-    if env.jax:
-        from karpenter_provider_aws_tpu.solver.faults import FaultInjector
-        env.solver.inject_faults(FaultInjector(g_limit=1))
-    else:
-        env.solver._g_ceiling = lambda: 1
+    faults = cases.mod(env.pkg, "solver.faults")
+    env.solver.inject_faults(faults.FaultInjector(g_limit=1))
     try:
         v = eng.probe(singles(env))
         assert v[0].host and not v[0].cached
@@ -251,10 +247,7 @@ def sc_wave_scale_set_flagged_and_counted(env):
         assert eng.counters["vmapped_whatifs"] == dispatches
         assert not eng._cache
     finally:
-        if env.jax:
-            env.solver.inject_faults(None)
-        else:
-            del env.solver._g_ceiling
+        env.solver.inject_faults(None)
     return probe_rows(v)
 
 

@@ -20,7 +20,6 @@ from karpenter_provider_aws_tpu.solver import Solver as JaxSolver
 from karpenter_provider_aws_tpu.solver.incremental import (
     IncrementalProblemBuilder as JaxBuilder)
 from karpenter_provider_aws_tpu_torch.apis import NodePool, Pod
-from karpenter_provider_aws_tpu_torch.errors import SolverDeviceError
 from karpenter_provider_aws_tpu_torch.ops import binpack as tb
 from karpenter_provider_aws_tpu_torch.solver import Solver as TorchSolver
 from karpenter_provider_aws_tpu_torch.solver.incremental import (
@@ -167,6 +166,9 @@ class TestMicroloop:
         assert st["micro_solves"] == 2 and st["micro_engaged"] is True
 
     def test_device_error_in_the_fallback_surfaces(self, lattice, monkeypatch):
+        """A device that keeps failing after the microloop aborts: the
+        ladder retries once and the host FFD carries the pass, marked
+        degraded with the device error in its warning."""
         solver = TorchSolver(lattice, device=CPU)
         problem = build_problem(_pods(), [NodePool(name="default")], lattice)
 
@@ -174,8 +176,17 @@ class TestMicroloop:
             raise RuntimeError("CUDA error: out of memory")
 
         monkeypatch.setattr(tb, "pack_packed_efused", broken)
-        with pytest.raises(SolverDeviceError):
-            solver.solve_delta(problem)
+        plan = solver.solve_delta(problem)
+        assert plan.solver_path == "host-ffd" and plan.degraded
+        assert plan.degraded_reason == "device-error"
+        assert plan.device_retries == 1
+        assert "CUDA error: out of memory" in plan.warnings[-1]
+        assert solver.degraded_counts == {"device_retry": 1, "host_ffd": 1}
+        assert solver.stats()["micro_aborts"] == 1
+        got, ref = _canon(plan), _canon(solver.solve_host_ffd(problem))
+        for key in ("newNodes", "existingAssignments", "unschedulable",
+                    "newNodeCost"):
+            assert got[key] == ref[key], key
         assert solver.pipeline is True   # restored after the failure
 
     def test_in_place_scatter_leaves_the_retained_result(self, lattice):

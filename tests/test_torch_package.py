@@ -110,6 +110,22 @@ def test_guard_covers_the_operator_modules():
         assert f"{port}.{name}" in mods, name
 
 
+def test_guard_covers_the_ladder_and_weather_modules():
+    """The import guards above check the fault injector and the weather
+    package, and both export what the JAX package's do."""
+    mods = {_module_name(p) for p in PORT_FILES}
+    port = "karpenter_provider_aws_tpu_torch"
+    for name in ("solver.faults", "weather", "weather.fields",
+                 "weather.scenario", "weather.simulator"):
+        assert f"{port}.{name}" in mods, name
+    from karpenter_provider_aws_tpu_torch import solver, weather
+    assert "FaultInjector" in solver.__all__
+    assert weather.__all__ == [
+        "WeatherScenario", "Regime", "Storm", "IceSpell", "SidecarOutage",
+        "NAMED_SCENARIOS", "named", "load_scenario", "SpotMarketField",
+        "IceField", "WeatherSimulator", "inject_device_errors"]
+
+
 def test_solver_defaults_to_cuda_and_raises_without_it(monkeypatch):
     from karpenter_provider_aws_tpu_torch.lattice import build_catalog, build_lattice
     from karpenter_provider_aws_tpu_torch.solver import Solver
@@ -164,6 +180,27 @@ def test_cuda_source_and_build_dir():
     ignored = (REPO / ".gitignore").read_text().split()
     assert "karpenter_provider_aws_tpu_torch/_build/" in ignored
     assert cuda_build.library_path("offering_argmin").parent == cuda_build.BUILD_DIR
+
+
+def test_cuda_build_failure_is_a_kernel_build_error(monkeypatch, tmp_path):
+    """No ``nvcc`` and a compiler that fails both raise
+    ``KernelBuildError``, which the Solver's ladder never retries and no
+    rung carries."""
+    import shutil
+    from karpenter_provider_aws_tpu_torch.errors import KernelBuildError
+    from karpenter_provider_aws_tpu_torch.ops import cuda_build
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    with pytest.raises(KernelBuildError, match="nvcc not found"):
+        cuda_build.build("offering_argmin")
+    assert issubclass(KernelBuildError, RuntimeError)
+    monkeypatch.setattr(cuda_build, "nvcc_path", lambda: "nvcc")
+    monkeypatch.setattr(subprocess, "run", lambda cmd, **kw:
+                        subprocess.CompletedProcess(cmd, 2, "", "error: bad"))
+    with pytest.raises(KernelBuildError, match="nvcc failed"):
+        cuda_build.build("offering_argmin")
+    assert not list((tmp_path / "_build").glob("*.so"))
 
 
 def test_convert_keeps_dtypes_and_shapes():

@@ -14,8 +14,9 @@ they were made:
 
 - the Operator: claims, nodes with their labels, pod bindings, events
   (less those a wall-clock measurement raises, ``WALL_TIME_EVENTS``),
-  the disruption controller's in-flight actions and engine counters, and
-  the names of the introspection providers;
+  the disruption controller's in-flight actions and engine counters, its
+  Solver's ``degraded_counts``, and the names of the introspection
+  providers;
 - FakeCloud: every call it served (launches, tags, terminations, in
   order) and its instances with their tags;
 - each domain provider: the contents of its TTL cache; the pricing
@@ -26,7 +27,10 @@ they were made:
   the build-info labels (``jax_version`` and ``backend`` name the
   runtime) are compared by presence only, and the headroom rows of
   ``WALL_TIME_RESOURCES`` not at all;
-- each interruption queue: its messages and what is still pending.
+- each interruption queue: its messages and what is still pending;
+- each solver ``FaultInjector``: its ceilings, the device errors still
+  pending and what fired;
+- each weather simulator: its seed, ticks, timeline and counters.
 
 Everything is compared for equality; the only float slack is
 ``REL`` on the engine's savings. A test the port cannot run yet is named
@@ -95,14 +99,30 @@ def _unported(name, item):
     return stub
 
 
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """Single-threaded torch for a test (autouse where a test file imports
+    it). The port's CPU ops are tiny; under a parallel test run every
+    worker's torch thread pool spins against the others', which made the
+    long Operator and wave replays an order of magnitude slower."""
+    import torch
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 _LOADED = {}
 
 
-def load(filename, pkg, stubs=()):
+def load(filename, pkg, stubs=(), shims=()):
     """The test module ``filename`` with its imports pointed at ``pkg``.
     ``stubs`` are (source line, bound name, roadmap item): on the port
     side each such module-level import of an unported module binds a stub
-    that raises when used."""
+    that raises when used. ``shims`` are (source text, replacement): on
+    the port side the text is replaced as given, with no package
+    renaming, so a replacement may import a helper of the JAX package
+    that reads only plan attributes."""
     key = (filename, pkg)
     if key in _LOADED:
         return _LOADED[key]
@@ -111,7 +131,14 @@ def load(filename, pkg, stubs=()):
         for line, name, item in stubs:
             assert line in src, line
             src = src.replace(line, f"{name} = _unported({name!r}, {item!r})")
+        held = {}
+        for i, (text, replacement) in enumerate(shims):
+            assert text in src, text
+            held[f"__replay_shim_{i}__"] = replacement
+            src = src.replace(text, f"__replay_shim_{i}__")
         src = _PKG_RE.sub(cases.TORCH_PKG, src)
+        for token, replacement in held.items():
+            src = src.replace(token, replacement)
     name = f"replay_{pkg}_{pathlib.Path(filename).stem}"
     module = types.ModuleType(name)
     module.__file__ = str(TESTS / filename)
@@ -206,6 +233,7 @@ def observe_operator(op):
                    if e.reason not in WALL_TIME_EVENTS],
         "in_flight": [(a.reason, list(a.claims), list(a.replacements))
                       for a in op.disruption._in_flight],
+        "degraded": dict(op.solver.degraded_counts),
         "engine": {k: v for k, v in stats.items() if k != "savings_per_hour"},
         "savings": stats["savings_per_hour"],
         "introspect": sorted(introspect.registry().names()),
@@ -263,6 +291,16 @@ def observe_queue(queue):
             "pending": list(queue._pending)}
 
 
+def observe_faults(inj):
+    return {"g_limit": inj.g_limit, "b_limit": inj.b_limit,
+            "device_errors": inj.device_errors, "fired": dict(inj.fired)}
+
+
+def observe_weather(sim):
+    return {"seed": sim.seed, "ticks": sim.ticks,
+            "timeline": repr(sim.timeline), "counters": dict(sim.counters)}
+
+
 # (module, class) -> observer, for every kind a replayed test may make
 RECORDED = {
     ("operator.operator", "Operator"): observe_operator,
@@ -276,6 +314,8 @@ RECORDED = {
     ("providers.pricing", "PricingProvider"): observe_pricing,
     ("metrics", "Registry"): observe_registry,
     ("interruption.queue", "FakeQueue"): observe_queue,
+    ("solver.faults", "FaultInjector"): observe_faults,
+    ("weather.simulator", "WeatherSimulator"): observe_weather,
 }
 
 
@@ -363,12 +403,12 @@ def _same(j, t, where):
         assert t == j, f"{where} differs"
 
 
-def replay(filename, test_id, tmp_path, stubs=()):
+def replay(filename, test_id, tmp_path, stubs=(), shims=()):
     """Run ``test_id`` on the JAX package and on the port, and require the
     same observations of everything both made."""
     obs = {}
     for pkg in (cases.JAX_PKG, cases.TORCH_PKG):
-        module = load(filename, pkg, stubs)
+        module = load(filename, pkg, stubs, shims)
         obs[pkg] = run_test(module, test_id, tmp_path / pkg)
     j, t = obs[cases.JAX_PKG], obs[cases.TORCH_PKG]
     assert {k[1]: len(v) for k, v in t.items()} \

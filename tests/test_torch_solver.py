@@ -16,13 +16,14 @@ import bench
 from karpenter_provider_aws_tpu.apis import serde
 from karpenter_provider_aws_tpu.lattice import build_lattice as j_build_lattice
 from karpenter_provider_aws_tpu.lattice.realdata import load_catalog as j_load_catalog
+from karpenter_provider_aws_tpu.solver import FaultInjector as JaxFaults
 from karpenter_provider_aws_tpu.solver import Solver as JaxSolver
 from karpenter_provider_aws_tpu.solver.oracle import ffd_oracle as j_oracle
 from karpenter_provider_aws_tpu.solver.problem import build_problem as j_build
 from karpenter_provider_aws_tpu_torch import convert, workloads
-from karpenter_provider_aws_tpu_torch.errors import SolverDeviceError
 from karpenter_provider_aws_tpu_torch.lattice import build_lattice as t_build_lattice
 from karpenter_provider_aws_tpu_torch.ops import binpack as tb
+from karpenter_provider_aws_tpu_torch.solver import FaultInjector as TorchFaults
 from karpenter_provider_aws_tpu_torch.solver import Solver as TorchSolver
 from karpenter_provider_aws_tpu_torch.solver import solve as tsolve
 from karpenter_provider_aws_tpu_torch.solver.oracle import ffd_oracle as t_oracle
@@ -266,25 +267,159 @@ class TestNotPorted:
             ts.solve_delta(prob, mesh=object())
 
     def test_wave_split_raises(self):
+        """Past the group ceiling (4,096, or an injected ``g_limit``) the
+        solve wave-splits as the JAX package's does: the same plan, the
+        same provenance and counters."""
         ts = TorchSolver(cases.small_lattice(cases.TORCH_PKG), device=CPU)
-        big = types.SimpleNamespace(G=tsolve._G_BUCKETS[-1] + 1,
-                                    unschedulable={})
-        with pytest.raises(NotImplementedError, match="wave split"):
-            ts.solve(big)
+        js = JaxSolver(cases.small_lattice(cases.JAX_PKG))
+        assert ts._g_ceiling() == tsolve._G_BUCKETS[-1] == 4096
+        jprob = cases.problem(cases.JAX_PKG, "random-0")
+        tprob = cases.problem(cases.TORCH_PKG, "random-0")
+        limit = max(1, tprob.G // 3)
+        ts.inject_faults(TorchFaults(g_limit=limit))
+        js.inject_faults(JaxFaults(g_limit=limit))
+        tplan, jplan = ts.solve(tprob), js.solve(jprob)
+        assert tplan.solver_path == jplan.solver_path == "wave-split"
+        assert tplan.degraded and tplan.degraded_reason == "g-overflow"
+        assert tplan.waves == jplan.waves == -(-tprob.G // limit) > 1
+        assert serde.plan_semantic_dict(tplan) == serde.plan_semantic_dict(jplan)
+        assert tplan.warnings == jplan.warnings
+        assert ts.degraded_counts == js.degraded_counts == {"wave_split": 1}
+        assert ts.faults.fired == js.faults.fired == {"g_overflow": 1}
 
-    def test_exhausted_bin_table_raises_instead_of_host_ffd(self, monkeypatch):
+    def test_exhausted_bin_table_raises_instead_of_host_ffd(self):
+        """A bin table that cannot grow past its ceiling lands on the host
+        FFD (``b-exhausted``), as the JAX package's does."""
         ts = TorchSolver(cases.small_lattice(cases.TORCH_PKG), device=CPU)
-        ts._estimate_bins = lambda p: 0
-        monkeypatch.setattr(tsolve, "_grow_bucket", lambda b: (b, False))
-        with pytest.raises(NotImplementedError, match="host-FFD"):
-            ts.solve(cases.problem(cases.TORCH_PKG, "anti_wide"))
+        js = JaxSolver(cases.small_lattice(cases.JAX_PKG))
+        ts.inject_faults(TorchFaults(b_limit=32))
+        js.inject_faults(JaxFaults(b_limit=32))
+        tplan = ts.solve(cases.problem(cases.TORCH_PKG, "anti_wide"))
+        jplan = js.solve(cases.problem(cases.JAX_PKG, "anti_wide"))
+        assert tplan.solver_path == jplan.solver_path == "host-ffd"
+        assert tplan.degraded and tplan.degraded_reason == "b-exhausted"
+        assert tplan.device_retries == 0 and not tplan.unschedulable
+        assert serde.plan_semantic_dict(tplan) == serde.plan_semantic_dict(jplan)
+        assert tplan.warnings == jplan.warnings
+        assert ts.degraded_counts == js.degraded_counts == {"host_ffd": 1}
+        assert ts.faults.fired == js.faults.fired
 
     def test_device_error_surfaces(self, monkeypatch):
-        ts = TorchSolver(cases.small_lattice(cases.TORCH_PKG), device=CPU)
+        """A failing kernel launch is a ``SolverDeviceError``: on the CPU
+        it is retried once after the backoff, then carried by the host FFD
+        (``device-error``), whose plan equals the JAX package's. On the
+        card it raises after its retry (``TestCardLadder``)."""
+        from karpenter_provider_aws_tpu_torch.utils.clock import FakeClock
+        clock = FakeClock()
+        ts = TorchSolver(cases.small_lattice(cases.TORCH_PKG), device=CPU,
+                         clock=clock)
+        js = JaxSolver(cases.small_lattice(cases.JAX_PKG))
+        js.inject_faults(JaxFaults(device_errors=10))
+        launches = []
 
         def broken(*a, **k):
+            launches.append(1)
             raise RuntimeError("CUDA error: an illegal memory access")
 
         monkeypatch.setattr(tb, "pack_packed_efused", broken)
-        with pytest.raises(SolverDeviceError):
+        t0 = clock.monotonic()
+        tplan = ts.solve(cases.problem(cases.TORCH_PKG, "generic"))
+        jplan = js.solve(cases.problem(cases.JAX_PKG, "generic"))
+        assert len(launches) == 2
+        assert clock.monotonic() - t0 == pytest.approx(0.05)
+        assert tplan.solver_path == jplan.solver_path == "host-ffd"
+        assert tplan.degraded_reason == "device-error"
+        assert tplan.device_retries == jplan.device_retries == 1
+        assert ts.degraded_counts == js.degraded_counts \
+            == {"device_retry": 1, "host_ffd": 1}
+        td, jd = serde.plan_semantic_dict(tplan), serde.plan_semantic_dict(jplan)
+        # the warning names the error: a real one here, an injected one there
+        tw, jw = td.pop("warnings"), jd.pop("warnings")
+        assert td == jd and tw[:-1] == jw[:-1]
+        assert tw[-1] == ("solver degraded to host FFD (device-error: "
+                          "SolverDeviceError: RuntimeError: CUDA error: "
+                          "an illegal memory access)")
+
+
+class TestCardLadder:
+    """The ladder of a Solver on a CUDA device, rehearsed on the CPU by
+    setting the flag the Solver sets for the card: the host FFD carries a
+    structural ceiling and an injected fault, and nothing else. A real
+    device error that outlives its retry, a kernel that does not build
+    and a host-side bug raise, so no host plan stands in for the card."""
+
+    @staticmethod
+    def _solver():
+        from karpenter_provider_aws_tpu_torch.utils.clock import FakeClock
+        clock = FakeClock()
+        ts = TorchSolver(cases.small_lattice(cases.TORCH_PKG), device=CPU,
+                         clock=clock)
+        assert ts._host_ffd_carries_all
+        ts._host_ffd_carries_all = False
+        return ts, clock
+
+    @pytest.mark.parametrize("error, raised, attempts, counts, backoff", [
+        (RuntimeError("CUDA error: an illegal memory access"),
+         tsolve.SolverDeviceError, 2, {"device_retry": 1}, 0.05),
+        (tsolve.KernelBuildError("nvcc failed for offering_argmin.cu"),
+         tsolve.KernelBuildError, 1, {}, 0.0),
+        (KeyError("host-side bug"), KeyError, 1, {}, 0.0),
+    ], ids=["launch-error", "build-error", "host-bug"])
+    def test_real_failure_raises(self, monkeypatch, error, raised, attempts,
+                                 counts, backoff):
+        ts, clock = self._solver()
+        launches = []
+
+        def broken(*a, **k):
+            launches.append(1)
+            raise error
+
+        monkeypatch.setattr(tb, "pack_packed_efused", broken)
+        t0 = clock.monotonic()
+        with pytest.raises(raised) as info:
             ts.solve(cases.problem(cases.TORCH_PKG, "generic"))
+        if raised is tsolve.SolverDeviceError:
+            assert not info.value.injected and info.value.cause is error
+        assert len(launches) == attempts
+        assert ts.degraded_counts == counts
+        assert clock.monotonic() - t0 == pytest.approx(backoff)
+
+    @pytest.mark.parametrize("faults, case, want", [
+        (dict(device_errors=2), "generic",
+         ("host-ffd", "device-error", 1, {"device_retry": 1, "host_ffd": 1})),
+        (dict(device_errors=1), "generic",
+         ("device", "", 1, {"device_retry": 1})),
+        (dict(b_limit=32), "anti_wide",
+         ("host-ffd", "b-exhausted", 0, {"host_ffd": 1})),
+    ], ids=["injected-twice", "injected-once", "b-exhausted"])
+    def test_injected_fault_and_ceiling_stay_on_the_ladder(self, faults, case,
+                                                          want):
+        ts, _ = self._solver()
+        ts.inject_faults(TorchFaults(**faults))
+        plan = ts.solve(cases.problem(cases.TORCH_PKG, case))
+        assert (plan.solver_path, plan.degraded_reason, plan.device_retries,
+                ts.degraded_counts) == want
+        assert not plan.unschedulable
+
+    def test_real_error_after_an_injected_one_raises(self, monkeypatch):
+        """The retry of an injected fault that then fails for real raises:
+        the last failure is the card's."""
+        ts, _ = self._solver()
+        ts.inject_faults(TorchFaults(device_errors=1))
+        real = tb.pack_packed_efused
+        calls = []
+
+        def broken(*a, **k):
+            calls.append(1)
+            raise RuntimeError("CUDA error: an illegal memory access")
+
+        monkeypatch.setattr(tb, "pack_packed_efused", broken)
+        with pytest.raises(tsolve.SolverDeviceError):
+            ts.solve(cases.problem(cases.TORCH_PKG, "generic"))
+        assert len(calls) == 1 and ts.faults.fired == {"device_error": 1}
+        assert ts.degraded_counts == {"device_retry": 1}
+        monkeypatch.setattr(tb, "pack_packed_efused", real)
+        ts.inject_faults(None)
+        plan = ts.solve(cases.problem(cases.TORCH_PKG, "generic"))
+        assert plan.solver_path == "device" and not plan.degraded
+
