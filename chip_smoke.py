@@ -130,7 +130,34 @@ Phases, in order; any failure exits non-zero and prints no result line:
    replay its timeline byte for byte. It prints the pass wall p50 split
    by controller, the rung each provisioning pass took and the fleet's
    $/hr before and after;
-12. kernel timing: the kernel and its plain version at cfg5's and cfg10's
+12. api: the API stratum on the card. (a) The cfg5 wave in API mode: a
+   ``FakeAPIServer`` with its indexes and admission, served over HTTP
+   with a bearer token (``kube.httpserver.serve``), and an
+   ``Operator(api_server=...)`` with no device, so on ``cuda``, over a
+   fresh real catalog and ``workloads.wave_cloud``. The three NodePools
+   and the first ``API_REST_PODS`` pods are POSTed over REST, the other
+   49,000 enter through ``KubeClient.create_pods`` (the bulk verb), and a
+   watch on ``GET /apis/pods?watch=1`` runs over HTTP in a thread. The
+   informers sync, one forced ``run_once`` plans, and registration
+   passes (sync, lifecycle, sync) bind. The phase fails unless every pod
+   is bound in the server's own truth, the watch stream saw every
+   binding, the claims and nodes in the server are the plan's, the plan
+   equals node by node the CPU plan of the same pods under the NodePools
+   as admission stored them (defaulting adds the reference's default
+   requirements, on-demand among them: by design, ROADMAP Queue C), the
+   pass launched the kernel exactly once and did not degrade, the
+   ``/metrics`` of the metrics server lints clean, and ``/debug/vars``
+   answers over REST with the token. It prints the wall times of the
+   bulk create, the REST creates, the informer sync, the pass (and in it
+   the solve and the ``ApiWriter``'s writes) and registration. (b) The
+   port's CLI in process (``cli.main`` with ``--api-port``,
+   ``--metrics-port``, ``--async-runtime``, no ``--device``) in a thread,
+   electing through the apiserver's lease: a NodePool and
+   ``API_CLI_PODS`` of cfg10's pods POSTed over REST must all be bound
+   (read over REST), the lease held by this process, the kernel launched,
+   ``/metrics`` lint clean, no controller tick raised, and ``main`` must
+   return 0 within ``API_CLI_STOP_SECONDS`` of its stop event;
+13. kernel timing: the kernel and its plain version at cfg5's and cfg10's
    own inputs (captured in a solve of each), at the first consolidation
    pass's probe dispatch (K x B rows in one call), at cfg7's last wave and
    at the dense largest bin bucket (B=8192), and the card's launch floor
@@ -167,6 +194,12 @@ WAVE_CUT_G_LIMIT = 64      # its injected group ceiling: 5 waves
 LADDER_PASSES = 4          # cfg10 steady passes of the mid-microloop fault
 LADDER_FAULT_PASS = 1      # the pass the fault lands on
 WEATHER_RECOVERY = 40      # recovery passes after the squall
+API_WATCH_QUEUE_BOUND = 1 << 18  # per-watcher queue: the wave's 100k events
+API_POD_STRIDE = 1         # the api phase's cut of the cfg5 wave (1 = whole)
+API_REST_PODS = 1000       # of them POSTed one by one over REST
+API_CLI_PODS = 2000        # cfg10's pods POSTed to the CLI over REST
+API_CLI_STOP_SECONDS = 30  # main must return this soon after its stop event
+API_TOKEN = "chip-smoke-api-token"
 
 
 def _fail(msg: str) -> int:
@@ -1642,6 +1675,367 @@ def _weather(torch, workloads, oa):
     return out
 
 
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _http(method, url, doc=None, token=None, raw=False):
+    """One REST call; an error status raises (urllib's HTTPError)."""
+    import urllib.request
+    headers = {"Content-Type": "application/json"}
+    if token:
+        headers["Authorization"] = f"Bearer {token}"
+    req = urllib.request.Request(
+        url, method=method, headers=headers,
+        data=None if doc is None else json.dumps(doc).encode())
+    with urllib.request.urlopen(req, timeout=120) as resp:
+        body = resp.read()
+    return body.decode() if raw else json.loads(body)
+
+
+class _PodWatch:
+    """``GET /apis/pods?watch=1`` over HTTP in a thread: the pods it saw
+    bound, and any error that ended the stream early."""
+
+    def __init__(self, base, token):
+        import threading
+        self.url = f"{base}/apis/pods?watch=1&resourceVersion=0"
+        self.token = token
+        self.bound = set()
+        self.events = 0
+        self.error = None
+        self.stop = threading.Event()
+        self.thread = threading.Thread(target=self._run, name="pod-watch",
+                                       daemon=True)
+        self.thread.start()
+
+    def _run(self):
+        import urllib.request
+        req = urllib.request.Request(
+            self.url, headers={"Authorization": f"Bearer {self.token}"})
+        try:
+            with urllib.request.urlopen(req, timeout=120) as resp:
+                while not self.stop.is_set():
+                    line = resp.readline()
+                    if not line:
+                        raise RuntimeError("the watch stream ended")
+                    ev = json.loads(line)
+                    if ev["type"] == "ERROR":
+                        raise RuntimeError(f"the watch stream failed: {ev}")
+                    self.events += 1
+                    obj = ev.get("object") or {}
+                    if obj.get("spec", {}).get("nodeName"):
+                        self.bound.add(obj["metadata"]["name"])
+        except Exception as e:
+            if not self.stop.is_set():
+                self.error = e
+
+
+def _api(torch, workloads, oa):
+    """Phase 12: the API stratum on the card. (a) The cfg5 wave through
+    an API-mode Operator, fed over REST and the bulk verb; (b) the port's
+    CLI with the async runtime under leader election. Returns its numbers
+    and launches."""
+    import threading
+    from karpenter_provider_aws_tpu_torch import cli, kube
+    from karpenter_provider_aws_tpu_torch.apis import NodePool, serde
+    from karpenter_provider_aws_tpu_torch.apis import wellknown as wk
+    from karpenter_provider_aws_tpu_torch.kube.httpserver import serve
+    from karpenter_provider_aws_tpu_torch.metrics import lint_exposition
+    from karpenter_provider_aws_tpu_torch.operator import Operator, Options
+    from karpenter_provider_aws_tpu_torch.operator import runtime as rt_mod
+    from karpenter_provider_aws_tpu_torch.solver import Solver
+    from karpenter_provider_aws_tpu_torch.utils.clock import FakeClock
+
+    out, launches = {}, {}
+
+    # (a) the cfg5 wave in API mode
+    pods, pools, _ = workloads.config5_full_scale()
+    pods = pods[::API_POD_STRIDE]
+    lattice = workloads.real_lattice()
+    clock = FakeClock()
+    server = kube.FakeAPIServer(clock=clock,
+                                watch_queue_bound=API_WATCH_QUEUE_BOUND)
+    kube.install_default_indexes(server)
+    kube.install_admission(server)
+    httpd = serve(server, 0, token=API_TOKEN)
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    watch = None
+    metrics_httpd = None
+    ms = {}
+    try:
+        t = time.perf_counter()
+        for p in pools:
+            _http("POST", f"{base}/apis/nodepools", serde.nodepool_to_dict(p),
+                  API_TOKEN)
+        ms["rest_pools"] = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        op = Operator(options=Options(
+            registration_delay=workloads.REGISTRATION_DELAY),
+            lattice=lattice, cloud=workloads.wave_cloud(clock), clock=clock,
+            api_server=server)
+        ms["operator_build"] = (time.perf_counter() - t) * 1e3
+        if op.device.type != "cuda" or op.solver.device.type != "cuda":
+            raise AssertionError(f"api: the Operator's Solver is on "
+                                 f"{op.solver.device}, not the card")
+        if server.watch_queue_bound != API_WATCH_QUEUE_BOUND:
+            raise AssertionError("api: the server's watch bound changed")
+        metrics_httpd = cli.start_server(op, 0)
+        watch = _PodWatch(base, API_TOKEN)
+        t = time.perf_counter()
+        for p in pods[:API_REST_PODS]:
+            _http("POST", f"{base}/apis/pods", serde.pod_to_dict(p), API_TOKEN)
+        ms["rest_create"] = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        errs = kube.KubeClient(server).create_pods(pods[API_REST_PODS:])
+        ms["bulk_create"] = (time.perf_counter() - t) * 1e3
+        if any(errs):
+            raise AssertionError(f"api: bulk create failed: "
+                                 f"{[e for e in errs if e][:3]}")
+        t = time.perf_counter()
+        op.sync_once()
+        ms["informer_sync"] = (time.perf_counter() - t) * 1e3
+        if len(op.cluster.pods) != len(pods):
+            raise AssertionError(f"api: the mirror holds {len(op.cluster.pods)} "
+                                 f"of {len(pods)} pods after the sync")
+        # the pass, split: the solve, the ApiWriter's writes, the rest
+        results = []
+        solve_ms, writer_ms = [0.0], {}
+        orig_provision = op.provisioner.provision_once
+
+        def provision_once(*a, **kw):
+            results.append(orig_provision(*a, **kw))
+            return results[-1]
+        op.provisioner.provision_once = provision_once
+        orig_solve = op.solver.solve_relaxed
+
+        def solve_relaxed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return orig_solve(*a, **kw)
+            finally:
+                solve_ms[0] += (time.perf_counter() - t0) * 1e3
+        op.solver.solve_relaxed = solve_relaxed
+        for verb in ("create_claim", "update_claim_status", "register_node",
+                     "bind_pods", "bind_pod"):
+            fn = getattr(op.writer, verb)
+
+            def timed(*a, _fn=fn, _verb=verb, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*a, **kw)
+                finally:
+                    writer_ms[_verb] = writer_ms.get(_verb, 0.0) + \
+                        (time.perf_counter() - t0) * 1e3
+            setattr(op.writer, verb, timed)
+        oa.LAUNCHES = 0
+        t = time.perf_counter()
+        op.run_once(force_provision=True)
+        torch.cuda.synchronize()
+        ms["pass"] = (time.perf_counter() - t) * 1e3
+        launched = oa.LAUNCHES
+        ms["solve"] = solve_ms[0]
+        ms["writer_in_pass"] = sum(writer_ms.values())
+        pass_writer = dict(writer_ms)
+        if len(results) != 1:
+            raise AssertionError(f"api: {len(results)} provisioning passes")
+        result = results[0]
+        _check_pass("api cfg5 wave", result)
+        if launched != 1:
+            raise AssertionError(f"api: {launched} kernel launches in the "
+                                 f"pass, expected 1")
+        writer_ms.clear()
+        t = time.perf_counter()
+        rounds = 0
+        while rounds < 5 and not all(o["spec"].get("nodeName")
+                                     for o in server.list("pods")[0]):
+            clock.step(op.options.registration_delay + 0.1)
+            op.sync_once()
+            op.lifecycle.reconcile()
+            op.sync_once()
+            rounds += 1
+        ms["registration"] = (time.perf_counter() - t) * 1e3
+        ms["writer_in_registration"] = sum(writer_ms.values())
+        # server truth
+        pod_objs = server.list("pods")[0]
+        unbound = [o["metadata"]["name"] for o in pod_objs
+                   if not o["spec"].get("nodeName")]
+        if len(pod_objs) != len(pods) or unbound:
+            raise AssertionError(f"api: {len(unbound)} of {len(pod_objs)} pods "
+                                 f"unbound in the server")
+        claims = server.list("nodeclaims")[0]
+        nodes = server.list("nodes")[0]
+        plan = result.plan
+        claim_set = sorted((o["spec"]["instanceType"], o["spec"]["zone"],
+                            o["spec"]["capacityType"]) for o in claims)
+        plan_set = sorted((n.instance_type, n.zone, n.capacity_type)
+                          for n in plan.new_nodes)
+        if claim_set != plan_set or len(nodes) != len(claims) or \
+                {o["spec"]["nodeClaim"] for o in nodes} \
+                != {o["metadata"]["name"] for o in claims}:
+            raise AssertionError(f"api: {len(claims)} claims and {len(nodes)} "
+                                 f"nodes in the server, the plan has "
+                                 f"{len(plan.new_nodes)} nodes")
+        t = time.perf_counter()
+        while (len(watch.bound) < len(pods) and watch.thread.is_alive()
+               and time.perf_counter() - t < 120):
+            time.sleep(0.05)
+        ms["watch_drain"] = (time.perf_counter() - t) * 1e3
+        if watch.error is not None or len(watch.bound) != len(pods):
+            raise AssertionError(f"api: the HTTP watch saw {len(watch.bound)} "
+                                 f"of {len(pods)} bindings ({watch.error})")
+        # the plan against the CPU plan of the same pods under the pools as
+        # admission stored them (defaulting adds the reference's default
+        # requirements: by design, ROADMAP Queue C)
+        admitted = [serde.nodepool_from_dict(o["spec"])
+                    for o in server.list("nodepools")[0]]
+        t = time.perf_counter()
+        cpu_api_plan = Solver(lattice, device="cpu").solve_relaxed(
+            pods, admitted)
+        ms["cpu_reference"] = (time.perf_counter() - t) * 1e3
+        if _node_rows(plan) != _node_rows(cpu_api_plan) \
+                or plan.new_node_cost != cpu_api_plan.new_node_cost:
+            raise AssertionError("api: the card's plan differs from the CPU "
+                                 "plan under the admitted pools")
+        problems = lint_exposition(_http(
+            "GET", f"http://127.0.0.1:{metrics_httpd.server_address[1]}"
+            "/metrics", raw=True))
+        if problems:
+            raise AssertionError(f"api: /metrics lint: {problems[:5]}")
+        dvars = _http("GET", f"{base}/debug/vars", token=API_TOKEN)
+        if "watch_hub" not in dvars.get("providers", {}):
+            raise AssertionError("api: /debug/vars over REST has no watch_hub")
+        stats = server.stats()
+        print(f"api cfg5 wave: {len(pods)} pods ({API_REST_PODS} over REST, "
+              f"{len(pods) - API_REST_PODS} bulk), pools as admitted "
+              f"{[(p.name, len(p.requirements)) for p in admitted]}", flush=True)
+        print(f"api cfg5 wave: plan {len(plan.new_nodes)} nodes, "
+              f"${plan.new_node_cost:.2f}/hr == the CPU plan under the admitted "
+              f"pools, node by node; {launched} kernel launch in the pass; "
+              f"{len(pod_objs)} of {len(pods)} pods bound in the server, "
+              f"{len(claims)} claims, {len(nodes)} nodes; the HTTP watch saw "
+              f"{len(watch.bound)} bindings in {watch.events} events", flush=True)
+        print(f"api cfg5 wave: wall ms {ms}", flush=True)
+        print(f"api cfg5 wave: ApiWriter ms in the pass {pass_writer}, in "
+              f"registration {writer_ms}; {rounds} registration round(s)",
+              flush=True)
+        print(f"api cfg5 wave: watch hub {stats}; /metrics lints clean, "
+              f"/debug/vars over REST has {len(dvars['providers'])} providers",
+              flush=True)
+        out["cfg5_wave"] = {
+            "pods": len(pods), "rest_pods": API_REST_PODS,
+            "nodes": len(plan.new_nodes), "cost": plan.new_node_cost,
+            "launches": launched, "wall_ms": ms, "writer_ms_pass": pass_writer,
+            "writer_ms_registration": dict(writer_ms),
+            "registration_rounds": rounds, "watch_events": watch.events,
+            "watch_hub": stats, "stage_ms": dict(plan.stage_ms)}
+        launches["api_cfg5_wave"] = launched
+    finally:
+        if watch is not None:
+            watch.stop.set()
+        if metrics_httpd is not None:
+            metrics_httpd.shutdown()
+        httpd.shutdown()
+
+    # (b) the port's CLI in process: no --device (cuda), the async
+    # runtime, elected through the apiserver's lease
+    runtimes = []
+    rt_init = rt_mod.ControllerRuntime.__init__
+
+    def track(self, *a, **kw):
+        rt_init(self, *a, **kw)
+        runtimes.append(self)
+    rt_mod.ControllerRuntime.__init__ = track
+    api_port, metrics_port = _free_port(), _free_port()
+    base = f"http://127.0.0.1:{api_port}"
+    stop = threading.Event()
+    rc = []
+    failed = []
+
+    def run_main():
+        try:
+            rc.append(cli.main([f"--api-port={api_port}",
+                                f"--metrics-port={metrics_port}",
+                                "--async-runtime", "--step", "0.5",
+                                "--log-level", "WARNING"], stop_event=stop))
+        except BaseException as e:
+            failed.append(e)
+            raise
+    cfg10, _, _ = workloads.config10_steady_state()
+    cli_pods = cfg10[:API_CLI_PODS]
+    ms = {}
+    oa.LAUNCHES = 0
+    thread = threading.Thread(target=run_main, name="cli-main", daemon=True)
+    t0 = time.perf_counter()
+    thread.start()
+    try:
+        while True:
+            try:
+                _http("GET", f"{base}/apis/nodepools")
+                break
+            except OSError:
+                if failed or time.perf_counter() - t0 > 300:
+                    raise AssertionError(f"api cli: the REST surface never "
+                                         f"came up ({failed})")
+                time.sleep(0.1)
+        ms["rest_up"] = (time.perf_counter() - t0) * 1e3
+        _http("POST", f"{base}/apis/nodepools",
+              serde.nodepool_to_dict(NodePool(name="steady")))
+        t = time.perf_counter()
+        for p in cli_pods:
+            d = serde.pod_to_dict(p)
+            d["nodeSelector"] = {**d["nodeSelector"], wk.LABEL_NODEPOOL: "steady"}
+            _http("POST", f"{base}/apis/pods", d)
+        ms["rest_create"] = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        while True:
+            items = _http("GET", f"{base}/apis/pods")["items"]
+            bound = sum(1 for o in items if o["spec"].get("nodeName"))
+            if bound == len(cli_pods):
+                break
+            if failed or time.perf_counter() - t > 300:
+                raise AssertionError(f"api cli: {bound} of {len(cli_pods)} "
+                                     f"pods bound ({failed})")
+            time.sleep(0.25)
+        ms["bind_all"] = (time.perf_counter() - t) * 1e3
+        lease = _http("GET", f"{base}/apis/leases/karpenter-tpu-leader-election")
+        holder = lease["spec"]["holder"]
+        if holder != f"{os.uname().nodename}-{os.getpid()}":
+            raise AssertionError(f"api cli: the lease is held by {holder}")
+        problems = lint_exposition(_http(
+            "GET", f"http://127.0.0.1:{metrics_port}/metrics", raw=True))
+        if problems:
+            raise AssertionError(f"api cli: /metrics lint: {problems[:5]}")
+        claims = _http("GET", f"{base}/apis/nodeclaims")["items"]
+    finally:
+        stop.set()
+        t = time.perf_counter()
+        thread.join(API_CLI_STOP_SECONDS)
+        ms["stop"] = (time.perf_counter() - t) * 1e3
+        rt_mod.ControllerRuntime.__init__ = rt_init
+    cli_launched = oa.LAUNCHES
+    if thread.is_alive() or rc != [0] or failed:
+        raise AssertionError(f"api cli: main returned {rc} ({failed}), "
+                             f"alive={thread.is_alive()} after "
+                             f"{API_CLI_STOP_SECONDS} s")
+    if len(runtimes) != 1 or runtimes[0].error_counts:
+        raise AssertionError(f"api cli: controller ticks raised: "
+                             f"{[r.error_counts for r in runtimes]}")
+    if cli_launched < 1:
+        raise AssertionError("api cli: the kernel never launched")
+    print(f"api cli: {len(cli_pods)} REST-posted pods bound on {len(claims)} "
+          f"claims under the lease of {holder}; {cli_launched} kernel "
+          f"launch(es); main returned 0 {ms['stop']:.1f} ms after its stop "
+          f"event; wall ms {ms}", flush=True)
+    out["cli"] = {"pods": len(cli_pods), "claims": len(claims),
+                  "launches": cli_launched, "wall_ms": ms}
+    launches["api_cli"] = cli_launched
+    return out, launches
+
+
 def main() -> int:
     try:
         import torch
@@ -1834,7 +2228,13 @@ def _run(torch) -> int:
     launches["weather"] = weather["launches"]
     _check_solvers(torch, "weather")
 
-    # ---- 12. kernel times: the main paths' own inputs, the dense largest
+    # ---- 12. the API stratum: the cfg5 wave in API mode, and the CLI
+    _phase("api: the cfg5 wave through API mode, and the port's CLI")
+    api, api_launches = _api(torch, workloads, oa)
+    launches.update(api_launches)
+    _check_solvers(torch, "api")
+
+    # ---- 13. kernel times: the main paths' own inputs, the dense largest
     # bucket, the launch floor
     _phase("kernel timing")
     solver = Solver(lattice)
@@ -1899,7 +2299,7 @@ def _run(torch) -> int:
     }], "cfg5": cfg5, "cfg10": {k: v for k, v in steady.items()
                                 if k != "launches_per_pass"},
         "consolidation": consol, "operator": operator,
-        "wave_split": wave, "ladder": ladder, "weather": weather,
+        "wave_split": wave, "ladder": ladder, "weather": weather, "api": api,
         "provisioner": {"cfg5_wave": prov["cfg5_wave"],
                         "cfg10_first_wave": prov["cfg10_first_wave"],
                         "cfg10": {k: v for k, v in prov["cfg10"].items()

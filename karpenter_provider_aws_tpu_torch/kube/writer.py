@@ -1,26 +1,35 @@
 """The controllers' write seam: every Kubernetes-object mutation a
 controller makes goes through this interface.
 
-The port of the JAX package's ``kube/writer.py``, its simulation-stratum
-half: ``FencedWriteError``, ``WriterCounts`` and ``DirectWriter``, which
-applies writes straight into the ClusterState mirror — the deterministic
-simulation stratum (FakeClock unit tests), where read-your-write is
-immediate.
+Two implementations, one contract:
 
-Not ported yet: ``ApiWriter``, which writes to the fake apiserver through
-the typed client and lets the mirror follow through informers. It needs
-the kube API stratum (``kube/apiserver.py``, ``kube/client.py``), which
-is not ported (the Operator runs in direct mode); this module imports
-neither.
+- ``DirectWriter`` applies writes straight into the ClusterState mirror —
+  the deterministic simulation stratum (FakeClock unit tests), where
+  read-your-write is immediate.
+- ``ApiWriter`` writes to the fake apiserver through the typed client;
+  the mirror only changes when the operator's informers deliver the watch
+  events (operator/sync.py). This is the reference's wiring: controllers
+  own NO state — they act through the client and observe through caches
+  (cmd/controller/main.go:47-53, operator.go:92-186).
+
+The split keeps controller code identical across strata — the reference
+achieves the same by running envtest (a real apiserver) under its unit
+suites (pkg/test/environment.go:83-162).
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
+from .. import trace
 from ..apis.objects import Lease, Node, NodeClaim, NodeClaimPhase, Pod
 from ..state.cluster import ClusterState
 from ..utils.clock import Clock
+from .apiserver import (
+    ConflictError, EvictionBlockedError, NotFoundError,
+)
+from .client import KubeClient
 
 
 class FencedWriteError(RuntimeError):
@@ -41,9 +50,11 @@ class FencedWriteError(RuntimeError):
 
 
 class WriterCounts:
-    """Per-verb write-throughput counters of a writer (the introspection
-    registry's ``writer`` provider): per-verb rates for profiling the
-    write path."""
+    """Per-verb write-throughput counters shared by both writer
+    implementations — the introspection registry's ``writer`` provider,
+    and the input the round-5 verdict's write-path profiling item needs
+    (API-stratum throughput DEGRADES 1k→15k; these counters put per-verb
+    rates next to the apiserver's own watch/event stats)."""
 
     def _init_counts(self) -> None:
         self.counts: Dict[str, int] = {}
@@ -175,3 +186,176 @@ class DirectWriter(WriterCounts):
         self._check_fence("delete_lease")
         self._count("delete_lease")
         self.cluster.delete_lease(name)
+
+
+class ApiWriter(WriterCounts):
+    """Write-through to the apiserver; the mirror follows via informers."""
+
+    def __init__(self, kube: KubeClient, cluster: ClusterState, clock: Clock):
+        self.kube = kube
+        self.cluster = cluster
+        self.clock = clock
+        self._init_counts()
+
+    # ---- claims ------------------------------------------------------------
+
+    def create_claim(self, claim: NodeClaim) -> None:
+        # the write seam's spans name the k8s-object mutations inside the
+        # ambient trace (a provisioning pass shows claim-create / pod-bind
+        # legs between solve and CreateFleet); contextvars carry the trace
+        # across this in-process hop — the httpserver carries it when the
+        # same seam is driven over the wire
+        self._check_fence("create_claim")
+        self._count("create_claim")
+        with trace.span("kube.create_nodeclaim", claim=claim.name):
+            self.kube.create_nodeclaim(claim)
+
+    def update_claim_status(self, claim: NodeClaim) -> None:
+        self._check_fence("update_claim_status")
+        self._count("update_claim_status")
+        try:
+            self.kube.update_nodeclaim(claim)
+        except NotFoundError:
+            pass  # deleted out from under us; the next reconcile observes it
+
+    def mark_claim_deleting(self, name: str) -> None:
+        self._check_fence("mark_claim_deleting")
+        self._count("mark_claim_deleting")
+        try:
+            self.kube.delete_nodeclaim(name, now=self.clock.now())
+        except NotFoundError:
+            pass
+        # the mirror's claim leaves pool_usage() when the MODIFIED event
+        # lands; gauges re-render then
+
+    def rollback_claim(self, name: str) -> None:
+        self._check_fence("rollback_claim")
+        self._count("rollback_claim")
+        try:
+            self.kube.delete_nodeclaim_now(name)
+        except NotFoundError:
+            pass
+
+    def finalize_claim(self, claim: NodeClaim) -> None:
+        self._check_fence("finalize_claim")
+        self._count("finalize_claim")
+        self.kube.remove_nodeclaim_finalizer(claim.name)
+
+    # ---- nodes -------------------------------------------------------------
+
+    def register_node(self, node: Node, lease: Optional[Lease] = None) -> None:
+        self._check_fence("register_node")
+        self._count("register_node")
+        self.kube.create_node(node)
+        if lease is not None:
+            self.kube.create_lease(lease)
+
+    def cordon(self, node: Node, taint) -> bool:
+        self._check_fence("cordon")
+        try:
+            if self.kube.taint_node(node.name, taint):
+                self._count("cordon")
+                return True
+            return False
+        except NotFoundError:
+            return False
+
+    def drain_node(self, node_name: str) -> Tuple[List[Pod], List[Pod]]:
+        """PDB-respecting drain THROUGH the eviction subresource: the
+        server enforces budgets (the real Eviction API contract); we
+        report (evicted, blocked) from its verdicts. Pod set comes from
+        the mirror — the same information a real drainer lists. The
+        evictions go as ONE bulk batch (one lock acquisition, one watch
+        flush); the server evaluates each pod's PDB allowance in order
+        inside the batch, so verdicts match the per-call sequence
+        exactly."""
+        self._check_fence("drain_node")
+        self._count("drain_node")
+        pods = [p for p in self.cluster.pods_by_node().get(node_name, [])
+                if not p.is_daemonset]
+        if not pods:
+            return [], []
+        results = self.kube.bulk([("evict", p.name) for p in pods])
+        evicted: List[Pod] = []
+        blocked: List[Pod] = []
+        for pod, r in zip(pods, results):
+            if isinstance(r, EvictionBlockedError):
+                blocked.append(pod)
+            elif isinstance(r, NotFoundError):
+                continue
+            elif isinstance(r, Exception):
+                raise r
+            else:
+                evicted.append(pod)
+        return evicted, blocked
+
+    def teardown_node(self, node_name: str) -> None:
+        """Final teardown: force-evict stragglers (grace-zero delete
+        analog), remove daemonset pods with the node, delete the node —
+        all one bulk batch (NotFound slots are raced teardowns)."""
+        self._check_fence("teardown_node")
+        self._count("teardown_node")
+        ops = []
+        for pod in self.cluster.pods_by_node().get(node_name, []):
+            if pod.is_daemonset:
+                ops.append(("delete", "pods", pod.name))
+            else:
+                ops.append(("evict", pod.name, True))
+        ops.append(("delete", "nodes", node_name))
+        self.kube.bulk(ops)
+
+    # ---- pods / volumes / leases ------------------------------------------
+
+    def bind_pod(self, pod_name: str, node_name: str) -> bool:
+        """Returns False when the bind raced an eviction/delete — the
+        watch stream carries whatever the truth is, and callers must not
+        count the pod as scheduled (karpenter_pods_scheduled_total would
+        overcount)."""
+        self._check_fence("bind_pod")
+        try:
+            with trace.span("kube.bind_pod", pod=pod_name, node=node_name):
+                self.kube.bind_pod(pod_name, node_name)
+            self._count("bind_pod")
+            return True
+        except (ConflictError, NotFoundError):
+            return False
+
+    def bind_pods(self, pairs: Sequence[Tuple[str, str]]) -> List[bool]:
+        """A provisioning pass's binds as ONE coalesced write: the bulk
+        verb pays one lock acquisition + one watch flush for the whole
+        list — bind_pod was the profiled #1 write-path frame paying
+        lock+copy+fan-out per pod. Per-pair verdicts keep the raced-bind
+        contract (False = not scheduled)."""
+        if not pairs:
+            return []
+        self._check_fence("bind_pods")
+        with trace.span("kube.bind_pods", pods=len(pairs)):
+            oks = self.kube.bind_pods(pairs)
+        n = sum(oks)
+        if n:
+            self._count("bind_pod", n)
+        self._count("bulk_binds")
+        return oks
+
+    def bind_volumes(self, pod_name: str, zone: Optional[str]) -> None:
+        """Persist WaitForFirstConsumer zone pins server-side (the CSI
+        controller analog); the mirror converges via the pvcs informer."""
+        if not zone:
+            return
+        self._check_fence("bind_volumes")
+        self._count("bind_volumes")
+        pod = self.cluster.pods.get(pod_name)
+        if pod is None:
+            return
+        for cname in pod.volume_claims:
+            pvc = self.cluster.pvcs.get(cname)
+            if pvc is not None and pvc.bound_zone is None:
+                try:
+                    self.kube.patch_pvc(cname, boundZone=zone)
+                except NotFoundError:
+                    pass
+
+    def delete_lease(self, name: str) -> None:
+        self._check_fence("delete_lease")
+        self._count("delete_lease")
+        self.kube.delete_lease(name)

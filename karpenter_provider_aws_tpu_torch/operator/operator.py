@@ -8,16 +8,17 @@ cloudprovider stack, and the manager is a deterministic `run_once()` /
 `run(duration)` loop over the controllers — clock-driven so the whole
 control plane is simulable in tests (the reference's envtest stratum).
 
-The port of the JAX package's Operator in direct mode: controllers write
-straight into the ClusterState mirror (kube/writer.py DirectWriter).
+The port of the JAX package's Operator, in both of its modes: direct
+mode, where controllers write straight into the ClusterState mirror
+(kube/writer.py DirectWriter), and API mode (``api_server``), where they
+write through the apiserver client and informers feed the mirror.
 Beyond the JAX Operator's arguments it takes ``device``, where the
 Solver's tensors live: None means ``cuda`` and raises without CUDA, and
 tests pass ``"cpu"``. What the port does not carry raises at
-construction instead of running another way: API mode (``api_server``;
-ROADMAP.md A6c), a solver pool (``Options.solver_address``; A11), a
-solver mesh of more than one device (A10), and the persistent XLA
-compile cache (``Options.compile_cache_dir``), which has nothing to
-cache here.
+construction instead of running another way: a solver pool
+(``Options.solver_address``; ROADMAP.md A11), a solver mesh of more than
+one device (A10), and the persistent XLA compile cache
+(``Options.compile_cache_dir``), which has nothing to cache here.
 """
 
 from __future__ import annotations
@@ -69,18 +70,17 @@ class Operator:
                  node_classes: Optional[Dict[str, NodeClass]] = None,
                  interruption_queue: Optional[FakeQueue] = None,
                  api_server=None, device: DeviceLike = None):
-        """Direct mode only: writes go straight to the mirror
-        (deterministic simulation stratum). ``api_server`` (the JAX
-        package's API mode) is not ported and raises
-        NotImplementedError. ``device`` is the Solver's (None = ``cuda``,
-        raising when CUDA is absent)."""
+        """``api_server`` (kube.FakeAPIServer) switches the operator into
+        API mode: controllers write through the apiserver client and the
+        ClusterState mirror is fed ONLY by informers (operator/sync.py) —
+        the reference's wiring (cmd/controller/main.go:47-53). Without
+        it, writes go straight to the mirror (deterministic simulation
+        stratum). NodePools/NodeClasses passed here are seeded INTO the
+        apiserver in API mode; later API writes supersede them
+        (watch-driven config). ``device`` is the Solver's (None =
+        ``cuda``, raising when CUDA is absent)."""
         self.options = options or Options()
         self.options.validate()
-        if api_server is not None:
-            raise NotImplementedError(
-                "API mode (api_server=) is not ported to this package "
-                "(ROADMAP.md A6c, the API stratum); build the Operator in "
-                "direct mode")
         if self.options.solver_address:
             raise NotImplementedError(
                 "a solver pool (solver_address) is not ported to this "
@@ -164,12 +164,63 @@ class Operator:
             err = self._validate_pool_config(p, self.node_classes)
             if err:
                 raise ValueError(f"NodePool/{p.name}: {err}")
-        # ---- the kube seam: direct mode writes straight to the mirror ----
-        self.api_server = None
+        # ---- the kube seam: apiserver client + writer + state sync ------
+        # (reference operator.go:92-186 manager/client/indexers; the
+        # DirectWriter keeps the deterministic stratum byte-identical)
+        self.api_server = api_server
         self.kube = None
         self.sync = None
-        from ..kube.writer import DirectWriter
-        self.writer = DirectWriter(self.cluster, self.clock)
+        if api_server is not None:
+            from ..kube import (KubeClient, install_admission,
+                                install_default_indexes)
+            from ..kube.apiserver import AlreadyExistsError
+            from ..kube.writer import ApiWriter
+            from .sync import StateSync
+            install_default_indexes(api_server)
+            install_admission(api_server)
+            if api_server._clock is None:
+                api_server._clock = self.clock
+            # watch hub tuning from options (bounded subscriber queues +
+            # bookmark cadence; docs/reference/watch.md). Constructor
+            # wins: a caller that built FakeAPIServer(watch_queue_bound=
+            # ...) already tuned it (cli.py does — its surface serves
+            # before this build), so options only fill defaults.
+            from ..kube.apiserver import BOOKMARK_EVERY, WATCH_QUEUE_BOUND
+            if api_server.watch_queue_bound == WATCH_QUEUE_BOUND:
+                api_server.watch_queue_bound = \
+                    self.options.api_watch_queue_bound
+            if api_server.bookmark_every == BOOKMARK_EVERY:
+                api_server.bookmark_every = self.options.api_bookmark_every
+            self.kube = KubeClient(api_server)
+            # seed programmatically-passed config into the server (tests
+            # may also have pre-created objects there — first write wins)
+            for pool in self.node_pools.values():
+                try:
+                    self.kube.create_nodepool(pool)
+                except AlreadyExistsError:
+                    pass
+            for nc in self.node_classes.values():
+                try:
+                    self.kube.create_nodeclass(nc)
+                except AlreadyExistsError:
+                    pass
+            self.writer = ApiWriter(self.kube, self.cluster, self.clock)
+            # events mirror into the apiserver so `kpctl get events` /
+            # GET /apis/events see what a kubectl user would
+            from ..kube.eventsink import ApiEventSink
+            self.recorder.sink = ApiEventSink(api_server)
+            self.sync = StateSync(
+                api_server, self.cluster, self.node_pools, self.node_classes,
+                synced_gauge=self.metrics.gauge(
+                    "karpenter_cluster_state_synced"),
+                config_guard=self._validate_pool_config,
+                recorder=self.recorder,
+                pods_state_gauge=self.metrics.get("karpenter_pods_state"),
+                clock=self.clock)
+            self.sync.sync_once()   # initial list: config + state hydrated
+        else:
+            from ..kube.writer import DirectWriter
+            self.writer = DirectWriter(self.cluster, self.clock)
         # domain providers (reference operator.go:135-178 builds all 11)
         self.subnet_provider = SubnetProvider(self.cloud, self.clock,
             cluster_name=self.options.cluster_name)
@@ -217,10 +268,20 @@ class Operator:
             metrics=self.metrics,
             termination_grace_period=self.options.termination_grace_period,
             writer=self.writer)
-        # NodePool-deletion cascade source of truth: in direct mode the
-        # operator's pool dict itself
-        def pool_exists(name: str) -> bool:
-            return name in self.node_pools
+        # NodePool-deletion cascade source of truth: in API mode the
+        # nodepools INFORMER store (an invalid-config pool is absent from
+        # the guarded active dict but still exists — its nodes must
+        # survive a config hiccup; the store has always completed its
+        # initial list by now: sync_once() ran above), in direct mode
+        # the operator's pool dict itself
+        if self.sync is not None:
+            pools_inf = self.sync.informers.informers["nodepools"]
+
+            def pool_exists(name: str) -> bool:
+                return name in pools_inf.store
+        else:
+            def pool_exists(name: str) -> bool:
+                return name in self.node_pools
         self.gc = GarbageCollectionController(
             self.cluster, self.cloud_provider, self.recorder, self.clock,
             writer=self.writer, pool_exists=pool_exists)

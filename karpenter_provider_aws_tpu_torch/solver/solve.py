@@ -294,13 +294,21 @@ def _unpack_decode_set(buf: np.ndarray, G: int, T: int, Z: int, C: int,
 
 def _locked(fn):
     """Serialize a Solver entry point on the instance's solve lock
-    (re-entrant: solve_relaxed → solve nests fine)."""
+    (re-entrant: solve_relaxed → solve nests fine), with the Solver's
+    device current: the entry points run on whichever thread calls them
+    (a controller runtime's, a REST handler's), and a thread that never
+    touched CUDA has the default device current, so every allocation,
+    launch and event of the call lands on the Solver's device and its
+    current stream."""
     import functools
 
     @functools.wraps(fn)
     def wrapper(self, *args, **kwargs):
         with self._solve_lock:
-            return fn(self, *args, **kwargs)
+            if self.device.type != "cuda":
+                return fn(self, *args, **kwargs)
+            with torch.cuda.device(self.device):
+                return fn(self, *args, **kwargs)
     return wrapper
 
 

@@ -180,14 +180,32 @@ def admit_node_class(nc: NodeClass) -> NodeClass:
 
 
 def validate_wire(kind: str, spec) -> List[str]:
-    """One validation entry over WIRE dicts: schema first, then the
-    semantic webhook for the kind. The wire schema and its decoders
-    (``apis/schema.py``, ``apis/serde.py``) belong to the API stratum,
-    which is not ported (ROADMAP.md A6c), so this raises rather than
-    answer: an "allowed" for input it cannot read would be a false green
-    light."""
-    raise NotImplementedError(
-        "webhooks.validate_wire needs the wire schema and serde of the API "
-        "stratum, which is not ported to this package (ROADMAP.md A6c); "
-        "validate typed objects with validate_node_pool / "
-        "validate_node_class / validate_pdb")
+    """One validation entry over WIRE dicts: schema first (apis/schema.py,
+    the CRD contract), then the semantic webhook for the kind. This is
+    what the in-process apiserver admission runs (kube/client.py) and
+    what the HTTP /validate endpoint serves (cli.py) — same answer at
+    every boundary."""
+    from .apis import schema, serde
+    KNOWN = ("nodepools", "nodeclasses", "pdbs", "nodeclaims")
+    # the NodeClass CRD's real-world plural (deploy/crds,
+    # webhooks.yaml registration) — same object, same validation
+    if kind == "ec2nodeclasses":
+        kind = "nodeclasses"
+    if kind not in KNOWN:
+        # an "allowed" answer for a kind we cannot validate would be a
+        # false green light (the apiserver rejects unknown kinds)
+        return [f"unknown kind {kind!r}; validatable kinds: "
+                + ", ".join(KNOWN)]
+    errs = schema.validate(kind, spec)
+    if errs:
+        return errs
+    try:
+        if kind == "nodepools":
+            return validate_node_pool(serde.nodepool_from_dict(spec))
+        if kind == "nodeclasses":
+            return validate_node_class(serde.nodeclass_from_dict(spec))
+        if kind == "pdbs":
+            return validate_pdb(serde.pdb_from_dict(spec))
+    except Exception as e:  # malformed-but-schema-clean input must reject
+        return [f"validation failed: {e}"]
+    return []   # nodeclaims: schema-only (status is controller-owned)

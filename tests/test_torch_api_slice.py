@@ -1,0 +1,156 @@
+"""The CLI as a whole, on both packages, on the CPU (its REST helpers
+also serve ``test_torch_api_wave.py``, the API-mode wave).
+
+- Both CLIs in process: each package's ``cli.main`` with ``--api-port``,
+  ``--async-runtime`` (and on the port ``--device cpu``) in a thread; a
+  NodePool and 40 of cfg10's pods (every 500th) POSTed over REST inside
+  one batch window; when every pod is bound (read over REST), the
+  election lease is held by this process and the two servers hold equal
+  claims, nodes and bindings; ``main`` returns 0 after its stop event.
+- Each flag of the port's CLI that reaches an unported part exits
+  non-zero, naming its roadmap item, before anything is served.
+
+Tolerance: none.
+"""
+
+import json
+import os
+import socket
+import threading
+import time
+import urllib.request
+
+import pytest
+
+import test_torch_cases as cases
+from test_torch_replay import one_torch_thread  # noqa: F401 (autouse)
+
+TOKEN = "api-slice-token"
+PKGS = (cases.JAX_PKG, cases.TORCH_PKG)
+
+
+def _free_port():
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _call(method, url, doc=None, token=None):
+    headers = {"Content-Type": "application/json"}
+    if token:
+        headers["Authorization"] = f"Bearer {token}"
+    r = urllib.request.Request(
+        url, method=method, headers=headers,
+        data=None if doc is None else json.dumps(doc).encode())
+    with urllib.request.urlopen(r, timeout=30) as resp:
+        return json.loads(resp.read())
+
+
+# ---- both CLIs in process ----
+
+def _cli_run(pkg, pool_dict, pod_dicts):
+    port = _free_port()
+    argv = [f"--api-port={port}", "--metrics-port=0", "--async-runtime",
+            "--step=0.5", "--batch-idle-duration=4",
+            "--batch-max-duration=60"]
+    if pkg == cases.TORCH_PKG:
+        argv += ["--device", "cpu"]
+    cli = cases.mod(pkg, "cli")
+    stop = threading.Event()
+    rc = []
+    t = threading.Thread(target=lambda: rc.append(cli.main(argv,
+                                                           stop_event=stop)),
+                         daemon=True)
+    t.start()
+    base = f"http://127.0.0.1:{port}"
+    deadline = time.monotonic() + 60
+    while True:
+        try:
+            _call("GET", f"{base}/apis/nodepools")
+            break
+        except OSError:
+            assert time.monotonic() < deadline, "REST surface never came up"
+            time.sleep(0.1)
+    try:
+        # the Operator seeds its default pool while it builds: the test's
+        # pool is a second one, and every pod selects it
+        _call("POST", f"{base}/apis/nodepools", pool_dict)
+        for d in pod_dicts:
+            _call("POST", f"{base}/apis/pods", d)
+        deadline = time.monotonic() + 90
+        while time.monotonic() < deadline:
+            items = _call("GET", f"{base}/apis/pods")["items"]
+            if items and all(o["spec"].get("nodeName") for o in items):
+                break
+            time.sleep(0.2)
+        lease = _call("GET", f"{base}/apis/leases/karpenter-tpu-leader-election")
+        claims = sorted(
+            (o["metadata"]["name"], o["spec"]["nodePool"],
+             o["spec"]["instanceType"], o["spec"]["zone"],
+             o["spec"]["capacityType"])
+            for o in _call("GET", f"{base}/apis/nodeclaims")["items"])
+        nodes = sorted((o["metadata"]["name"], o["spec"]["nodeClaim"])
+                       for o in _call("GET", f"{base}/apis/nodes")["items"])
+        bindings = sorted((o["metadata"]["name"], o["spec"].get("nodeName"))
+                          for o in _call("GET", f"{base}/apis/pods")["items"])
+    finally:
+        stop.set()
+        t.join(60)
+    assert not t.is_alive() and rc == [0]
+    return lease["spec"]["holder"], {"claims": claims, "nodes": nodes,
+                                     "bindings": bindings}
+
+
+def test_both_clis_bind_rest_posted_pods_equally():
+    W = cases.mod(cases.TORCH_PKG, "workloads")
+    serde = cases.mod(cases.TORCH_PKG, "apis.serde")
+    A = cases.mod(cases.TORCH_PKG, "apis")
+    wk = cases.mod(cases.TORCH_PKG, "apis.wellknown")
+    pods, _, _ = W.config10_steady_state()
+    pod_dicts = []
+    for p in pods[::500]:
+        d = serde.pod_to_dict(p)
+        d["nodeSelector"] = {**d["nodeSelector"], wk.LABEL_NODEPOOL: "steady"}
+        pod_dicts.append(d)
+    pool_dict = serde.nodepool_to_dict(A.NodePool(name="steady"))
+    out = {pkg: _cli_run(pkg, pool_dict, pod_dicts) for pkg in PKGS}
+    for holder, truth in out.values():
+        assert holder.endswith(f"-{os.getpid()}")
+        assert len(truth["bindings"]) == 40
+        assert all(node for _, node in truth["bindings"])
+        assert truth["claims"] and {c[1] for c in truth["claims"]} == {"steady"}
+    assert out[cases.TORCH_PKG][1] == out[cases.JAX_PKG][1]
+
+
+# ---- the port's CLI refuses flags that reach unported parts ----
+
+@pytest.mark.parametrize("flags,env,item", [
+    (["--warm-start"], {}, "B7"),
+    (["--profile-dir", "prof"], {}, "B7"),
+    (["--sidecar-address", "unix:/tmp/s.sock"], {}, "A11"),
+    (["--solver-address", "unix:/tmp/a.sock"], {}, "A11"),
+    ([], {"SOLVER_ADDRESSES": "unix:/tmp/a.sock"}, "A11"),
+    (["--mesh", "2"], {}, "A10"),
+    ([], {"SOLVER_MESH": "4"}, "A10"),
+    (["--compile-cache-dir", "cache"], {}, "compiles nothing"),
+], ids=["warm-start", "profile-dir", "sidecar-address", "solver-address",
+        "SOLVER_ADDRESSES", "mesh", "SOLVER_MESH", "compile-cache-dir"])
+def test_unported_flags_exit_before_serving(flags, env, item, monkeypatch,
+                                            tmp_path):
+    from karpenter_provider_aws_tpu_torch import cli
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    monkeypatch.chdir(tmp_path)
+    api, metrics = _free_port(), _free_port()
+    built = []
+    monkeypatch.setattr(cli, "Operator",
+                        lambda *a, **k: built.append(1) or None)
+    with pytest.raises(SystemExit) as exc:
+        cli.main(flags + ["--device", "cpu", f"--api-port={api}",
+                          f"--metrics-port={metrics}", "--duration=0.1"])
+    assert exc.value.code not in (0, None) and item in str(exc.value.code)
+    assert not built
+    for port in (api, metrics):
+        with socket.socket() as sock:
+            assert sock.connect_ex(("127.0.0.1", port)) != 0, port
+    assert not list(tmp_path.iterdir())

@@ -12,7 +12,8 @@ families) is replayed on both packages by ``test_torch_replay``: the
 test's own checks run on each, and the two must make the same Operators
 (their Solvers' ``degraded_counts`` included), fault injectors, cloud
 calls and metric series (tolerances in ``test_torch_replay``; everything
-else exact). The tests that need the API stratum, ``tools/kpctl.py`` or
+else exact), and so does the event sink's retention of external events
+in the apiserver. The tests that need ``tools/kpctl.py`` or
 ``tools/soak.py`` are named in ``NOT_REPLAYED``.
 """
 
@@ -24,8 +25,6 @@ from test_torch_replay import one_torch_thread  # noqa: F401 (autouse)
 FILE = "test_degradation.py"
 _KPCTL = "A12 (tools/kpctl.py, which renders the JAX package's surfaces)"
 NOT_REPLAYED = {
-    "test_degradation.py::TestSatellites::test_eventsink_ages_out_external_events":
-        "A6c (the API stratum: kube.FakeAPIServer, kube.eventsink)",
     "test_degradation.py::TestSatellites::test_kpctl_unit_normalization": _KPCTL,
     "test_degradation.py::TestSatellites::test_kpctl_age_anchors_to_server_clock":
         _KPCTL,

@@ -3,12 +3,13 @@ update through its PricingProvider, and cfg4's fleet cut down, on the CPU.
 
 The seams are where the port's Operator differs from the JAX package's
 by design: it takes the Solver's ``device`` (None = ``cuda``, raising
-without CUDA), and it raises instead of running another way for API mode
-(ROADMAP.md A6c), a solver pool (A11), a mesh of more than one device
-(A10) and the persistent XLA compile cache; ``karpenter_build_info``
-keeps the JAX package's labels with an empty ``jax_version``. The
-webhooks' verdicts and a repriced plan are compared with the JAX
-package's exactly; cfg4's fleet, cut to 30 nodes, must decide through
+without CUDA), and it raises instead of running another way for a solver
+pool (ROADMAP.md A11), a mesh of more than one device (A10) and the
+persistent XLA compile cache; ``karpenter_build_info`` keeps the JAX
+package's labels with an empty ``jax_version``. API mode builds and
+hydrates its mirror from the apiserver as the JAX Operator's does. The
+webhooks' verdicts (the wire entry ``validate_wire`` included) and a
+repriced plan are compared with the JAX package's exactly; cfg4's fleet, cut to 30 nodes, must decide through
 the Operator exactly as through ``workloads.ConsolidationStack``
 (``chip_smoke.py``'s operator phase at full size on the card).
 """
@@ -105,11 +106,34 @@ def test_operator_defaults_to_cuda_and_raises_without_it(monkeypatch):
 
 
 def test_api_mode_and_solver_pool_raise():
+    """A solver pool raises (A11); API mode builds on both packages and
+    its first ``sync_once`` hydrates the mirror with what the apiserver
+    held, equally."""
     from karpenter_provider_aws_tpu_torch.operator import Options
-    with pytest.raises(NotImplementedError, match="A6c"):
-        _operator(cases.TORCH_PKG, api_server=object())
     with pytest.raises(NotImplementedError, match="A11"):
         _operator(cases.TORCH_PKG, options=Options(solver_address="unix:/a.sock"))
+    out = {}
+    for pkg in (cases.JAX_PKG, cases.TORCH_PKG):
+        m = lambda name: cases.mod(pkg, name)  # noqa: E731
+        clock = m("utils.clock").FakeClock()
+        server = m("kube").FakeAPIServer(clock=clock)
+        client = m("kube").KubeClient(server)
+        A = m("apis")
+        client.create_nodepool(A.NodePool(name="api-pool", weight=5))
+        for i in range(4):
+            client.create_pod(A.Pod(name=f"p{i}",
+                                    requests={"cpu": "1", "memory": "1Gi"}))
+        op = _operator(pkg, clock=clock, api_server=server)
+        assert op.sync is not None and op.sync.has_synced
+        assert op.writer.__class__.__name__ == "ApiWriter"
+        assert op.sync_once() == 0   # the first list already hydrated
+        out[pkg] = (sorted(op.cluster.pods), sorted(op.node_pools),
+                    op.node_pools["api-pool"].weight,
+                    sorted(o["metadata"]["name"]
+                           for o in server.list("nodepools")[0]),
+                    server.last_rv)
+    assert out[cases.TORCH_PKG] == out[cases.JAX_PKG]
+    assert out[cases.JAX_PKG][0] == ["p0", "p1", "p2", "p3"]
 
 
 def test_mesh_plans(monkeypatch):
@@ -321,11 +345,32 @@ def test_webhook_verdicts_equal_to_jax():
 
 
 def test_validate_wire_raises_instead_of_answering():
-    from karpenter_provider_aws_tpu_torch.webhooks import validate_wire
-    for kind, spec in (("nodepools", {"name": "x"}), ("pods", {}),
-                       ("ec2nodeclasses", {"name": "x", "role": "r"})):
-        with pytest.raises(NotImplementedError, match="A6c"):
-            validate_wire(kind, spec)
+    """``validate_wire`` (schema, then the semantic webhook, over wire
+    dicts) answers as the JAX package's does on every admission object's
+    wire dict, on unknown kinds and on malformed specs, error strings
+    included. (The name is the one it had while the port raised here.)"""
+    verdicts = {}
+    for pkg in (cases.JAX_PKG, cases.TORCH_PKG):
+        W, serde = cases.mod(pkg, "webhooks"), cases.mod(pkg, "apis.serde")
+        pools, classes, pdbs = _admission_objects(pkg)
+        specs = ([("nodepools", serde.nodepool_to_dict(p)) for p in pools]
+                 + [("nodeclasses", serde.nodeclass_to_dict(c))
+                    for c in classes]
+                 + [("ec2nodeclasses", serde.nodeclass_to_dict(c))
+                    for c in classes]
+                 + [("pdbs", serde.pdb_to_dict(b)) for b in pdbs]
+                 + [("nodepools", {"name": "x", "weight": "heavy"}),
+                    ("nodepools", {"name": "x", "requirements": [
+                        {"key": "k", "operator": "In", "values": []}]}),
+                    ("nodeclaims", {"name": "c"}),
+                    ("nodeclaims", {"name": "c", "nodePool": "p",
+                                    "phase": "Lost"}),
+                    ("pods", {}), ("nodeclasses", {"name": "x"})])
+        verdicts[pkg] = [(kind, W.validate_wire(kind, spec))
+                         for kind, spec in specs]
+    j = verdicts[cases.JAX_PKG]
+    assert verdicts[cases.TORCH_PKG] == j
+    assert sum(1 for _, v in j if v) >= 20 and any(not v for _, v in j)
 
 
 def _subnet_wave(pkg, ips):

@@ -2,7 +2,8 @@
 
 The port imports torch and numpy, never jax and never the JAX package
 (whose name is a prefix of the port's: ``karpenter_provider_aws_tpu``
-followed by ``.`` or the end of the name, never ``_torch``). Its entry
+followed by ``.`` or the end of the name, never ``_torch``), and never
+``jsonschema``, which the machine with the card does not have. Its entry
 points run on the card unless the caller asks for the CPU.
 """
 
@@ -66,13 +67,23 @@ def test_no_jax_or_jax_package_imports(path):
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
 
 
+def test_no_jsonschema_imports():
+    """The wire schema validates with the port's own validator: no file
+    of the port, nor chip_smoke.py, imports ``jsonschema``."""
+    bad = {str(p.relative_to(REPO)): n for p in CHECKED_FILES
+           for n in _imported_names(p)
+           if n == "jsonschema" or n.startswith("jsonschema.")}
+    assert not bad, bad
+
+
 def test_every_module_imports_without_jax():
     """Every port module imports in a fresh process where importing jax,
-    or the JAX package, fails."""
+    the JAX package or jsonschema fails."""
     mods = [_module_name(p) for p in PORT_FILES]
     code = "\n".join([
         "import sys",
         "sys.modules['jax'] = None",
+        "sys.modules['jsonschema'] = None",
         f"sys.modules['{JAX_PKG}'] = None",
         "import importlib",
         f"for m in {mods!r}:",
@@ -108,6 +119,66 @@ def test_guard_covers_the_operator_modules():
                  "introspect.registry", "introspect.slo", "introspect.sampler",
                  "introspect.headroom", "introspect.profiler"):
         assert f"{port}.{name}" in mods, name
+
+
+def test_guard_covers_the_api_stratum_and_the_cli():
+    """The import guards above check every module of the API stratum and
+    the CLI, and the kube package exports what the JAX package's does."""
+    mods = {_module_name(p) for p in PORT_FILES}
+    port = "karpenter_provider_aws_tpu_torch"
+    for name in ("apis.serde", "apis.schema", "kube", "kube.apiserver",
+                 "kube.client", "kube.informer", "kube.eventsink",
+                 "kube.writer", "kube.httpserver", "operator.sync",
+                 "operator.leaderelection", "operator.runtime", "debug",
+                 "cli", "__main__"):
+        assert f"{port}.{name}" in mods, name
+    from karpenter_provider_aws_tpu_torch import kube
+    assert "serve_http" in kube.__all__ and "KubeClient" in kube.__all__
+
+
+def test_cli_runs_where_jax_and_jsonschema_cannot_load(tmp_path):
+    """``python -m karpenter_provider_aws_tpu_torch`` in a process where
+    jax, the JAX package and jsonschema cannot be imported: ``--help``
+    names the ``--device`` flag, the port's own schema validator admits
+    a NodePool, a short run on the CPU in API mode (``--api-port``)
+    exits 0, and nothing of jax, the JAX package or jsonschema was
+    loaded."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    code = "\n".join([
+        "import runpy, sys",
+        "sys.modules['jax'] = None",
+        "sys.modules['jsonschema'] = None",
+        f"sys.modules['{JAX_PKG}'] = None",
+        "sys.argv = ['karpenter_provider_aws_tpu_torch', '--device', 'cpu',",
+        f"            '--metrics-port', '0', '--api-port', '{port}',",
+        "            '--duration', '0.3', '--step', '0.1']",
+        "from karpenter_provider_aws_tpu_torch.kube import FakeAPIServer",
+        "from karpenter_provider_aws_tpu_torch.apis import NodePool, serde",
+        "from karpenter_provider_aws_tpu_torch import kube",
+        "s = FakeAPIServer(); kube.install_admission(s)",
+        "s.create('nodepools', serde.nodepool_to_dict(NodePool(name='np')))",
+        "try:",
+        "    runpy.run_module('karpenter_provider_aws_tpu_torch',",
+        "                     run_name='__main__')",
+        "except SystemExit as e:",
+        "    assert e.code in (0, None), e.code",
+        "leaked = [m for m, v in sys.modules.items() if v is not None and (",
+        f"          m == 'jax' or m.startswith('jax.') or m == '{JAX_PKG}'",
+        f"          or m.startswith('{JAX_PKG}.') or m == 'jsonschema')]",
+        "assert not leaked, leaked",
+        "print('ran')",
+    ])
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "ran" in out.stdout
+    helped = subprocess.run(
+        [sys.executable, "-m", "karpenter_provider_aws_tpu_torch", "--help"],
+        cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert helped.returncode == 0 and "--device" in helped.stdout
 
 
 def test_guard_covers_the_ladder_and_weather_modules():

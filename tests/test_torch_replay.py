@@ -30,11 +30,27 @@ they were made:
 - each interruption queue: its messages and what is still pending;
 - each solver ``FaultInjector``: its ceilings, the device errors still
   pending and what fired;
-- each weather simulator: its seed, ticks, timeline and counters.
+- each weather simulator: its seed, ticks, timeline and counters;
+- each fake apiserver: every stored object of every kind as its JSON
+  text (the serde dict in its envelope, so key order, float formatting
+  and ``resourceVersion`` are compared), the global resourceVersion, and
+  ``stats()``'s counters (bulk calls and ops, bookmarks, dropped-watcher
+  events, deliveries, watchers, objects). A time field of an object
+  (``WALL_TIME_FIELDS``) that holds a wall-clock stamp (an epoch time,
+  where a ``FakeClock`` starts at 1e6) is compared by presence only, as
+  is the annotation of a claim's solver stage times
+  (``WALL_TIME_ANNOTATIONS``), and the queue depths of ``stats()``
+  follow the watchers' threads and are not compared.
 
 Everything is compared for equality; the only float slack is
 ``REL`` on the engine's savings. A test the port cannot run yet is named
 in its file's ``NOT_REPLAYED`` with the roadmap item that brings it.
+A test whose run follows the wall clock through threads (a controller
+runtime, an HTTP server, leader election) is named in its file's
+``THREADED``: there the test's own checks run on both packages, and of
+what both made only the kinds and counts are compared.
+
+On the port side the CLI's ``--device`` also defaults to the CPU.
 """
 
 import ast
@@ -61,11 +77,21 @@ WALL_TIME = re.compile(
     r"karpenter_solver_)")
 
 # events a wall-clock measurement raises: a pass slower than the SLO's
-# latency budget for long enough (the JAX package's first passes compile)
+# latency budget for long enough (the JAX package's first passes compile).
+# The event sink keeps them out of every apiserver on both packages, so
+# that they neither appear in its store nor shift its resourceVersions
+# and event names; the recorder still holds them.
 WALL_TIME_EVENTS = ("SloBudgetBurn",)
 # headroom rows whose depth follows the wall clock: burn captures fire on
 # slow passes, and the events ring also holds the events above
 WALL_TIME_RESOURCES = ("burn_captures", "events_ring")
+
+# wire fields that carry a time, and the least value that is a
+# wall-clock stamp (an epoch time; a FakeClock starts at 1e6)
+WALL_TIME_FIELDS = re.compile(r"(Timestamp|Time|At|^time)$")
+WALL_EPOCH = 1e9
+# annotations whose values are wall-time measurements
+WALL_TIME_ANNOTATIONS = ("karpenter.sh/solver-stage-ms",)
 
 _PKG_RE = re.compile(r"\bkarpenter_provider_aws_tpu\b")
 
@@ -159,12 +185,13 @@ def _fixture_parts(obj):
 
 
 class _Fixtures:
-    """Resolves a test's arguments from its module's fixtures (module or
-    function scope, plain or generator) and pytest's ``monkeypatch`` and
-    ``tmp_path``."""
+    """Resolves a test's arguments from its class's and its module's
+    fixtures (module or function scope, plain or generator) and pytest's
+    ``monkeypatch`` and ``tmp_path``."""
 
-    def __init__(self, module, tmp_path):
+    def __init__(self, module, tmp_path, instance=None):
         self.module = module
+        self.instance = instance
         self.tmp_path = tmp_path
         self.values = {}
         self.finalizers = []
@@ -180,10 +207,15 @@ class _Fixtures:
             self.tmp_path.mkdir(parents=True, exist_ok=True)
             value = self.tmp_path
         else:
-            obj = self.module.__dict__.get(name)
+            obj = getattr(type(self.instance), name, None)
+            bound = hasattr(obj, "_fixture_function_marker")
+            if not bound:
+                obj = self.module.__dict__.get(name)
             if obj is None or not hasattr(obj, "_fixture_function_marker"):
                 raise LookupError(f"fixture {name!r} is not replayable")
             fn, scope = _fixture_parts(obj)
+            if bound:
+                fn = fn.__get__(self.instance)
             cache = self.module._module_fixtures
             if scope == "module" and name in cache:
                 value = cache[name]
@@ -301,6 +333,38 @@ def observe_weather(sim):
             "timeline": repr(sim.timeline), "counters": dict(sim.counters)}
 
 
+def _mask_times(obj):
+    if isinstance(obj, dict):
+        return {k: ("<wall time>" if k in WALL_TIME_ANNOTATIONS
+                    or (isinstance(v, (int, float))
+                        and not isinstance(v, bool) and v >= WALL_EPOCH
+                        and WALL_TIME_FIELDS.search(k))
+                    else _mask_times(v))
+                for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [_mask_times(v) for v in obj]
+    return obj
+
+
+# stats() counters that follow the writes alone (the queue depths follow
+# the watchers' threads)
+APISERVER_STATS = ("watchers", "watch_drops", "bookmarks", "objects",
+                   "events_emitted", "bulk_calls", "bulk_ops",
+                   "fanout_envelope_copies", "last_rv")
+
+
+def observe_apiserver(server):
+    import json
+    objects = {}
+    for kind, store in server._store.items():
+        objects[kind] = [(name, json.dumps(_mask_times(env)))
+                         for name, env in sorted(store.items())]
+    st = server.stats()
+    return {"objects": objects,
+            "stats": {k: st[k] for k in APISERVER_STATS},
+            "present": sorted(st)}
+
+
 # (module, class) -> observer, for every kind a replayed test may make
 RECORDED = {
     ("operator.operator", "Operator"): observe_operator,
@@ -316,6 +380,7 @@ RECORDED = {
     ("interruption.queue", "FakeQueue"): observe_queue,
     ("solver.faults", "FaultInjector"): observe_faults,
     ("weather.simulator", "WeatherSimulator"): observe_weather,
+    ("kube.apiserver", "FakeAPIServer"): observe_apiserver,
 }
 
 
@@ -354,7 +419,24 @@ def recording(pkg):
         mp.setattr(contention, "_metric_hist", None)
         costmodel = cases.mod(pkg, "solver.costmodel")
         mp.setattr(costmodel, "_MODEL", costmodel.DeviceCostModel())
+        sink_cls = cases.mod(pkg, "kube.eventsink").ApiEventSink
+        sink_call = sink_cls.__call__
+
+        def sink(self, event, _call=sink_call):
+            if event.reason not in WALL_TIME_EVENTS:
+                _call(self, event)
+
+        mp.setattr(sink_cls, "__call__", sink)
         if pkg == cases.TORCH_PKG:
+            cli = cases.mod(pkg, "cli")
+            build_parser = cli.build_parser
+
+            def parser():
+                p = build_parser()
+                p.set_defaults(device="cpu")
+                return p
+
+            mp.setattr(cli, "build_parser", parser)
             solver_cls = cases.mod(pkg, "solver.solve").Solver
             solver_init = solver_cls.__init__
 
@@ -380,7 +462,7 @@ def run_test(module, test_id, tmp_path):
     _, clsname, meth = test_id.split("::")
     instance = getattr(module, clsname)()
     fn = getattr(instance, meth)
-    fx = _Fixtures(module, tmp_path)
+    fx = _Fixtures(module, tmp_path, instance)
     try:
         with recording(module._replay_pkg) as made:
             fn(**{p: fx.get(p) for p in inspect.signature(fn).parameters})
@@ -403,9 +485,10 @@ def _same(j, t, where):
         assert t == j, f"{where} differs"
 
 
-def replay(filename, test_id, tmp_path, stubs=(), shims=()):
+def replay(filename, test_id, tmp_path, stubs=(), shims=(), threaded=False):
     """Run ``test_id`` on the JAX package and on the port, and require the
-    same observations of everything both made."""
+    same observations of everything both made (``threaded``: only the
+    kinds and counts of what both made)."""
     obs = {}
     for pkg in (cases.JAX_PKG, cases.TORCH_PKG):
         module = load(filename, pkg, stubs, shims)
@@ -413,6 +496,8 @@ def replay(filename, test_id, tmp_path, stubs=(), shims=()):
     j, t = obs[cases.JAX_PKG], obs[cases.TORCH_PKG]
     assert {k[1]: len(v) for k, v in t.items()} \
         == {k[1]: len(v) for k, v in j.items()}
+    if threaded:
+        return j, t
     for kind in j:
         for i, (a, b) in enumerate(zip(j[kind], t[kind])):
             _same(a, b, f"{kind[1]}[{i}]")

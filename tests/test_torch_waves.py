@@ -16,10 +16,8 @@ on each, and everything both make is compared; tolerances there):
 - ``test_trace.py``: a degraded solve's trace survives the recorder's
   ring.
 
-Those files compare plans with the JAX package's
-``serde.plan_semantic_dict``, which reads plan attributes only; the port
-has no serde yet (ROADMAP A6c), so on the port side the replay imports
-that one helper module from the JAX package.
+Those files compare plans with ``serde.plan_semantic_dict``; each
+package's replay uses its own.
 
 One more test holds the bytes: for a seeded problem with existing bins
 and affinity classes under ``g_limit=32``, every wave's fused group+pool
@@ -35,8 +33,6 @@ import test_torch_cases as cases
 import test_torch_replay as replay
 from test_torch_replay import one_torch_thread  # noqa: F401 (autouse)
 
-_SERDE = ("from karpenter_provider_aws_tpu.apis import serde",
-          "from karpenter_provider_aws_tpu.apis import serde")
 REPLAYS = {
     "test_pipeline.py": (
         ["TestPlanParity::test_wave_split_parity",
@@ -44,8 +40,7 @@ REPLAYS = {
          "TestFaultsMidPipeline::test_wave_fault_mid_pipeline",
          "TestFaultsMidPipeline::test_persistent_failure_reaches_host_ffd",
          "TestStageTimings::test_wave_split_accumulates_stages"],
-        [_SERDE,
-         ("from karpenter_provider_aws_tpu.batcher import (Batcher, "
+        [("from karpenter_provider_aws_tpu.batcher import (Batcher, "
           "BatcherOptions,\n                                                "
           "SolveWindow)",
           "from karpenter_provider_aws_tpu_torch.batcher import (Batcher, "
@@ -53,9 +48,7 @@ REPLAYS = {
     "test_microloop.py": (
         ["TestMicroloopSingleDevice::test_overlap_runs_exactly_once",
          "TestDonationSafety::test_fault_mid_microloop_rebuilds_donated_state"],
-        [("from karpenter_provider_aws_tpu.apis import NodePool, Pod, serde",
-          "from karpenter_provider_aws_tpu_torch.apis import NodePool, Pod\n"
-          "from karpenter_provider_aws_tpu.apis import serde")]),
+        []),
     "test_trace.py": (
         ["TestTailSampling::test_degraded_device_solve_trace_retained_after_wrap"],
         []),
