@@ -157,12 +157,42 @@ Phases, in order; any failure exits non-zero and prints no result line:
    (read over REST), the lease held by this process, the kernel launched,
    ``/metrics`` lint clean, no controller tick raised, and ``main`` must
    return 0 within ``API_CLI_STOP_SECONDS`` of its stop event;
-13. kernel timing: the kernel and its plain version at cfg5's and cfg10's
+13. mesh: the sharded solve, ``MESH_SHARDS`` (8) pod shards batched on
+   the card (``plan_mesh("8")``, as ``--mesh 8`` plans it). (a) cfg11
+   (``workloads.config11_200k_sharded``: 200,000 pods in 32 shapes with
+   selectors, the real catalog, seed 12; not cut) on a mesh-native
+   ``Solver(lattice, mesh=...)``, sequential and pipelined, and on the
+   single-device Solver: each cold solve places every pod within 1.02x of
+   the FFD oracle's cost, does not degrade and launches the kernel (its
+   count per solve printed: the shard pack's dispatches and the merge);
+   each mesh plan equals one CPU solve of the same mesh problem
+   (``serde.plan_semantic_dict``); then ``MESH_SOLVES`` solves per path
+   (``build_problem`` included) in turns for each path's e2e and stage
+   p50s, one mesh solve under the profiler for the device's idle share,
+   the shard imbalance and B per shard. (b) cfg9 (16,500 pods) on the mesh
+   within 1.02x of the single-device plan's cost, and the capped
+   full-dissolve problem, whose mesh plan must equal the single-device
+   plan byte for byte. (c) cfg10's 12 steady passes on a mesh-native
+   Solver (``workloads.delta_on_mesh_passes``): every pass an incremental
+   build through ``solve_delta``'s microloop on the mesh with a resident
+   hit, at most ``MESH_LEGS`` link legs (``MESH_LEGS_MERGE`` on a pass
+   that re-ran the tail-bin merge, 2 more a merge regrow, the reference's
+   bound), the no-churn passes skipping their fetch, and each plan equal
+   to a sequential mesh solve of the same problem and (node multiset,
+   cost) to a scratch build's. (d) ``Operator(options=Options(mesh="8"))``
+   on the card through one forced pass of the cfg9 wave: its plan on 8
+   shards, equal to (b)'s mesh plan node by node, the kernel launched, and
+   ``/metrics`` carrying ``karpenter_solver_mesh_devices 8.0`` and linting
+   clean. The shard pack's D·B kernel rows and the merge's rows of (a)'s
+   pipelined cold solve are held exactly against the plain version and
+   timed in phase 14;
+14. kernel timing: the kernel and its plain version at cfg5's and cfg10's
    own inputs (captured in a solve of each), at the first consolidation
-   pass's probe dispatch (K x B rows in one call), at cfg7's last wave and
-   at the dense largest bin bucket (B=8192), and the card's launch floor
-   (a one-element in-place add), each the median of 100 device times from
-   CUDA events, queued behind a device sleep so that no host gap is timed.
+   pass's probe dispatch (K x B rows in one call), at cfg7's last wave, at
+   cfg11's shard pack (D·B rows) and merge, and at the dense largest bin
+   bucket (B=8192), and the card's launch floor (a one-element in-place
+   add), each the median of 100 device times from CUDA events, queued
+   behind a device sleep so that no host gap is timed.
 
 No fallback may hide the card: every Solver the script makes is kept,
 and after each phase each must have no FaultInjector attached and exactly
@@ -188,7 +218,7 @@ T0 = time.perf_counter()
 SOLVES = 12
 SMALL_PASSES = 12
 CONSOLIDATION_PASSES = 8
-WAVE_SOLVES = 3            # cfg7 solves per path, the paths in turns
+WAVE_SOLVES = 1            # cfg7 solves per path, the paths in turns
 WAVE_CUT_PODS = 320        # cfg7's cut for the card-against-CPU wave split
 WAVE_CUT_G_LIMIT = 64      # its injected group ceiling: 5 waves
 LADDER_PASSES = 4          # cfg10 steady passes of the mid-microloop fault
@@ -200,6 +230,10 @@ API_REST_PODS = 1000       # of them POSTed one by one over REST
 API_CLI_PODS = 2000        # cfg10's pods POSTed to the CLI over REST
 API_CLI_STOP_SECONDS = 30  # main must return this soon after its stop event
 API_TOKEN = "chip-smoke-api-token"
+MESH_SHARDS = 8            # the mesh phase's shards (--mesh 8)
+MESH_SOLVES = 3            # cfg11 solves per path, the three paths in turns
+MESH_LEGS = 2              # link legs of a steady pass on the mesh, and of
+MESH_LEGS_MERGE = 4        # one that re-ran the tail-bin merge (+2 a regrow)
 
 
 def _fail(msg: str) -> int:
@@ -2036,6 +2070,343 @@ def _api(torch, workloads, oa):
     return out, launches
 
 
+def _mesh(torch, workloads, lattice, oa):
+    """Phase 13: the sharded solve on an 8-shard mesh, batched on the card.
+    (a) cfg11 (200k pods) on a mesh-native Solver, sequential and
+    pipelined, against the single-device solve in turns; (b) cfg9 against
+    the single-device plan and the capped full-dissolve problem; (c)
+    cfg10's steady passes on the mesh; (d) an Operator booted with
+    ``mesh="8"`` through one forced cfg9 pass. Returns its numbers, its
+    launches and the kernel inputs of the shard pack and the merge."""
+    from karpenter_provider_aws_tpu_torch import measure
+    from karpenter_provider_aws_tpu_torch.apis import serde
+    from karpenter_provider_aws_tpu_torch.metrics import lint_exposition
+    from karpenter_provider_aws_tpu_torch.ops import binpack
+    from karpenter_provider_aws_tpu_torch.operator import Operator, Options
+    from karpenter_provider_aws_tpu_torch.parallel import plan_mesh
+    from karpenter_provider_aws_tpu_torch.solver import Solver
+    from karpenter_provider_aws_tpu_torch.solver.oracle import ffd_oracle
+    from karpenter_provider_aws_tpu_torch.solver.problem import build_problem
+    from karpenter_provider_aws_tpu_torch.utils.clock import FakeClock
+
+    def canon(plan):
+        return json.dumps(serde.plan_semantic_dict(plan), sort_keys=True)
+
+    plan8 = plan_mesh(str(MESH_SHARDS))
+    mesh = plan8.mesh
+    if (plan8.devices, plan8.source, mesh.shards) != (MESH_SHARDS, "forced",
+                                                       MESH_SHARDS):
+        raise AssertionError(f"mesh: plan_mesh planned {plan8}")
+    out, launches = {}, {}
+
+    # (a) cfg11, 200k pods on the mesh
+    pods, pools, existing = workloads.config11_200k_sharded()
+    t = time.perf_counter()
+    problem = build_problem(pods, pools, lattice, existing=existing)
+    build_ms = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    oracle = ffd_oracle(problem)
+    oracle_s = time.perf_counter() - t
+    print(f"cfg11: {len(pods)} pods, {problem.G} groups, build_problem "
+          f"{build_ms:.1f} ms; ffd oracle {oracle.num_new_nodes} nodes, "
+          f"${oracle.new_node_cost:.2f}/hr ({oracle_s:.1f} s)", flush=True)
+    if len(pods) != 200_000:
+        raise AssertionError(f"cfg11: {len(pods)} pods, not 200,000")
+    t = time.perf_counter()
+    cpu_plan = Solver(lattice, device="cpu", mesh=plan_mesh(
+        str(MESH_SHARDS), device="cpu").mesh).solve(problem)
+    cpu_s = time.perf_counter() - t
+    print(f"cfg11 cpu mesh plan: {len(cpu_plan.new_nodes)} nodes "
+          f"({cpu_s:.1f} s)", flush=True)
+
+    paths = {"cfg11_mesh_sequential": Solver(lattice, pipeline=False, mesh=mesh),
+             "cfg11_mesh_pipelined": Solver(lattice, mesh=mesh),
+             "cfg11_single": Solver(lattice)}
+    captured, in_merge = [], [False]
+    orig_offering, orig_seeded = binpack.cheapest_offering, binpack.pack_packed_seeded
+
+    def capture(tm, zc, pr):
+        captured.append((in_merge[0], (tm.clone(), zc.clone(), pr.clone())))
+        return orig_offering(tm, zc, pr)
+
+    def seeded(*a, **kw):
+        in_merge[0] = True
+        try:
+            return orig_seeded(*a, **kw)
+        finally:
+            in_merge[0] = False
+
+    cold = {}
+    for name, solver in paths.items():
+        meshed = name != "cfg11_single"
+        if solver.device.type != "cuda" or solver.mesh_devices != (
+                MESH_SHARDS if meshed else 1):
+            raise AssertionError(f"{name}: Solver on {solver.device} with "
+                                 f"{solver.mesh_devices} shard(s)")
+        oa.LAUNCHES = 0
+        if name == "cfg11_mesh_pipelined":
+            binpack.cheapest_offering, binpack.pack_packed_seeded = capture, seeded
+        t = time.perf_counter()
+        try:
+            plan = solver.solve(problem)
+            torch.cuda.synchronize()
+        finally:
+            binpack.cheapest_offering = orig_offering
+            binpack.pack_packed_seeded = orig_seeded
+        cold_ms = (time.perf_counter() - t) * 1e3
+        launches[name] = oa.LAUNCHES
+        placed = _placed(plan)
+        ratio = plan.new_node_cost / oracle.new_node_cost
+        print(f"{name}: {len(plan.new_nodes)} nodes, ${plan.new_node_cost:.2f}/hr, "
+              f"{placed} pods placed, {len(plan.unschedulable)} unschedulable, "
+              f"ratio to the oracle {ratio:.6f}, path {plan.solver_path}, "
+              f"{plan.mesh_devices} shard(s), {launches[name]} kernel "
+              f"launch(es), cold solve {cold_ms:.1f} ms", flush=True)
+        if plan.unschedulable or placed != len(pods) or plan.degraded:
+            raise AssertionError(f"{name}: placed {placed}/{len(pods)}, "
+                                 f"degraded {plan.degraded}")
+        if not ratio <= 1.02:
+            raise AssertionError(f"{name}: cost ratio {ratio} above 1.02")
+        if launches[name] < 1:
+            raise AssertionError(f"{name}: the kernel never launched")
+        if meshed:
+            if plan.mesh_devices != MESH_SHARDS:
+                raise AssertionError(f"{name}: plan on {plan.mesh_devices} shards")
+            if canon(plan) != canon(cpu_plan):
+                raise AssertionError(f"{name}: the card's mesh plan differs "
+                                     f"from the CPU mesh plan")
+            print(f"{name}: plan == cpu mesh plan (plan_semantic_dict)",
+                  flush=True)
+        cold[name] = plan
+    # the pipelined cold solve's launches, split by the call that made them
+    shard_rows = [c for merged, c in captured if not merged]
+    merge_rows = [c for merged, c in captured if merged]
+    launches["cfg11_mesh_shards"] = len(shard_rows)
+    launches["cfg11_mesh_merge"] = len(merge_rows)
+    if ((len(shard_rows), len(merge_rows)) != (1, 1)
+            or len(shard_rows) + len(merge_rows)
+            != launches["cfg11_mesh_pipelined"]):
+        raise AssertionError(
+            f"cfg11: {len(shard_rows)} shard-pack and {len(merge_rows)} "
+            f"merge kernel calls in a solve of "
+            f"{launches['cfg11_mesh_pipelined']} launch(es), not 1 + 1")
+    shard_B = [c[0].shape[0] // MESH_SHARDS for c in shard_rows]
+    print(f"cfg11 mesh: shard-pack kernel calls at B per shard {shard_B} "
+          f"({[c[0].shape[0] for c in shard_rows]} rows), merge calls at "
+          f"{[c[0].shape[0] for c in merge_rows]} rows; shard imbalance "
+          f"{paths['cfg11_mesh_pipelined'].stats()['mesh_shard_imbalance']}",
+          flush=True)
+    single, meshed_plan = cold["cfg11_single"], cold["cfg11_mesh_pipelined"]
+    print(f"cfg11: mesh ${meshed_plan.new_node_cost:.2f}/hr against single "
+          f"${single.new_node_cost:.2f}/hr "
+          f"({meshed_plan.new_node_cost / single.new_node_cost:.6f})", flush=True)
+
+    e2e = {name: [] for name in paths}
+    stages = {name: {} for name in paths}
+    per_solve = {name: [] for name in paths}
+    order = list(paths)
+    for i in range(MESH_SOLVES):
+        for name in (order[i % 3:] + order[:i % 3]):
+            oa.LAUNCHES = 0
+            t = time.perf_counter()
+            p = paths[name].solve(build_problem(pods, pools, lattice,
+                                                existing=existing))
+            torch.cuda.synchronize()
+            e2e[name].append((time.perf_counter() - t) * 1e3)
+            per_solve[name].append(oa.LAUNCHES)
+            for k, v in p.stage_ms.items():
+                stages[name].setdefault(k, []).append(v)
+            if not _same_plan(p, cold[name]):
+                raise AssertionError(f"{name}: a repeated solve changed the plan")
+    cfg11 = {"pods": len(pods), "groups": problem.G, "build_ms": build_ms,
+             "oracle_cost": oracle.new_node_cost, "oracle_s": oracle_s,
+             "cpu_mesh_s": cpu_s, "shard_B": shard_B,
+             "merge_rows": [c[0].shape[0] for c in merge_rows],
+             "shard_imbalance":
+                 paths["cfg11_mesh_pipelined"].stats()["mesh_shard_imbalance"]}
+    for name in paths:
+        ms = e2e[name]
+        cfg11[name] = {
+            "e2e_p50_ms": statistics.median(ms), "e2e_ms": ms,
+            "stage_p50_ms": {k: statistics.median(v)
+                             for k, v in stages[name].items()},
+            "launches_per_solve": per_solve[name],
+            "nodes": len(cold[name].new_nodes),
+            "cost": cold[name].new_node_cost}
+        print(f"{name}: e2e p50 {statistics.median(ms):.3f} ms over "
+              f"{MESH_SOLVES} solves (min {min(ms):.3f}, max {max(ms):.3f}); "
+              f"stage p50 ms { {k: round(v, 3) for k, v in cfg11[name]['stage_p50_ms'].items()} }; "
+              f"launches {per_solve[name]}", flush=True)
+    wall_ms, device_ms, n_kernels = measure.profiled_device_ms(
+        lambda: paths["cfg11_mesh_pipelined"].solve(problem))
+    cfg11["profiled"] = {"wall_ms": wall_ms, "device_ms": device_ms,
+                         "kernels": n_kernels, "idle": 1.0 - device_ms / wall_ms}
+    print(f"cfg11 mesh under the profiler: {device_ms:.3f} ms of device time "
+          f"in {n_kernels} kernels in a {wall_ms:.3f} ms wall: idle share "
+          f"{1.0 - device_ms / wall_ms:.4f}", flush=True)
+    out["cfg11"] = cfg11
+    launches["cfg11_mesh"] = launches["cfg11_mesh_pipelined"]
+
+    # (b) cfg9 against the single-device plan; the capped full dissolve
+    pods9, pools9, _ = workloads.config9_sharded_16k()
+    problem9 = build_problem(pods9, pools9, lattice)
+    oa.LAUNCHES = 0
+    mesh9 = paths["cfg11_mesh_pipelined"].solve(problem9)
+    torch.cuda.synchronize()
+    launches["cfg9_mesh"] = oa.LAUNCHES
+    single9 = paths["cfg11_single"].solve(problem9)
+    ratio9 = mesh9.new_node_cost / single9.new_node_cost
+    print(f"cfg9: {len(pods9)} pods, mesh {len(mesh9.new_nodes)} nodes "
+          f"${mesh9.new_node_cost:.2f}/hr against single {len(single9.new_nodes)} "
+          f"nodes ${single9.new_node_cost:.2f}/hr: ratio {ratio9:.6f}, "
+          f"{launches['cfg9_mesh']} launch(es)", flush=True)
+    for name, p in (("mesh", mesh9), ("single", single9)):
+        if p.unschedulable or _placed(p) != len(pods9) or p.degraded:
+            raise AssertionError(f"cfg9 {name}: placed {_placed(p)}/{len(pods9)}")
+    if not ratio9 <= 1.02 or mesh9.mesh_devices != MESH_SHARDS:
+        raise AssertionError(f"cfg9: mesh against single {ratio9}")
+    big, capped = workloads.mesh_parity_problem()
+    single_c = Solver(big).solve(capped)
+    mesh_c = Solver(big, mesh=mesh).solve(capped)
+    if mesh_c.mesh_devices != MESH_SHARDS or canon(mesh_c) != canon(single_c):
+        raise AssertionError("capped full dissolve: the mesh plan differs from "
+                             "the single-device plan")
+    print(f"capped full dissolve: mesh plan == single-device plan, byte for "
+          f"byte ({len(mesh_c.new_nodes)} nodes, ${mesh_c.new_node_cost:.2f}/hr)",
+          flush=True)
+    out["cfg9"] = {"pods": len(pods9), "mesh_cost": mesh9.new_node_cost,
+                   "single_cost": single9.new_node_cost, "ratio": ratio9,
+                   "launches": launches["cfg9_mesh"],
+                   "capped_full_dissolve_identical": True}
+
+    # (c) cfg10's steady passes on the mesh
+    solver, churn, pools10, passes = workloads.delta_on_mesh_passes(lattice,
+                                                                    mesh)
+    referee = Solver(lattice, pipeline=False, mesh=mesh)
+    rebuild = Solver(lattice, mesh=mesh)
+    rows = []
+    oa.LAUNCHES = 0
+    pre = None
+    for pass_i, res, plan, ms, legs in passes:
+        torch.cuda.synchronize()
+        launched = oa.LAUNCHES
+        st = dict(solver.pipeline_stats)
+        same = referee.solve(res.problem)
+        scratch = rebuild.solve(build_problem(churn.pods, pools10, lattice,
+                                              existing=list(churn.existing)))
+        ok_same = canon(plan) == canon(same)
+        ok_scratch = (_node_multiset(plan) == _node_multiset(scratch)
+                      and abs(plan.new_node_cost - scratch.new_node_cost) <= 1e-6)
+        if pass_i < 0:
+            print(f"delta on mesh, cold: full build, solve and priming "
+                  f"solve_delta {ms:.1f} ms", flush=True)
+        else:
+            merged = st["micro_merge_solves"] > pre["micro_merge_solves"]
+            regrows = st["micro_merge_regrows"] - pre["micro_merge_regrows"]
+            row = {"pass": pass_i, "ms": ms, "legs": legs, "launches": launched,
+                   "incremental": res.incremental,
+                   "micro": st["micro_solves"] - pre["micro_solves"],
+                   "aborts": st["micro_aborts"] - pre["micro_aborts"],
+                   "hit": st["resident_problem_hits"]
+                   - pre["resident_problem_hits"],
+                   "skipped": st["micro_skipped_syncs"]
+                   - pre["micro_skipped_syncs"],
+                   "merged": merged, "regrows": regrows,
+                   "merge_reused": st["micro_merge_skips"]
+                   - pre["micro_merge_skips"]}
+            rows.append(row)
+            print(f"delta on mesh pass {pass_i}: {ms:.3f} ms, legs {legs}, "
+                  f"{launched} launch(es), merge ran {merged} (reused "
+                  f"{row['merge_reused']}, regrows {regrows}), skipped fetch "
+                  f"{row['skipped']}; == sequential {ok_same}, == scratch "
+                  f"{ok_scratch}", flush=True)
+            bound = (MESH_LEGS_MERGE if merged else MESH_LEGS) + 2 * regrows
+            if not (res.incremental and row["micro"] == 1 and row["hit"] == 1
+                    and row["aborts"] == 0 and plan.mesh_devices == MESH_SHARDS):
+                raise AssertionError(f"delta on mesh pass {pass_i}: not a "
+                                     f"resident microloop pass on the mesh: {row}")
+            if legs > bound:
+                raise AssertionError(f"delta on mesh pass {pass_i}: {legs} legs, "
+                                     f"bound {bound}")
+        if not (ok_same and ok_scratch):
+            raise AssertionError(f"delta on mesh pass {pass_i}: the plan differs "
+                                 f"from a referee (same problem {ok_same}, "
+                                 f"scratch build {ok_scratch})")
+        if plan.unschedulable or _placed(plan) != len(churn.pods):
+            raise AssertionError(f"delta on mesh pass {pass_i}: "
+                                 f"{len(plan.unschedulable)} unschedulable")
+        pre = dict(solver.pipeline_stats)
+        oa.LAUNCHES = 0
+    if sum(r["skipped"] for r in rows) != len(rows) // workloads.STEADY_NOCHURN_EVERY:
+        raise AssertionError("delta on mesh: the no-churn passes did not skip "
+                             "their fetch")
+    pass_ms = [r["ms"] for r in rows]
+    launches["cfg10_delta_on_mesh"] = sum(r["launches"] for r in rows)
+    out["cfg10_delta_on_mesh"] = {
+        "passes": len(rows), "pass_p50_ms": statistics.median(pass_ms),
+        "legs_per_pass": [r["legs"] for r in rows],
+        "launches_per_pass": [r["launches"] for r in rows],
+        "merge_passes": sum(r["merged"] for r in rows),
+        "merge_reuses": sum(r["merge_reused"] for r in rows),
+        "regrows": sum(r["regrows"] for r in rows)}
+    print(f"delta on mesh: pass p50 {statistics.median(pass_ms):.3f} ms over "
+          f"{len(rows)} passes, legs {out['cfg10_delta_on_mesh']['legs_per_pass']}, "
+          f"launches {out['cfg10_delta_on_mesh']['launches_per_pass']}", flush=True)
+
+    # (d) the Operator booted with mesh="8": one forced cfg9 pass
+    clock = FakeClock()
+    op = Operator(options=Options(mesh=str(MESH_SHARDS),
+                                  registration_delay=workloads.REGISTRATION_DELAY),
+                  lattice=lattice, cloud=workloads.wave_cloud(clock), clock=clock,
+                  node_pools=pools9)
+    if (op.solver.device.type != "cuda" or op.mesh_plan.devices != MESH_SHARDS
+            or op.solver.mesh_devices != MESH_SHARDS):
+        raise AssertionError(f"mesh Operator: Solver on {op.solver.device}, "
+                             f"{op.solver.mesh_devices} shard(s)")
+    results = []
+    orig_provision = op.provisioner.provision_once
+
+    def provision_once(*a, **kw):
+        r = orig_provision(*a, **kw)
+        results.append(r)
+        return r
+    op.provisioner.provision_once = provision_once
+    for p in pods9:
+        op.cluster.add_pod(p)
+    oa.LAUNCHES = 0
+    t = time.perf_counter()
+    op.run_once(force_provision=True)
+    torch.cuda.synchronize()
+    op_ms = (time.perf_counter() - t) * 1e3
+    launches["operator_cfg9_mesh"] = oa.LAUNCHES
+    if len(results) != 1:
+        raise AssertionError(f"mesh Operator: {len(results)} provisioning passes")
+    _check_pass("mesh Operator cfg9", results[0])
+    op_plan = results[0].plan
+    op.emit_gauges()
+    text = op.metrics.render()
+    gauge = f"karpenter_solver_mesh_devices {float(MESH_SHARDS)}"
+    problems = lint_exposition(text)
+    print(f"mesh Operator cfg9: {len(results[0].created_claims)} claims, "
+          f"{results[0].pods_scheduled} pods scheduled, plan on "
+          f"{op_plan.mesh_devices} shards, {launches['operator_cfg9_mesh']} "
+          f"launch(es), pass wall {op_ms:.3f} ms; /metrics has '{gauge}': "
+          f"{gauge in text.splitlines()}, lint problems {len(problems)}", flush=True)
+    if (op_plan.mesh_devices != MESH_SHARDS or launches["operator_cfg9_mesh"] < 1
+            or results[0].pods_scheduled != len(pods9)):
+        raise AssertionError("mesh Operator: the pass did not solve cfg9 on the "
+                             "mesh")
+    if _node_rows(op_plan) != _node_rows(mesh9):
+        raise AssertionError("mesh Operator: the plan differs from cfg9's mesh "
+                             "plan")
+    if gauge not in text.splitlines() or problems:
+        raise AssertionError(f"mesh Operator: /metrics lacks '{gauge}' or lints "
+                             f"{problems[:3]}")
+    out["operator_cfg9"] = {"wall_ms": op_ms, "claims": len(results[0].created_claims),
+                            "launches": launches["operator_cfg9_mesh"]}
+    return out, launches, shard_rows[-1], merge_rows[-1]
+
+
 def main() -> int:
     try:
         import torch
@@ -2234,7 +2605,14 @@ def _run(torch) -> int:
     launches.update(api_launches)
     _check_solvers(torch, "api")
 
-    # ---- 13. kernel times: the main paths' own inputs, the dense largest
+    # ---- 13. the sharded solve: 8 shards batched on the card
+    _phase("mesh: cfg11 (200k pods), cfg9, delta and the Operator on 8 shards")
+    mesh, mesh_launches, mesh_shard_inputs, mesh_merge_inputs = _mesh(
+        torch, workloads, lattice, oa)
+    launches.update(mesh_launches)
+    _check_solvers(torch, "mesh")
+
+    # ---- 14. kernel times: the main paths' own inputs, the dense largest
     # bucket, the launch floor
     _phase("kernel timing")
     solver = Solver(lattice)
@@ -2246,6 +2624,8 @@ def _run(torch) -> int:
     for name, (tm, zc, pr) in (
             ("cfg5", cfg5_inputs), ("cfg10", cfg10_inputs),
             ("cfg4_probe", probe_inputs), ("cfg7_last_wave", cfg7_inputs),
+            ("cfg11_mesh_shards", mesh_shard_inputs),
+            ("cfg11_mesh_merge", mesh_merge_inputs),
             ("dense", measure.on_device(offering_cases.dense_case(), dev))):
         max_err = max(max_err, measure.check_exact(
             f"{name} inputs", oa.cheapest_offering(tm, zc, pr),
@@ -2295,11 +2675,20 @@ def _run(torch) -> int:
                            "launches": launches["cfg7_per_solve"],
                            "launches_per_solve": launches["cfg7_per_solve"],
                            "wave_B": wave["wave_B"]},
+        "cfg11_mesh_shards": {**timed["cfg11_mesh_shards"], "library_ms": None,
+                              "launches": launches["cfg11_mesh_shards"],
+                              "launches_per_solve": launches["cfg11_mesh_shards"],
+                              "shard_B": mesh["cfg11"]["shard_B"]},
+        "cfg11_mesh_merge": {**timed["cfg11_mesh_merge"], "library_ms": None,
+                             "launches": launches["cfg11_mesh_merge"],
+                             "launches_per_solve": launches["cfg11_mesh_merge"]},
+        "cfg10_delta_on_mesh": {"launches": launches["cfg10_delta_on_mesh"]},
         "dense": timed["dense"],
     }], "cfg5": cfg5, "cfg10": {k: v for k, v in steady.items()
                                 if k != "launches_per_pass"},
         "consolidation": consol, "operator": operator,
         "wave_split": wave, "ladder": ladder, "weather": weather, "api": api,
+        "mesh": mesh,
         "provisioner": {"cfg5_wave": prov["cfg5_wave"],
                         "cfg10_first_wave": prov["cfg10_first_wave"],
                         "cfg10": {k: v for k, v in prov["cfg10"].items()

@@ -25,8 +25,8 @@ part this package does not carry fail before anything is served or
 built, naming the roadmap item that brings it: ``--warm-start`` and
 ``--profile-dir`` (ahead-of-time compiles and device traces, B7),
 ``--sidecar-address`` and ``--solver-address`` (the solver sidecar and
-pool, A11), a ``--mesh`` of more than one device (A10), and
-``--compile-cache-dir`` (nothing is compiled at run time to cache).
+pool, A11), and ``--compile-cache-dir`` (nothing is compiled at run time
+to cache). ``--mesh N`` runs N pod shards batched on the ``--device``.
 
 Run it as ``python -m karpenter_provider_aws_tpu_torch [flags]`` or as the
 ``karpenter-tpu-controller-torch`` console script.
@@ -160,10 +160,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--sidecar-address", default=None,
                    help="Not ported (ROADMAP.md A11): fails at start.")
     p.add_argument("--mesh", default=None,
-                   help="Device mesh for the solver (env SOLVER_MESH): "
-                        "'auto' (default) and 'off' or 1 solve on one "
-                        "device; a mesh of more than one device is not "
-                        "ported (ROADMAP.md A10) and fails at start.")
+                   help="Device mesh for the sharded solver (env "
+                        "SOLVER_MESH): an integer N splits every solve "
+                        "(full, wave-split and the steady-state delta) "
+                        "into N pod shards packed as one batched pass on "
+                        "the --device, then merges their tail bins; "
+                        "'auto' (default) plans one shard per card when "
+                        "several are visible (still batched on the "
+                        "--device) and stays single-device on the CPU "
+                        "and with one card; 'off' or 1 pins the "
+                        "single-device path. Batched on one card, a mesh "
+                        "solve is slower than the single-device one.")
     p.add_argument("--solver-address", default=None,
                    help="Not ported (ROADMAP.md A11; env SOLVER_ADDRESSES): "
                         "fails at start.")
@@ -472,11 +479,6 @@ def _check_ported(args: argparse.Namespace, opts: Options):
                          "package compiles nothing at run time, so there is "
                          "no compile cache to persist")
     from .device import resolve_device
-    from .parallel.mesh import plan_mesh
-    try:
-        plan_mesh(opts.mesh or "auto", device=args.device)
-    except NotImplementedError as e:
-        raise SystemExit(f"--mesh {opts.mesh or 'auto'}: {e}")
     return resolve_device(args.device)
 
 

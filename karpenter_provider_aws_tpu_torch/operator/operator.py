@@ -14,11 +14,12 @@ mode, where controllers write straight into the ClusterState mirror
 write through the apiserver client and informers feed the mirror.
 Beyond the JAX Operator's arguments it takes ``device``, where the
 Solver's tensors live: None means ``cuda`` and raises without CUDA, and
-tests pass ``"cpu"``. What the port does not carry raises at
+tests pass ``"cpu"``. A solver mesh (``Options.mesh``) runs its shards
+batched on that device. What the port does not carry raises at
 construction instead of running another way: a solver pool
-(``Options.solver_address``; ROADMAP.md A11), a solver mesh of more than
-one device (A10), and the persistent XLA compile cache
-(``Options.compile_cache_dir``), which has nothing to cache here.
+(``Options.solver_address``; ROADMAP.md A11) and the persistent XLA
+compile cache (``Options.compile_cache_dir``), which has nothing to
+cache here.
 """
 
 from __future__ import annotations
@@ -246,11 +247,18 @@ class Operator:
             launch_templates=self.launch_template_provider,
             version=self.version_provider), self.metrics)
         # the mesh decision, once, at boot (parallel/mesh.py plan_mesh):
-        # the port accepts only the single-device plan, and a spec that
-        # would shard raises there
+        # several visible cards auto-mesh, --mesh/SOLVER_MESH forces a
+        # shape, and single-device stays the passthrough. The Solver then
+        # runs every solve (full, wave-split and the steady-state delta)
+        # over this mesh, its shards batched on the Solver's device
         from ..parallel.mesh import plan_mesh
         self.mesh_plan = plan_mesh(self.options.mesh or "auto",
                                    device=self.device)
+        if self.mesh_plan.devices > 1:
+            self.log.info("solver mesh planned",
+                          devices=self.mesh_plan.devices,
+                          axis=self.mesh_plan.axis,
+                          source=self.mesh_plan.source)
         self.solver = Solver(self.lattice, device=self.device,
                              clock=self.clock, mesh=self.mesh_plan.mesh)
         self.provisioner = Provisioner(

@@ -88,8 +88,8 @@ class Options:
     solver_health_deadline: float = 1.0
     # device mesh for the sharded solver (parallel/mesh.py plan_mesh).
     # "" or "auto" auto-selects, "off" pins the single-device path, an
-    # integer forces an N-way mesh. The port solves on one device: a
-    # plan of more than one device raises NotImplementedError.
+    # integer forces an N-way mesh, its shards batched on the Solver's
+    # device.
     mesh: str = ""
     # directory for the JAX package's persistent XLA compilation cache.
     # Parsed so the same settings load, but the port compiles nothing at

@@ -553,15 +553,16 @@ def _unpack_init(buf: Optional[torch.Tensor],
     device). ``buf`` None = no existing capacity. Rows >= n_existing are
     neutralized even when the buffer carries data there.
 
-    ``n_existing`` is a host int for one pack, or, for a [K,total] stack
-    of buffers (the batched probe), a [K] int32 tensor on the device: each
-    probe keeps its own count of existing bins."""
+    ``n_existing`` is a host int for one pack, or a [K] int32 tensor on
+    the device for a [K,total] stack of buffers (the batched probe: each
+    probe keeps its own count of existing bins) or for one buffer that K
+    shards share (the sharded pack: E on shard 0, 0 elsewhere); the bin
+    table then carries the leading K axis."""
     if buf is None:
         return empty_state(B, T, Z, C, R, A, device=device)
     dev = buf.device
     layout, _total = init_layout(B, R, A)
     vals = _field_values(buf, layout)
-    lead = tuple(buf.shape[:-1])
     rows = torch.arange(B, dtype=_I32, device=dev)
     if isinstance(n_existing, torch.Tensor):
         n_e = n_existing.to(_I32)
@@ -583,7 +584,7 @@ def _unpack_init(buf: Optional[torch.Tensor],
         cmask=onehot(vals["e_cap"], C) & live[..., None],
         np_id=torch.where(live, vals["e_np"],
                           torch.full((), -1, dtype=_I32, device=dev)),
-        npods=torch.zeros(lead + (B,), dtype=_I32, device=dev),
+        npods=torch.zeros(live.shape, dtype=_I32, device=dev),
         open=live, fixed=live.clone(),
         alloc_cap=torch.where(live[..., None], vals["e_alloc"],
                               torch.full((), float("inf"), dtype=_F32,
@@ -625,6 +626,66 @@ def pack_packed_combined(alloc: torch.Tensor, avail: torch.Tensor,
     groups, pools = _unpack_inputs(buf[:split], G, T, Z, C, NP, A, R_)
     init = _unpack_init(buf[split:], n_existing, B, T, Z, C, A, R_,
                         device=alloc.device)
+    return _encode_decode_set(pack(alloc, avail, price, groups, pools, init),
+                              lean=lean)
+
+
+def seed_layout(B: int, T: int, Z: int, C: int, R: int,
+                A: int) -> Tuple[Tuple[FieldSpec, ...], int]:
+    """Byte layout of the fused SEEDED bin-table upload (the sharded
+    solve's tail-bin merge). Unlike the existing-bin table (init_layout),
+    merge seed rows are mid-pack state rebuilt from shard results: full
+    cum/alloc_cap rows, multi-hot masks, OPEN non-fixed bins, live pm/po
+    accumulators and an explicit next_open cursor, so they cannot ride the
+    one-hot init staging. FieldSpec.src is unused here (the host writes
+    rows straight from decoded shard state, solver/solve.py
+    ``_merge_seed_np``)."""
+    fields = [
+        ("s_cum", np.float32, (B, R), "", 0),
+        ("s_alloc", np.float32, (B, R), "", np.inf),
+        ("s_pm", np.int32, (B, A), "", 0),
+        ("s_np", np.int32, (B,), "", -1),
+        ("s_npods", np.int32, (B,), "", 0),
+        ("s_next", np.int32, (1,), "", 0),
+        ("s_tmask", np.uint8, (B, T), "", 0),
+        ("s_zmask", np.uint8, (B, Z), "", 0),
+        ("s_cmask", np.uint8, (B, C), "", 0),
+        ("s_open", np.uint8, (B,), "", 0),
+        ("s_fixed", np.uint8, (B,), "", 0),
+        ("s_po", np.uint8, (B, A), "", 0),
+    ]
+    return _layout(fields)
+
+
+def _unpack_seed(buf: torch.Tensor, B: int, T: int, Z: int, C: int,
+                 A: int, R: int) -> BinState:
+    """Fused seed upload → BinState (reinterpretations and bool casts
+    only)."""
+    layout, _total = seed_layout(B, T, Z, C, R, A)
+    vals = {k: (v.bool() if v.dtype == torch.uint8 else v)
+            for k, v in _field_values(buf, layout).items()}
+    return BinState(
+        cum=vals["s_cum"], tmask=vals["s_tmask"], zmask=vals["s_zmask"],
+        cmask=vals["s_cmask"], np_id=vals["s_np"], npods=vals["s_npods"],
+        open=vals["s_open"], fixed=vals["s_fixed"],
+        alloc_cap=vals["s_alloc"], pm=vals["s_pm"], po=vals["s_po"],
+        next_open=vals["s_next"].reshape(()),
+    )
+
+
+def pack_packed_seeded(alloc: torch.Tensor, avail: torch.Tensor,
+                       price: torch.Tensor, buf: torch.Tensor, split: int,
+                       B: int, G: int, T: int, Z: int, C: int, NP: int,
+                       A: int, lean: bool = False) -> torch.Tensor:
+    """One-upload pack over a SEEDED bin table: groups+pools AND the merge
+    seed BinState ride ONE uint8 buffer (``buf[:split]`` / ``buf[split:]``
+    per seed_layout). The tail-bin merge of every sharded solve goes
+    through here: one upload and one result fetch per merge."""
+    if lean and NP >= 2 ** 15:
+        raise ValueError("lean layout needs NP < 2^15")
+    R_ = alloc.shape[1]
+    groups, pools = _unpack_inputs(buf[:split], G, T, Z, C, NP, A, R_)
+    init = _unpack_seed(buf[split:], B, T, Z, C, A, R_)
     return _encode_decode_set(pack(alloc, avail, price, groups, pools, init),
                               lean=lean)
 

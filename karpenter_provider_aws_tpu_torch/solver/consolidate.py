@@ -22,9 +22,9 @@ over the probes, one cheapest-offering kernel launch over all their bins):
   sync legs; an unlocalizable mutation clears the cache — the
   always-correct fallback, never a silently-stale verdict.
 - **host fallback, counted**: candidate problems outside the vmapped
-  envelope (wave-scale G past the solver's largest group bucket; this
-  package has no mesh, so the JAX package's pinned-groups-on-a-mesh
-  check never fires) are flagged for the controller's existing exact
+  envelope (wave-scale G past the solver's largest group bucket,
+  pinned/co-located groups on a mesh of more than one shard) are
+  flagged for the controller's existing exact
   `_what_if` ladder instead of the batch, and counted — the same honesty
   rule the microloop's `micro_aborts` follows.
 - **savings referee**: an accepted removal must beat the host FFD
@@ -227,10 +227,14 @@ class ConsolidationEngine:
     def _vmap_ineligible(self, problem) -> str:
         """Mirror of the microloop's envelope checks (Solver._solve_micro
         _MicroIneligible): the reason this candidate problem cannot ride
-        the vmapped probe batch, or "". Without a mesh only the group
-        axis can put a problem outside it."""
+        the vmapped probe batch, or ""."""
         if problem.G > self.solver._g_ceiling():
             return "wave-scale G"
+        mesh = getattr(self.solver, "mesh", None)
+        sharded = mesh is not None and int(mesh.devices.size) > 1
+        if sharded and (bool(problem.single_bin.any())
+                        or (problem.A and bool(problem.g_need.any()))):
+            return "pinned groups on mesh"
         return ""
 
     # ---- what-if problem construction ------------------------------------

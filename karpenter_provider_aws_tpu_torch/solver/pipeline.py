@@ -223,11 +223,16 @@ class ResidentInputCache:
         """``donate=True`` applies the delta scatter in place on the
         resident buffer (one device allocation for the key's life);
         otherwise the scatter writes a new buffer and the entry moves to
-        it. ``sharding`` (a mesh placement) is not ported."""
-        if sharding is not None:
-            raise NotImplementedError(
-                "mesh-placed resident buffers are not ported to the PyTorch "
-                "solver; only the single-device cache is")
+        it. ``sharding`` is the shared placement of a mesh
+        (parallel/sharded.py ``replicated_sharding``): every shard of a
+        mesh lives on this cache's device, so a shared buffer is stored
+        once, as any other. Callers key mesh entries by shard count
+        (solver/solve.py uses ``("g", D, ...)``), so a mesh-shape change
+        never delta-hits a buffer resident under the old mesh."""
+        if sharding is not None and (not isinstance(sharding, tuple)
+                                     or sharding[:1] != ("replicated",)):
+            raise ValueError(f"unknown placement {sharding!r}: a mesh "
+                             "buffer is shared by all shards")
         total = int(buf.size)
         nblk = -(-total // self._block)
         padded = np.zeros((nblk, self._block), np.uint8)

@@ -47,10 +47,17 @@ unplaced reasons.
 pass (ops/binpack.py ``pack_probe_fused``) on the Solver's own device,
 with no fallback: a device error raises ``SolverDeviceError``.
 
-The sharded mesh solve and its microloop tail are not ported: a ``mesh``
-other than None raises ``NotImplementedError``. Every completed solve
-attributes its measured compute stage to its (G, B) shape in the device
-cost model (solver/costmodel.py).
+A mesh (parallel/mesh.py ``plan_mesh``, the Solver's ``mesh`` or a
+per-call ``mesh=``) shards the pod axis into D shards that pack as ONE
+batched pass on the Solver's device (parallel/sharded.py
+``sharded_pack``: a vmapped scan and one cheapest-offering launch over
+the D·B bins), then a host-side refinement dissolves under-filled tail
+bins and re-packs them, seeded with the kept bins, in one small merge
+pack (ops/binpack.py ``pack_packed_seeded``). Every path runs over the
+mesh: the full solve, the wave split, the ladder and the microloop,
+whose merge is reused while the shard results do not move. Every
+completed solve attributes its measured compute stage to its (G, B, D)
+shape in the device cost model (solver/costmodel.py).
 """
 
 from __future__ import annotations
@@ -152,11 +159,14 @@ class _MicroState:
     its host copy, re-decoded with the current pass's pod names whenever
     the fingerprint says the packing did not move (the skipped-sync
     path). The result never aliases the resident input: the pack encodes
-    it into a buffer of its own."""
+    it into a buffer of its own. The mesh merge refinement retains its
+    own result the same way."""
 
     key: Tuple
     prev_dev: Optional[torch.Tensor] = None
     prev_host: Optional[np.ndarray] = None
+    prev_cost: float = 0.0                       # mesh: summed raw cost
+    prev_merge: Optional[Tuple[np.ndarray, int]] = None  # (result, B2)
     # the lattice VIEW (strong ref — an id() can never be reused stale)
     # and price version this state solved against: a reprice or a new
     # ICE-masked view invalidates retention outright
@@ -228,6 +238,15 @@ class _DecodeSet:
     pm: Optional[np.ndarray] = None         # [B,A] i32
     po: Optional[np.ndarray] = None         # [B,A] bool
 
+    def tmask(self, rows, T: int) -> np.ndarray:
+        return np.unpackbits(self.tmask_p[rows], axis=1)[:, :T].astype(bool)
+
+    def zmask(self, rows, Z: int) -> np.ndarray:
+        return np.unpackbits(self.zmask_p[rows], axis=1)[:, :Z].astype(bool)
+
+    def cmask(self, rows, C: int) -> np.ndarray:
+        return np.unpackbits(self.cmask_p[rows], axis=1)[:, :C].astype(bool)
+
 
 def _unpack_decode_set(buf: np.ndarray, G: int, T: int, Z: int, C: int,
                        A: int, lean: bool = False) -> _DecodeSet:
@@ -292,6 +311,21 @@ def _unpack_decode_set(buf: np.ndarray, G: int, T: int, Z: int, C: int,
     )
 
 
+def _unpack_sharded(packed: np.ndarray, G: int, T: int, Z: int, C: int,
+                    A: int) -> List[_DecodeSet]:
+    """One host-side _DecodeSet per shard of a fetched [D, B+n_trailer, W]
+    buffer (each shard's rows use the single-device layout)."""
+    return [_unpack_decode_set(packed[d], G, T, Z, C, A)
+            for d in range(packed.shape[0])]
+
+
+def decode_sharded_pack(sp, G: int, T: int, Z: int, C: int,
+                        A: int) -> List[_DecodeSet]:
+    """Decode a ShardedPack's fused buffer into one _DecodeSet per shard
+    (one device→host copy for all shards)."""
+    return _unpack_sharded(sp.packed.cpu().numpy(), G, T, Z, C, A)
+
+
 def _locked(fn):
     """Serialize a Solver entry point on the instance's solve lock
     (re-entrant: solve_relaxed → solve nests fine), with the Solver's
@@ -312,12 +346,6 @@ def _locked(fn):
     return wrapper
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch solver; only the "
-        f"single-device solve is")
-
-
 class Solver:
     """Holds the lattice resident on one device; solves padded problems.
 
@@ -325,9 +353,11 @@ class Solver:
     ``device="cpu"`` for the plain PyTorch path on the CPU. ``pipeline``
     picks the overlapped path (default) or the strictly sequential one.
     ``clock`` is the injected clock (the Operator's): the device-retry
-    backoff sleeps on it. ``mesh`` must be None: the sharded solve is not
-    ported. Thread-safe: every public solve entry point serializes on an
-    internal RLock."""
+    backoff sleeps on it. ``mesh`` is the production mesh every solve runs
+    over (parallel/mesh.py; None = the single-device path), its D shards
+    batched on this Solver's device; a mesh planned for another device
+    type raises ValueError. Thread-safe: every public solve entry point
+    serializes on an internal RLock."""
 
     # the steady-state delta path (IncrementalProblemBuilder +
     # solve_delta) runs in this process, on this Solver's device
@@ -335,12 +365,13 @@ class Solver:
 
     def __init__(self, lattice: Lattice, device: DeviceLike = None,
                  pipeline: bool = True, clock=None, mesh=None):
-        if mesh is not None:
-            raise _not_ported("the sharded mesh solve (ROADMAP.md A10)")
-        self.mesh = None
         from ..utils.clock import WALL
         self._clock = clock if clock is not None else WALL
         self.device = resolve_device(device)
+        # the device mesh every solve runs over (parallel/mesh.py
+        # plan_mesh resolves --mesh/SOLVER_MESH at boot; None = the
+        # single-device path). A per-call ``mesh=`` still overrides
+        self.mesh = self._check_mesh(mesh)
         # whether the host FFD may carry a real device error or a host bug
         # (the module docstring): on the CPU only, never on the card
         self._host_ffd_carries_all = self.device.type != "cuda"
@@ -374,9 +405,8 @@ class Solver:
         # Off = the strictly sequential path
         self.pipeline = pipeline
         self._resident = ResidentInputCache(device=dev)
-        # proof that the overlap and the microloop engaged; the keys are
-        # the JAX package's, so both report alike (the mesh and merge
-        # counters stay 0 here: the mesh is not ported)
+        # proof that the overlap, the microloop and the mesh engaged; the
+        # keys are the JAX package's, so both report alike
         self.pipeline_stats: Dict[str, int] = {
             "async_solves": 0,       # device solves that dispatched async
             "prefetched_waves": 0,   # wave inputs uploaded during compute
@@ -386,6 +416,7 @@ class Solver:
             "delta_dirty_groups": 0,
             "resident_problem_hits": 0,
             "resident_problem_misses": 0,
+            # sharded solves carried by the mesh (full, wave and delta)
             "mesh_solves": 0,
             # the microloop (solve_delta → _solve_micro): passes it
             # carried, plan fetches its fingerprint suppressed, plan
@@ -397,6 +428,8 @@ class Solver:
             "micro_fetches": 0,
             "micro_merge_solves": 0,
             "micro_merge_skips": 0,
+            # merge bin-table overflow regrows: each pays one more
+            # upload and fetch on the pass that paid it
             "micro_merge_regrows": 0,
             "micro_aborts": 0,
             "micro_tiny_syncs": 0,
@@ -413,8 +446,16 @@ class Solver:
         }
         self._resident.account = self._account_link
         # retained microloop state (None = cold); reset by every
-        # device-state invalidation
+        # device-state invalidation (fault recovery, mesh swap)
         self._micro: Optional[_MicroState] = None
+        # max/mean per-shard pod load of the last sharded solve's split
+        # (parallel/sharded.py shard_groups): the shard-imbalance gauge
+        self._mesh_imbalance = 0.0
+        # the mesh's lattice tensors (_mesh_inputs): avail/price memoized
+        # per (mesh, lattice view, price version); alloc is invariant for
+        # this Solver's lifetime, so it keys on the mesh alone
+        self._mesh_consts = None
+        self._mesh_alloc = None
         # the last probe_batch dispatch: its buckets and raw [K,6] summary
         self.last_probe: Optional[Dict[str, object]] = None
 
@@ -429,16 +470,39 @@ class Solver:
         self.link_stats[direction + "_bytes"] += int(nbytes)
 
     def _invalidate_device_state(self) -> None:
-        """Drop every retained device buffer: the resident input entries
-        and the microloop's retained result. One helper so no recovery
-        path can forget a layer."""
+        """Drop every retained device buffer: the resident input entries,
+        the mesh's lattice memo and the microloop's retained result. One
+        helper so neither a recovery path nor set_mesh can forget a
+        layer."""
         self._resident.invalidate()
+        self._mesh_consts = None
+        self._mesh_alloc = None
         self._micro = None
+
+    def _check_mesh(self, mesh):
+        """``mesh`` if this Solver may run it: a mesh planned for a device
+        of another type never moves the solve there (nor off the card)."""
+        dev = getattr(mesh, "device", None)
+        if dev is not None and torch.device(dev).type != self.device.type:
+            raise ValueError(f"a mesh planned for {dev} cannot run on this "
+                             f"Solver's {self.device}: a mesh's shards run "
+                             f"on the Solver's device")
+        return mesh
 
     @property
     def mesh_devices(self) -> int:
-        """Devices every solve runs over (always 1: no mesh)."""
-        return 1
+        """Shards of the production mesh (1 = single-device path)."""
+        m = self.mesh
+        return int(m.devices.size) if m is not None else 1
+
+    def set_mesh(self, mesh) -> None:
+        """Swap the production mesh (thread-safe). Invalidates the
+        resident input cache, the mesh's lattice memo and the microloop
+        state: entries are keyed by shard count, but a mesh-sized change
+        re-uploads, it never delta-hits state of the old shape."""
+        with self._solve_lock:
+            self.mesh = self._check_mesh(mesh)
+            self._invalidate_device_state()
 
     def stats(self) -> Dict[str, object]:
         """Introspection snapshot (counter reads only; never takes the
@@ -448,9 +512,10 @@ class Solver:
             "est_cache_entries": len(self._est_cache),
             "b_hint_entries": len(self._b_hint),
             "faults_injected": self.faults is not None,
-            # one device, no shards: the mesh gauges read 1 and 0
+            # the mesh surface: shards of the production mesh (1 =
+            # single-device) and the last split's load imbalance
             "mesh_devices": self.mesh_devices,
-            "mesh_shard_imbalance": 0.0,
+            "mesh_shard_imbalance": round(self._mesh_imbalance, 4),
             "micro_engaged": self._micro is not None,
         }
         for k, v in self.pipeline_stats.items():
@@ -564,6 +629,30 @@ class Solver:
         return (torch.as_tensor(problem.lattice.available, device=self.device),
                 torch.as_tensor(problem.lattice.price, device=self.device))
 
+    def _mesh_inputs(self, problem: Problem, mesh):
+        """(alloc, avail, price) for ``mesh``'s shards, which share them:
+        copied to the device once and kept across passes. avail/price are
+        memoized per (mesh, lattice view, price version), so a pricing
+        refresh or a new ICE-masked view re-keys exactly those two; alloc
+        is invariant for this Solver's lifetime and keys on the mesh
+        alone. The memo holds a strong ref to the view, so an id() can
+        never be reused stale."""
+        dev = self.device
+        ma = self._mesh_alloc
+        if ma is None or ma[0] != mesh:
+            ma = (mesh, torch.tensor(np.asarray(self.lattice.alloc),
+                                     device=dev))
+            self._mesh_alloc = ma
+        lat = problem.lattice
+        key = (mesh, id(lat), lat.price_version)
+        mc = self._mesh_consts
+        if mc is None or mc[0] != key:
+            mc = (key, lat,
+                  (torch.tensor(np.asarray(lat.available), device=dev),
+                   torch.tensor(np.asarray(lat.price), device=dev)))
+            self._mesh_consts = mc
+        return (ma[1],) + mc[2]
+
     # ---- padding ----
 
     def _layout(self, problem: Problem, G: int, A: Optional[int] = None,
@@ -603,6 +692,13 @@ class Solver:
             self._pad_field(problem, f, out=view,
                             override=count_override if f.name == "count" else None)
         return buf
+
+    def _fused_inputs(self, problem: Problem, G: int,
+                      count_override: Optional[np.ndarray] = None
+                      ) -> torch.Tensor:
+        """``_fused_inputs_np`` uploaded to this Solver's device."""
+        return self._upload(self._fused_inputs_np(
+            problem, G, count_override=count_override))
 
     def _fused_init_np(self, problem: Problem, B: int,
                        A: Optional[int] = None) -> np.ndarray:
@@ -666,8 +762,6 @@ class Solver:
         from ..apis.objects import relax_pod, relaxation_depth
         from .problem import build_problem
 
-        if mesh is not None:
-            raise _not_ported("the sharded mesh solve")
         lattice = lattice if lattice is not None else self.lattice
         depth = {p.name: relaxation_depth(p) for p in pods}
         relax: Dict[str, int] = {}
@@ -696,7 +790,7 @@ class Solver:
                                         bound_pods=bound_pods, pvcs=pvcs,
                                         storage_classes=storage_classes,
                                         pool_headroom=pool_headroom)
-            plan = self.solve(problem)
+            plan = self.solve(problem, mesh=mesh)
             total_solve += plan.solve_seconds
             total_device += plan.device_seconds
             total_retries += plan.device_retries
@@ -752,12 +846,12 @@ class Solver:
         device, degrading gracefully (the ladder in the module docstring).
         The ladder never raises for input shape or injected faults:
         adversarial batches degrade in latency, not availability. A
-        ``mesh`` raises (``NotImplementedError``), and so, on a CUDA
-        device, does every failure that :meth:`_host_ffd_may_carry`
-        refuses, once its retry (if it earns one) failed too."""
+        ``mesh`` (None = the Solver's own ``mesh``) shards the pod axis; every
+        rung of the ladder rides it. On a CUDA device every failure that
+        :meth:`_host_ffd_may_carry` refuses raises, once its retry (if it
+        earns one) failed too."""
         t0 = time.perf_counter()
-        if mesh is not None:
-            raise _not_ported("the sharded mesh solve")
+        mesh = self.mesh if mesh is None else self._check_mesh(mesh)
         if problem.G == 0:
             return NodePlan([], {}, dict(problem.unschedulable), 0.0,
                             time.perf_counter() - t0, 0.0)
@@ -770,9 +864,9 @@ class Solver:
                         self._count_degraded("wave_split")
                         if self.faults is not None and self.faults.g_limit:
                             self.faults.note("g_overflow")
-                    plan = self._solve_waves(problem, t0)
+                    plan = self._solve_waves(problem, mesh, t0)
                 else:
-                    plan = self._solve_device(problem, t0)
+                    plan = self._solve_device(problem, mesh, t0)
                 plan.device_retries = retries
                 return plan
             except SolverCapacityError as e:
@@ -834,6 +928,26 @@ class Solver:
             B = fresh
         return fresh, min(B, self._b_ceiling())
 
+    def _b_budget_sharded(self, problem: Problem, D: int) -> int:
+        """The per-shard bin budget of the mesh pack, shared by
+        :meth:`_solve_sharded` and the microloop: existing bins (shard 0)
+        + this shard's slice of the splittable groups + one tail bin per
+        group + whole (pinned/co-located) groups + slack. The whole-group
+        term is 0 inside the microloop's envelope (pinned groups leave it
+        first), so sharing the formula keeps both paths' resident keys
+        identical."""
+        total_pods = int(problem.count.sum())
+        caps = np.minimum(problem.max_per_bin.astype(np.int64),
+                          np.maximum(problem.count.astype(np.int64), 1))
+        capped_bins = int(np.ceil(problem.count
+                                  / np.maximum(caps, 1)).sum())
+        n_whole = int(problem.single_bin.sum()) + (
+            int(problem.g_need.any(axis=1).sum()) if problem.A else 0)
+        b_needed = problem.E + min(
+            total_pods, -(-capped_bins // D) + problem.G + n_whole + 64)
+        return min(_bucket(max(b_needed, problem.E + 1), _B_BUCKETS,
+                           clamp=True), self._b_ceiling())
+
     def _stage_upload(self, key: Tuple, buf: np.ndarray,
                       pipelined: bool) -> torch.Tensor:
         """One fused upload: through the resident cache on the pipelined
@@ -844,10 +958,13 @@ class Solver:
         self._sync()
         return dev
 
-    def _solve_device(self, problem: Problem, t0: Optional[float] = None,
+    def _solve_device(self, problem: Problem, mesh=None,
+                      t0: Optional[float] = None,
                       gbuf: Optional[torch.Tensor] = None,
                       overlap=None) -> NodePlan:
-        """The primary path: one bucketed device pack. Raises
+        """The primary path: one bucketed device pack (the pod-axis sharded
+        variant, :meth:`_solve_sharded`, over a mesh of more than one
+        shard). Raises
         SolverCapacityError when the bin table cannot grow past its
         ceiling and SolverDeviceError when the device call fails; the
         ladder in :meth:`_solve_problem` owns what happens next.
@@ -866,6 +983,9 @@ class Solver:
         given, the caller paid its build and upload stages (possibly
         inside a previous wave's compute window)."""
         t0 = time.perf_counter() if t0 is None else t0
+        if mesh is not None and mesh.devices.size > 1:
+            return self._solve_sharded(problem, mesh, t0, gbuf=gbuf,
+                                       overlap=overlap)
         pipelined = self.pipeline
         stages = StageTimer()
         G = _bucket(problem.G, _G_BUCKETS)
@@ -1003,7 +1123,7 @@ class Solver:
 
     # ---- wave-split planner (group-axis graceful degradation) ----
 
-    def _solve_waves(self, problem: Problem, t0: float) -> NodePlan:
+    def _solve_waves(self, problem: Problem, mesh, t0: float) -> NodePlan:
         """Solve a problem whose group axis exceeds the group ceiling by
         partitioning it into bucket-sized WAVES and solving them in
         sequence on the device.
@@ -1024,12 +1144,23 @@ class Solver:
         carry state), so it builds and uploads while wave k computes. The
         carry state itself (the small init buffer) is derived at the stage
         boundary from wave k's decode, exactly as in the sequential
-        planner, which is why the two produce byte-identical plans."""
+        planner, which is why the two produce byte-identical plans.
+
+        A mesh composes with the planner: each wave's fused group buffer
+        is exactly what the sharded pack shares across its shards, so the
+        prefetch and the resident cache (keyed by shard count) ride the
+        mesh unchanged."""
         ceiling = self._g_ceiling()
         wave = max(1, min(self._WAVE_G_TARGET, ceiling))
         bounds = [(lo, min(lo + wave, problem.G))
                   for lo in range(0, problem.G, wave)]
         n_waves = len(bounds)
+        sharded = mesh is not None and int(mesh.devices.size) > 1
+        D = int(mesh.devices.size) if sharded else 1
+        wave_sharding = None
+        if sharded and self.pipeline:
+            from ..parallel.sharded import replicated_sharding
+            wave_sharding = replicated_sharding(mesh)
         pipelined = self.pipeline
         stages = StageTimer()
 
@@ -1045,11 +1176,12 @@ class Solver:
                 fnp = self._fused_inputs_np(gp, Gw)
             with stages.span("upload"):
                 # a transfer failure is device weather (retryable), even in
-                # the previous wave's overlap window; the device count in
-                # the key, as the JAX package keys it
+                # the previous wave's overlap window; the shard count in
+                # the key: a wave buffer resident under one mesh shape
+                # never serves another's delta
                 try:
-                    return self._resident.upload(("w", 1, i, Gw, fnp.size),
-                                                 fnp)
+                    return self._resident.upload(("w", D, i, Gw, fnp.size),
+                                                 fnp, sharding=wave_sharding)
                 except RuntimeError as e:
                     raise SolverDeviceError(f"{type(e).__name__}: {e}",
                                             cause=e) from e
@@ -1114,7 +1246,7 @@ class Solver:
                     self.pipeline_stats["prefetched_waves"] += 1
             with trace.span("solver.wave", wave=i, groups=hi - lo,
                             prefetched=gbuf_i is not None and i > 0):
-                plan_w = self._solve_device(sub, gbuf=gbuf_i,
+                plan_w = self._solve_device(sub, mesh, gbuf=gbuf_i,
                                             overlap=overlap)
             # _solve_device ran the hook once its dispatch succeeded
             next_gbuf = holder.get("gbuf")
@@ -1163,7 +1295,7 @@ class Solver:
                 f"{n_waves} wave(s) of ≤{wave} groups"],
             degraded=True, degraded_reason="g-overflow",
             solver_path="wave-split", waves=n_waves,
-            stage_ms=stages.ms, pipelined=pipelined, mesh_devices=1)
+            stage_ms=stages.ms, pipelined=pipelined, mesh_devices=D)
 
     def _wave_slice(self, problem: Problem, lo: int, hi: int) -> Problem:
         """Groups [lo, hi) with carry-INDEPENDENT fields only: exactly
@@ -1418,6 +1550,512 @@ class Solver:
                     out[l] = shared
         return out
 
+    def _feasible_sets(self, problem: Problem, tmask_row: np.ndarray,
+                       zmask_row: np.ndarray, cmask_row: np.ndarray):
+        """One bin's feasible offering sets, cheapest type first."""
+        return self._feasible_sets_batch(
+            problem, tmask_row[None], zmask_row[None], cmask_row[None])[0]
+
+    # ---- pod-axis sharded solve (the mesh path) ----
+    #
+    # The pod axis splits into D shards: each packs its slice of every
+    # group (parallel/sharded.py, one batched pass on this device), the
+    # totals reduce over shards, and a host-side refinement dissolves
+    # under-filled tail bins (at most one per group per shard) back into
+    # one small seeded merge pack. The merge's size is O(groups x shards),
+    # whatever the pod count.
+
+    MERGE_FILL_THRESHOLD = 0.85  # dissolve new bins filled below this fraction
+
+    def _solve_sharded(self, problem: Problem, mesh, t0: float,
+                       gbuf: Optional[torch.Tensor] = None,
+                       overlap=None) -> NodePlan:
+        """The mesh path: the pod-axis sharded pack and the tail-bin merge,
+        with the single-device solve's pipelining contract. The fused
+        inputs ride the resident cache, keyed by shard count so that a
+        mesh-shape change never delta-hits, the result copy starts at
+        dispatch, and the wave planner's ``overlap`` hook runs inside the
+        compute window. ``gbuf`` is an already-uploaded fused group+pool
+        buffer from the wave prefetch."""
+        from ..parallel.sharded import (replicated_sharding, shard_groups,
+                                        sharded_pack, split_counts)
+
+        D = int(mesh.devices.size)
+        pipelined = self.pipeline
+        stages = StageTimer()
+        G = _bucket(problem.G, _G_BUCKETS)
+        B = self._b_budget_sharded(problem, D)
+        if problem.E > B:
+            # shard 0's existing bins alone overflow the bin-table ceiling
+            # (checked before anything is built, as on one device)
+            if self.faults is not None and self.faults.b_limit:
+                self.faults.note("b_exhausted")
+            raise SolverCapacityError(
+                f"{problem.E} existing bins exceed the bin-table ceiling "
+                f"B={B}", axis="B")
+
+        repl = replicated_sharding(mesh) if pipelined else None
+        if gbuf is None:
+            with stages.span("build"):
+                fused_np = self._fused_inputs_np(problem, G)
+            with stages.span("upload"):
+                # ("g", D, G, size): the mesh's whole-problem resident
+                # entry, which a steady-state delta pass block-diffs
+                try:
+                    gbuf = self._stage_upload(("g", D, G, fused_np.size),
+                                              fused_np, pipelined)
+                except RuntimeError as e:
+                    raise SolverDeviceError(f"{type(e).__name__}: {e}",
+                                            cause=e) from e
+        alloc_r, avail, price = self._mesh_inputs(problem, mesh)
+
+        count_pad = np.zeros((G,), np.int32)
+        count_pad[: problem.G] = problem.count
+        pin = np.zeros((G,), bool)
+        keep = np.zeros((G,), bool)
+        if problem.A:
+            pin[: problem.G] = problem.g_need.any(axis=1)
+        keep[: problem.G] = problem.single_bin
+        keep |= pin
+        count_split = split_counts(count_pad, D, keep_whole=keep,
+                                   pin_shard0=pin)
+        # per-shard load balance of this split (max/mean; the
+        # karpenter_solver_shard_imbalance_ratio gauge reads it)
+        load = shard_groups(count_split).astype(np.float64)
+        self._mesh_imbalance = (float(load.max() / load.mean())
+                                if load.mean() > 0 else 1.0)
+
+        lat = self.lattice
+        A = max(problem.A, 1)
+        NP = max(problem.NP, 1)
+        overlap_pending = overlap
+        while True:
+            compute_ms0 = stages.ms.get("compute", 0.0)
+            td = time.perf_counter()
+            try:
+                init_dev = None
+                if problem.E:
+                    with stages.span("build"):
+                        init_np = self._fused_init_np(problem, B)
+                    with stages.span("upload"):
+                        key = ("i", D, B, init_np.size)
+                        init_dev = (self._resident.upload(key, init_np,
+                                                          sharding=repl)
+                                    if pipelined
+                                    else self._stage_upload(key, init_np,
+                                                            False))
+                self._maybe_inject_device_fault()
+                with stages.span("compute"):
+                    # the [D,G] split ships from the host here (the
+                    # microloop derives it on the device instead)
+                    self._account_link("upload", count_split.nbytes)
+                    sp = sharded_pack(mesh, alloc_r, avail, price, gbuf,
+                                      init_dev, problem.E, count_split,
+                                      B, G, lat.T, lat.Z, lat.C, NP, A)
+                    if not pipelined:
+                        self._sync()
+                # stream the stacked per-shard result out the moment the
+                # pack finishes; the host work below fills the wait
+                pending = fetch_async(sp.packed) if pipelined else None
+            except (SolverError, KernelBuildError):
+                raise
+            except RuntimeError as e:
+                raise SolverDeviceError(
+                    f"{type(e).__name__}: {e}", cause=e) from e
+            # host work outside the device-error wrap, as on the
+            # single-device path: wave k+1's input build is internal-error
+            # when it fails, never device weather
+            if overlap_pending is not None:
+                overlap_pending()
+                overlap_pending = None
+            try:
+                with stages.span("download"):
+                    # one [D,B+n,W] buffer: one device→host copy for all
+                    # shards
+                    packed = (pending.wait() if pipelined
+                              else sp.packed.cpu().numpy())
+            except RuntimeError as e:
+                raise SolverDeviceError(
+                    f"{type(e).__name__}: {e}", cause=e) from e
+            self._account_link("fetch", packed.nbytes)
+            device_s = time.perf_counter() - td
+            with stages.span("decode"):
+                decs = _unpack_sharded(packed, G, lat.T, lat.Z, lat.C, A)
+            leftover = np.stack([dec.leftover for dec in decs])     # [D,G]
+            next_open = np.array([dec.next_open for dec in decs])    # [D]
+            overflowed = bool(((leftover.sum(axis=1) > 0)
+                               & (next_open >= B)).any())
+            if overflowed:
+                nb, grew = _grow_bucket(B)
+                if grew and nb <= self._b_ceiling():
+                    B = nb
+                    continue
+                # the single-device path's exhaustion contract: the ladder
+                # degrades to the host FFD rather than decoding a plan that
+                # drops the spilled pods
+                if self.faults is not None and self.faults.b_limit:
+                    self.faults.note("b_exhausted")
+                raise SolverCapacityError(
+                    f"sharded bin table exhausted at B={B} with "
+                    f"{int(leftover.sum())} pod(s) left over", axis="B")
+            break
+
+        with stages.span("decode"):
+            plan = self._decode_sharded(problem, float(sp.total_cost), decs,
+                                        count_split, device_s)
+        plan.solve_seconds = time.perf_counter() - t0
+        plan.warnings = list(problem.warnings)
+        plan.stage_ms = stages.ms
+        plan.pipelined = pipelined
+        plan.mesh_devices = D
+        plan.shard_imbalance = self._mesh_imbalance
+        # the mesh pack has its own cost-model entry (the key carries D),
+        # so it never pollutes the single-device (G, B) baseline
+        costmodel.model().observe_solve(
+            costmodel.shape_key(G, B, mesh_devices=D),
+            stages.ms.get("compute", 0.0) - compute_ms0)
+        self.pipeline_stats["mesh_solves"] += 1
+        if pipelined:
+            self.pipeline_stats["async_solves"] += 1
+        return plan
+
+    def _stacked_masks(self, decs: List[_DecodeSet],
+                       items: List[Tuple[int, int]]):
+        """Unpack the (shard, bin) rows in ``items`` into stacked [L,T]/
+        [L,Z]/[L,C] boolean masks, one unpackbits per shard."""
+        lat = self.lattice
+        by_shard: Dict[int, List[int]] = {}
+        for i, (d, _b) in enumerate(items):
+            by_shard.setdefault(d, []).append(i)
+        tm = np.zeros((len(items), lat.T), bool)
+        zm = np.zeros((len(items), lat.Z), bool)
+        cm = np.zeros((len(items), lat.C), bool)
+        for d, idxs in by_shard.items():
+            rows = np.array([items[i][1] for i in idxs])
+            tm[idxs] = decs[d].tmask(rows, lat.T)
+            zm[idxs] = decs[d].zmask(rows, lat.Z)
+            cm[idxs] = decs[d].cmask(rows, lat.C)
+        return tm, zm, cm
+
+    def _decode_sharded(self, problem: Problem, raw_cost: float,
+                        decs: List[_DecodeSet],
+                        count_split: np.ndarray, device_s: float,
+                        merge_ctx: Optional[Dict] = None) -> NodePlan:
+        lat = self.lattice
+        D = count_split.shape[0]
+
+        # -- walk each group's contiguous per-shard name slices through the
+        # per-shard bin tables (the single-device cursor decode)
+        bins_content: Dict[Tuple[int, int], List[Tuple[int, List[str]]]] = {}
+        spill_names: Dict[int, List[str]] = {}    # group idx -> no shard placed
+        unschedulable = dict(problem.unschedulable)
+        existing_assignments: Dict[str, List[str]] = {}
+        for gi, group in enumerate(problem.groups):
+            names = group.pod_names
+            start = 0
+            for d in range(D):
+                share = int(count_split[d, gi])
+                shard_names = names[start: start + share]
+                start += share
+                cursor = 0
+                for b in np.nonzero(decs[d].assign[gi])[0]:
+                    n = int(decs[d].assign[gi, b])
+                    bins_content.setdefault((d, int(b)), []).append(
+                        (gi, shard_names[cursor: cursor + n]))
+                    cursor += n
+                # a shard's leftover gets a second chance in the merge
+                # (other shards' bins and existing capacity may hold it)
+                spill = shard_names[cursor: cursor + int(decs[d].leftover[gi])]
+                if spill:
+                    spill_names.setdefault(gi, []).extend(spill)
+
+        # -- classify bins: existing (fixed, shard 0), kept new, dissolved
+        kept: List[Tuple[int, int, List[Tuple[int, List[str]]]]] = []
+        tail_names: Dict[int, List[str]] = {gi: list(v)
+                                            for gi, v in spill_names.items()}
+        for (d, b), content in sorted(bins_content.items()):
+            if decs[d].fixed[b]:
+                name = problem.existing[b].name
+                for _, pod_names in content:
+                    existing_assignments.setdefault(name, []).extend(pod_names)
+                continue
+            alloc_t = lat.alloc[int(decs[d].chosen_t[b])]
+            with np.errstate(divide="ignore", invalid="ignore"):
+                frac = np.where(alloc_t > 0, decs[d].cum[b] / alloc_t, 0.0)
+            if float(np.max(frac, initial=0.0)) < self.MERGE_FILL_THRESHOLD:
+                for gi, pod_names in content:
+                    tail_names.setdefault(gi, []).extend(pod_names)
+            else:
+                kept.append((d, b, content))
+
+        def raw_plan() -> NodePlan:
+            """No-merge plan: every new bin becomes a node as packed;
+            spilled pods (no shard placed them) go unschedulable."""
+            nodes: List[PlannedNode] = []
+            assigns = {k: list(v) for k, v in existing_assignments.items()}
+            unsched = dict(unschedulable)
+            new_entries = [(db, content)
+                           for db, content in sorted(bins_content.items())
+                           if not decs[db[0]].fixed[db[1]]]
+            tm, zm, cm = self._stacked_masks(decs,
+                                             [db for db, _ in new_entries])
+            feasible = self._feasible_sets_batch(problem, tm, zm, cm)
+            for ((d, b), content), (ftypes, fzones, fcaps) in zip(
+                    new_entries, feasible):
+                dec = decs[d]
+                pname, extra = _pool_out(problem.node_pools[int(dec.np_id[b])])
+                node = PlannedNode(
+                    node_pool=pname, extra_labels=extra,
+                    instance_type=lat.names[int(dec.chosen_t[b])],
+                    zone=lat.zones[int(dec.chosen_z[b])],
+                    capacity_type=lat.capacity_types[int(dec.chosen_c[b])],
+                    price_per_hour=float(dec.chosen_price[b]),
+                    feasible_types=ftypes, feasible_zones=fzones,
+                    feasible_capacity_types=fcaps,
+                )
+                for _, pod_names in content:
+                    node.pods.extend(pod_names)
+                nodes.append(node)
+            for gi, pool in spill_names.items():
+                msg = unplaced_reason(problem.groups[gi])
+                for name in pool:
+                    unsched[name] = msg
+            cost = float(sum(n.price_per_hour for n in nodes))
+            return NodePlan(new_nodes=nodes, existing_assignments=assigns,
+                            unschedulable=unsched, new_node_cost=cost,
+                            solve_seconds=0.0, device_seconds=device_s)
+
+        if not tail_names:
+            return raw_plan()
+
+        merged = self._merge_solve(problem, decs, kept, tail_names,
+                                   existing_assignments, unschedulable,
+                                   device_s, merge_ctx=merge_ctx)
+        # the merge is a refinement: take it when it schedules at least as
+        # many pods and does not raise cost; otherwise keep the raw packing.
+        # The comparison reads the aggregates (raw_cost is the pack's float32
+        # live-bin price sum, in the reference's summation order), so the
+        # raw decode only materializes when it wins
+        raw_unsched = len(unschedulable) + sum(len(v) for v in spill_names.values())
+        if (len(merged.unschedulable) < raw_unsched
+                or (len(merged.unschedulable) == raw_unsched
+                    and merged.new_node_cost <= raw_cost + 1e-6)):
+            return merged
+        return raw_plan()
+
+    def _merge_solve(self, problem: Problem, decs: List[_DecodeSet], kept,
+                     tail_names, existing_assignments: Dict[str, List[str]],
+                     unschedulable: Dict[str, str], device_s: float,
+                     merge_ctx: Optional[Dict] = None):
+        """Re-pack dissolved tail bins + spilled pods in one single-device
+        refinement pack seeded with the existing bins (fixed) and the kept
+        bins (open, re-priced at finalization).
+
+        The merge-count group buffer AND the seeded bin table ride ONE
+        upload (ops/binpack.py ``pack_packed_seeded``). ``merge_ctx`` is
+        the microloop's retention seam: ``reuse`` (result bytes, B2) skips
+        the device work on a fingerprint-unchanged pass (identical shard
+        results give identical merge inputs and result; only the pod
+        NAMES decode differently); ``ran``/``result`` hand the fresh
+        result back for the next pass's reuse."""
+        lat = self.lattice
+        E = problem.E
+        K = len(kept)
+        G = _bucket(problem.G, _G_BUCKETS)
+        A = max(problem.A, 1)
+
+        merge_count = np.zeros((G,), np.int32)
+        for gi, pool in tail_names.items():
+            merge_count[gi] = len(pool)
+        tail_total = int(merge_count.sum())
+        # the bin budget honors per-bin caps (hostname spread and
+        # anti-affinity can force one bin per pod)
+        caps = np.minimum(problem.max_per_bin.astype(np.int64),
+                          np.maximum(merge_count[: problem.G].astype(np.int64), 1))
+        capped_bins = int(np.ceil(merge_count[: problem.G]
+                                  / np.maximum(caps, 1)).sum())
+        b_needed = E + K + min(tail_total, capped_bins + 64)
+        B2 = _bucket(b_needed, _B_BUCKETS, clamp=True)
+
+        reuse = merge_ctx.get("reuse") if merge_ctx else None
+        if reuse is not None:
+            buf, B2 = reuse
+            mdec = _unpack_decode_set(buf, G, lat.T, lat.Z, lat.C, A,
+                                      lean=True)
+            merge_ctx["reused"] = True
+        else:
+            fused_np = self._fused_inputs_np(problem, G,
+                                             count_override=merge_count)
+            avail, price = self._device_avail_price(problem)
+            k_tm, k_zm, k_cm = self._stacked_masks(
+                decs, [(d, b) for d, b, _ in kept])
+            while True:
+                seed_np = self._merge_seed_np(problem, decs, kept, B2,
+                                              k_tm, k_zm, k_cm)
+                combined = np.concatenate([fused_np, seed_np])
+                td = time.perf_counter()
+                try:
+                    comb_dev = self._upload(combined)
+                    buf = binpack.pack_packed_seeded(
+                        self._alloc, avail, price, comb_dev,
+                        int(fused_np.size), B2, G, lat.T, lat.Z, lat.C,
+                        max(problem.NP, 1), A, lean=True).cpu().numpy()
+                except (SolverError, KernelBuildError):
+                    raise
+                except RuntimeError as e:
+                    raise SolverDeviceError(
+                        f"{type(e).__name__}: {e}", cause=e) from e
+                self._account_link("fetch", buf.nbytes)
+                device_s += time.perf_counter() - td
+                mdec = _unpack_decode_set(buf, G, lat.T, lat.Z, lat.C, A,
+                                          lean=True)
+                overflowed = (mdec.leftover.sum() > 0) and mdec.next_open >= B2
+                if overflowed:
+                    B2, grew = _grow_bucket(B2)
+                    if grew:
+                        # the retry re-stages and re-fetches: 2 more legs,
+                        # counted so the per-pass bound can excuse them
+                        self.pipeline_stats["micro_merge_regrows"] += 1
+                        continue
+                break
+            if merge_ctx is not None:
+                merge_ctx["ran"] = True
+                merge_ctx["result"] = (buf, B2)
+
+        return self._merge_decode(problem, mdec, mdec.leftover, mdec.assign,
+                                  kept, tail_names, existing_assignments,
+                                  unschedulable, device_s)
+
+    def _merge_seed_np(self, problem: Problem, decs: List[_DecodeSet],
+                       kept, B2: int, k_tm: np.ndarray, k_zm: np.ndarray,
+                       k_cm: np.ndarray) -> np.ndarray:
+        """The merge's seeded bin table as ONE host uint8 buffer
+        (ops/binpack.seed_layout): rows [0,E) are the existing bins at
+        their post-pack shard-0 state (fixed), rows [E,E+K) the kept new
+        bins from all shards (open, re-priced at finalization)."""
+        lat = self.lattice
+        E = problem.E
+        K = len(kept)
+        layout, total = binpack.seed_layout(B2, lat.T, lat.Z, lat.C, R,
+                                            max(problem.A, 1))
+        buf = np.zeros((total,), np.uint8)
+        v: Dict[str, np.ndarray] = {}
+        for f in layout:
+            n = int(np.prod(f.shape)) * np.dtype(f.dtype).itemsize
+            view = buf[f.offset: f.offset + n].view(f.dtype).reshape(f.shape)
+            if f.fill != 0:
+                view.fill(f.fill)
+            v[f.name] = view
+        if E:
+            d0 = decs[0]
+            e_rows = np.arange(E)
+            v["s_cum"][:E] = d0.cum[:E]
+            v["s_tmask"][:E] = d0.tmask(e_rows, lat.T)
+            v["s_zmask"][:E] = d0.zmask(e_rows, lat.Z)
+            v["s_cmask"][:E] = d0.cmask(e_rows, lat.C)
+            v["s_np"][:E] = d0.np_id[:E]
+            v["s_npods"][:E] = d0.npods[:E]
+            v["s_open"][:E] = 1
+            v["s_fixed"][:E] = 1
+            v["s_alloc"][:E] = d0.alloc_cap[:E]
+            v["s_pm"][:E] = d0.pm[:E]
+            v["s_po"][:E] = d0.po[:E]
+        for i, (d, b, _content) in enumerate(kept):
+            r = E + i
+            dec = decs[d]
+            v["s_cum"][r] = dec.cum[b]
+            v["s_tmask"][r] = k_tm[i]
+            v["s_zmask"][r] = k_zm[i]
+            v["s_cmask"][r] = k_cm[i]
+            v["s_np"][r] = dec.np_id[b]
+            v["s_npods"][r] = dec.npods[b]
+            v["s_open"][r] = 1
+            v["s_pm"][r] = dec.pm[b]
+            v["s_po"][r] = dec.po[b]
+        v["s_next"][0] = E + K
+        return buf
+
+    def _merge_decode(self, problem: Problem, mdec: _DecodeSet,
+                      leftover2: np.ndarray, assign2: np.ndarray, kept,
+                      tail_names, existing_assignments: Dict[str, List[str]],
+                      unschedulable: Dict[str, str],
+                      device_s: float) -> NodePlan:
+        """Decode the merged table into the refinement NodePlan."""
+        lat = self.lattice
+        E = problem.E
+        m_np_id = mdec.np_id
+        m_ct = mdec.chosen_t
+        m_cz = mdec.chosen_z
+        m_cc = mdec.chosen_c
+        m_cp = mdec.chosen_price
+        m_open = mdec.open
+        m_fixed = mdec.fixed
+
+        assigns = {k: list(v) for k, v in existing_assignments.items()}
+        unsched = dict(unschedulable)
+        node_for_row: Dict[int, PlannedNode] = {}
+
+        def node_at(row: int) -> PlannedNode:
+            node = node_for_row.get(row)
+            if node is None:
+                # masks unpack per materialized node only: B2 can be
+                # thousands of rows with a handful of live merge bins
+                rows1 = np.array([row])
+                ftypes, fzones, fcaps = self._feasible_sets(
+                    problem, mdec.tmask(rows1, lat.T)[0],
+                    mdec.zmask(rows1, lat.Z)[0], mdec.cmask(rows1, lat.C)[0])
+                pname, extra = _pool_out(problem.node_pools[int(m_np_id[row])])
+                node = PlannedNode(
+                    node_pool=pname, extra_labels=extra,
+                    instance_type=lat.names[int(m_ct[row])],
+                    zone=lat.zones[int(m_cz[row])],
+                    capacity_type=lat.capacity_types[int(m_cc[row])],
+                    price_per_hour=float(m_cp[row]),
+                    feasible_types=ftypes, feasible_zones=fzones,
+                    feasible_capacity_types=fcaps,
+                )
+                node_for_row[row] = node
+            return node
+
+        # kept bins keep their original pods even if the merge adds none
+        for i, (_d, _b, content) in enumerate(kept):
+            node = node_at(E + i)
+            for _gi, pod_names in content:
+                node.pods.extend(pod_names)
+
+        for gi in range(problem.G):
+            pool = tail_names.get(gi, [])
+            if not pool:
+                continue
+            cursor = 0
+            for b in np.nonzero(assign2[gi])[0]:
+                n = int(assign2[gi, b])
+                pod_slice = pool[cursor: cursor + n]
+                cursor += n
+                if m_fixed[b]:
+                    assigns.setdefault(problem.existing[b].name,
+                                       []).extend(pod_slice)
+                else:
+                    node_at(int(b)).pods.extend(pod_slice)
+            if int(leftover2[gi]):
+                msg = unplaced_reason(problem.groups[gi])
+                for name in pool[cursor: cursor + int(leftover2[gi])]:
+                    unsched[name] = msg
+
+        # any remaining open new bin that took merge pods (kept bins are
+        # materialized above; the lean buffer has no npods, but merge-added
+        # pods are exactly the assign2 columns)
+        live_rows = np.nonzero(m_open & ~m_fixed
+                               & (assign2[: problem.G].sum(axis=0) > 0))[0]
+        for row in live_rows:
+            node_at(int(row))
+        new_nodes = [node_for_row[r] for r in sorted(node_for_row)
+                     if node_for_row[r].pods]
+        cost = float(sum(n.price_per_hour for n in new_nodes))
+        return NodePlan(new_nodes=new_nodes, existing_assignments=assigns,
+                        unschedulable=unsched, new_node_cost=cost,
+                        solve_seconds=0.0, device_seconds=device_s)
+
     # ---- the steady-state delta solve and its microloop ----
 
     @_locked
@@ -1441,9 +2079,9 @@ class Solver:
         ``overlap`` (zero-arg callable) is the admission-bookkeeping seam:
         it runs inside the device compute window (between dispatch and the
         fingerprint sync), at most once per call; on the fallback it runs
-        only after the fallback solve lands."""
-        if mesh is not None:
-            raise _not_ported("the sharded mesh solve")
+        only after the fallback solve lands. ``mesh`` (None = the Solver's
+        own) shards every pass as :meth:`solve` does."""
+        mesh = self.mesh if mesh is None else self._check_mesh(mesh)
         with trace.span("solver.solve_delta", groups=problem.G,
                         dirty=len(dirty_groups)) as sp:
             pre_hits = self._resident.hits
@@ -1461,11 +2099,12 @@ class Solver:
 
             try:
                 try:
-                    plan = self._solve_micro(problem, overlap=run_overlap)
+                    plan = self._solve_micro(problem, mesh=mesh,
+                                             overlap=run_overlap)
                     self.pipeline_stats["micro_solves"] += 1
                 except _MicroIneligible:
                     self.pipeline_stats["micro_aborts"] += 1
-                    plan = self._solve_problem(problem)
+                    plan = self._solve_problem(problem, mesh=mesh)
                     # only after the fallback lands: a failing pass must not
                     # record admission bookkeeping for a dropped wave
                     run_overlap()
@@ -1479,7 +2118,7 @@ class Solver:
                                  "state and re-solving", exc_info=True)
                     self.pipeline_stats["micro_aborts"] += 1
                     self._invalidate_device_state()
-                    plan = self._solve_problem(problem)
+                    plan = self._solve_problem(problem, mesh=mesh)
                     run_overlap()
             finally:
                 self.pipeline = was_pipelined
@@ -1497,7 +2136,8 @@ class Solver:
                    legs=self.pipeline_stats["micro_last_legs"])
             return plan
 
-    def _solve_micro(self, problem: Problem, overlap=None) -> NodePlan:
+    def _solve_micro(self, problem: Problem, mesh=None,
+                     overlap=None) -> NodePlan:
         """One steady-state reconcile pass against device-RESIDENT problem
         state.
 
@@ -1505,25 +2145,41 @@ class Solver:
         existing-bin table) lives as ONE resident device buffer; the pass
         block-diffs against it and ships exactly the dirty blocks in one
         in-place scatter upload (leg 1). The pack dispatches against the
-        updated resident state; admission bookkeeping and decode prep run
-        while it computes; the only mandatory sync is the O(1) changed-plan
+        updated resident state: on a mesh, against slices of it, with the
+        per-shard count split derived on the device
+        (parallel/sharded.py ``device_split_counts``), so no split bytes
+        cross the link. Admission bookkeeping and decode prep run while it
+        computes; the only mandatory sync is the O(1) changed-plan
         fingerprint, and the plan buffer is fetched (leg 2) only when it
-        says the packing moved — an unchanged plan re-decodes the retained
-        host bytes against the current pod names.
+        says the packing moved; an unchanged plan re-decodes the retained
+        host bytes against the current pod names. A mesh pass whose plan
+        moved pays two more legs for the tail-bin merge, which an
+        unchanged pass reuses.
 
         Raises :class:`_MicroIneligible` outside the envelope (a group
-        axis above the group ceiling, bin-table overflow), and
-        ``SolverDeviceError`` when the device work fails."""
+        axis above the group ceiling, co-located or shard-0 pinned groups
+        on a mesh, bin-table overflow), and ``SolverDeviceError`` when the
+        device work fails."""
         t0 = time.perf_counter()
         if problem.G == 0:
             raise _MicroIneligible("empty")
         if problem.G > self._g_ceiling():
             raise _MicroIneligible("wave-scale G")
         lat = self.lattice
+        D = int(mesh.devices.size) if mesh is not None else 1
+        sharded = D > 1
         NP, A = max(problem.NP, 1), max(problem.A, 1)
+        if sharded and (bool(problem.single_bin.any())
+                        or (problem.A and bool(problem.g_need.any()))):
+            # co-location and shard-0 pinning need the host split planner
+            raise _MicroIneligible("pinned groups on mesh")
         stages = StageTimer()
         G = _bucket(problem.G, _G_BUCKETS)
-        fresh, B = self._b_budget_single(problem, G)
+        fresh = None
+        if sharded:
+            B = self._b_budget_sharded(problem, D)
+        else:
+            fresh, B = self._b_budget_single(problem, G)
         if problem.E > B:
             raise _MicroIneligible("existing bins past the bin-table ceiling")
 
@@ -1533,10 +2189,16 @@ class Solver:
             combined_np = (np.concatenate(
                 [fused_np, self._fused_init_np(problem, B)])
                 if problem.E else fused_np)
-        # the resident problem identity: device count, group/bin buckets
+        repl = None
+        if sharded:
+            from ..parallel.sharded import (device_split_counts,
+                                            replicated_sharding,
+                                            sharded_pack)
+            repl = replicated_sharding(mesh)
+        # the resident problem identity: shard count, group/bin buckets
         # and exact byte length — any drift is a cold re-upload, and the
         # retained fingerprint state keys on the same tuple
-        key = ("m", 1, G, B, int(combined_np.size))
+        key = ("m", D, G, B, int(combined_np.size))
         ms = self._micro
         if ms is not None and (
                 ms.key != key
@@ -1546,33 +2208,50 @@ class Solver:
             # the retained result was solved against other inputs
             ms = None
         compute_ms0 = stages.ms.get("compute", 0.0)
+        sp_res = None
         try:
             with stages.span("upload"):
                 comb_dev = self._resident.upload(key, combined_np,
-                                                 donate=True)
+                                                 sharding=repl, donate=True)
             self._maybe_inject_device_fault()
             td = time.perf_counter()
-            avail, price = self._device_avail_price(problem)
-            with stages.span("compute"):
-                if problem.E:
-                    new_dev = binpack.pack_packed_combined(
-                        self._alloc, avail, price, comb_dev, g_size,
-                        problem.E, B, G, lat.T, lat.Z, lat.C, NP, A,
-                        lean=True)
-                else:
-                    new_dev = binpack.pack_packed_efused(
-                        self._alloc, avail, price, comb_dev, None, 0, B,
-                        G, lat.T, lat.Z, lat.C, NP, A, lean=True)
+            if sharded:
+                alloc_r, avail, price = self._mesh_inputs(problem, mesh)
+                gslice = comb_dev[:g_size]
+                islice = comb_dev[g_size:] if problem.E else None
+                count_off = next(
+                    f.offset for f in binpack.group_layout(
+                        G, lat.T, lat.Z, lat.C, NP, A, R)[0]
+                    if f.name == "count")
+                with stages.span("compute"):
+                    csplit = device_split_counts(gslice, D, count_off, G)
+                    sp_res = sharded_pack(
+                        mesh, alloc_r, avail, price, gslice, islice,
+                        problem.E, csplit, B, G, lat.T, lat.Z, lat.C, NP, A)
+                new_dev = sp_res.packed
+            else:
+                avail, price = self._device_avail_price(problem)
+                with stages.span("compute"):
+                    if problem.E:
+                        new_dev = binpack.pack_packed_combined(
+                            self._alloc, avail, price, comb_dev, g_size,
+                            problem.E, B, G, lat.T, lat.Z, lat.C, NP, A,
+                            lean=True)
+                    else:
+                        new_dev = binpack.pack_packed_efused(
+                            self._alloc, avail, price, comb_dev, None, 0, B,
+                            G, lat.T, lat.Z, lat.C, NP, A, lean=True)
         except (SolverError, KernelBuildError):
             raise
         except RuntimeError as e:
             raise SolverDeviceError(f"{type(e).__name__}: {e}",
                                     cause=e) from e
         # host work rides the in-flight dispatch: the caller's admission
-        # bookkeeping and the plan-independent decode prep
+        # bookkeeping and the plan-independent decode prep (the sharded
+        # decode builds its own)
         if overlap is not None:
             overlap()
-        prep = self._decode_prep(problem)
+        prep = None if sharded else self._decode_prep(problem)
         try:
             with stages.span("download"):
                 # the one mandatory sync: the O(1) changed-plan fingerprint
@@ -1585,6 +2264,11 @@ class Solver:
                 else:
                     buf = ms.prev_host
                     self.pipeline_stats["micro_skipped_syncs"] += 1
+                if changed and sharded:
+                    # the merge comparison's summed raw cost: fetched once
+                    # here (O(1)), reused by every skipped-sync pass
+                    prev_cost = float(sp_res.total_cost)
+                    self.pipeline_stats["micro_tiny_syncs"] += 1
         except RuntimeError as e:
             raise SolverDeviceError(f"{type(e).__name__}: {e}",
                                     cause=e) from e
@@ -1597,27 +2281,75 @@ class Solver:
         ms.prev_dev = new_dev
         if changed:
             ms.prev_host = buf
+            ms.prev_merge = None
+            if sharded:
+                ms.prev_cost = prev_cost
 
-        with stages.span("decode"):
-            dec = _unpack_decode_set(buf, G, lat.T, lat.Z, lat.C, A,
-                                     lean=True)
-        if (dec.leftover.sum() > 0) and dec.next_open >= B:
-            # bin-table overflow: the standard solve owns growth
-            self._micro = None
-            raise _MicroIneligible("bin-table overflow")
-        needed = _bucket(max(dec.next_open, problem.E + 1, 1), _B_BUCKETS,
-                         clamp=True)
-        self._b_hint[G] = (fresh, needed)
-        with stages.span("decode"):
-            plan = self._decode(problem, dec, device_s, prep=prep)
+        if sharded:
+            plan = self._micro_decode_sharded(problem, ms, buf, changed,
+                                              G, B, D, stages, device_s)
+        else:
+            with stages.span("decode"):
+                dec = _unpack_decode_set(buf, G, lat.T, lat.Z, lat.C, A,
+                                         lean=True)
+            if (dec.leftover.sum() > 0) and dec.next_open >= B:
+                # bin-table overflow: the standard solve owns growth
+                self._micro = None
+                raise _MicroIneligible("bin-table overflow")
+            needed = _bucket(max(dec.next_open, problem.E + 1, 1),
+                             _B_BUCKETS, clamp=True)
+            self._b_hint[G] = (fresh, needed)
+            with stages.span("decode"):
+                plan = self._decode(problem, dec, device_s, prep=prep)
         plan.solve_seconds = time.perf_counter() - t0
         plan.warnings = list(problem.warnings)
         plan.stage_ms = stages.ms
         plan.pipelined = True
+        plan.mesh_devices = D
+        if sharded:
+            plan.shard_imbalance = self._mesh_imbalance
+            self.pipeline_stats["mesh_solves"] += 1
         costmodel.model().observe_solve(
-            costmodel.shape_key(G, B),
+            costmodel.shape_key(G, B, mesh_devices=D),
             stages.ms.get("compute", 0.0) - compute_ms0)
         self.pipeline_stats["async_solves"] += 1
+        return plan
+
+    def _micro_decode_sharded(self, problem: Problem, ms: _MicroState,
+                              buf: np.ndarray, changed: bool, G: int,
+                              B: int, D: int, stages: StageTimer,
+                              device_s: float) -> NodePlan:
+        """Mesh tail of the microloop: per-shard decode and the (possibly
+        reused) merge refinement, equal to :meth:`_solve_sharded`'s."""
+        from ..parallel.sharded import shard_groups, split_counts
+        lat = self.lattice
+        A = max(problem.A, 1)
+        with stages.span("decode"):
+            decs = _unpack_sharded(buf, G, lat.T, lat.Z, lat.C, A)
+        leftover = np.stack([dec.leftover for dec in decs])
+        next_open = np.array([dec.next_open for dec in decs])
+        if bool(((leftover.sum(axis=1) > 0) & (next_open >= B)).any()):
+            self._micro = None
+            raise _MicroIneligible("sharded bin-table overflow")
+        # the host mirror of the device-derived balanced split (the same
+        # formula: the microloop left if pinning was in play), for pod-name
+        # slicing and the imbalance gauge
+        count_pad = np.zeros((G,), np.int32)
+        count_pad[: problem.G] = problem.count
+        count_split = split_counts(count_pad, D)
+        load = shard_groups(count_split).astype(np.float64)
+        self._mesh_imbalance = (float(load.max() / load.mean())
+                                if load.mean() > 0 else 1.0)
+        merge_ctx = {"reuse": None if changed else ms.prev_merge}
+        with stages.span("decode"):
+            plan = self._decode_sharded(problem, ms.prev_cost,
+                                        decs, count_split, device_s,
+                                        merge_ctx=merge_ctx)
+        if merge_ctx.get("ran"):
+            ms.prev_merge = merge_ctx["result"]
+            self.pipeline_stats["micro_merge_solves"] += 1
+        elif merge_ctx.get("reused"):
+            self.pipeline_stats["micro_merge_skips"] += 1
         return plan
 
     # ---- batched what-if probes ----

@@ -19,6 +19,13 @@ reconcile cluster of ``bench.py``'s microloop harness
 distinct signatures, past the largest group bucket, so the solve takes
 the wave split. ``weather_operator`` puts cfg4's fleet in an Operator
 under a ``WeatherSimulator``.
+
+The mesh workloads (``bench.py``'s sharded rows): ``config9_sharded_16k``
+(16,500 mixed-shape pods), ``config11_200k_sharded`` (200k pods in 32
+shapes, the mesh-production scale), ``mesh_parity_problem`` (the capped
+full-dissolve problem, whose mesh plan equals the single-device plan
+byte for byte) and ``delta_on_mesh_passes`` (cfg10's steady passes on a
+mesh-native Solver).
 """
 
 import numpy as np
@@ -225,6 +232,66 @@ def config10_steady_state():
     return pods, _pools_default(), shapes
 
 
+def config9_sharded_16k():
+    """The mesh scale row (``bench.config9_sharded_16k``): 16,500 pods in
+    three waves, small, mid and category-selector, one default NodePool,
+    refereed against the single-device solve of the same problem."""
+    from .apis import Pod
+    from .apis import wellknown as wk
+    n_each = 6600
+    pods = [Pod(name=f"ss{i}", requests={"cpu": "500m", "memory": "1Gi"})
+            for i in range(n_each)]
+    pods += [Pod(name=f"sm{i}", requests={"cpu": "2", "memory": "4Gi"})
+             for i in range(n_each)]
+    pods += [Pod(name=f"sl{i}", requests={"cpu": "4", "memory": "8Gi"},
+                 node_selector={wk.LABEL_INSTANCE_CATEGORY: "c"})
+             for i in range(n_each // 2)]
+    return pods, _pools_default(), []
+
+
+def config11_200k_sharded():
+    """The 200k-pod mesh-production row (``bench.config11_200k_sharded``,
+    seed 12): four times the north-star pod count in 32 mixed shapes,
+    a fifth with an instance-category selector and a tenth on-demand
+    only, one default NodePool, no accelerator pods."""
+    from .apis import Pod
+    from .apis import wellknown as wk
+    rng = np.random.default_rng(12)
+    shapes = []
+    for _s in range(32):
+        cpu = int(rng.choice([100, 250, 500, 1000, 2000, 4000]))
+        mem = int(rng.choice([256, 512, 1024, 2048, 4096, 8192]))
+        sel = {}
+        r = rng.random()
+        if r < 0.2:
+            sel[wk.LABEL_INSTANCE_CATEGORY] = str(rng.choice(["m", "c", "r"]))
+        elif r < 0.3:
+            sel[wk.LABEL_CAPACITY_TYPE] = "on-demand"
+        shapes.append(({"cpu": f"{cpu}m", "memory": f"{mem}Mi"}, sel))
+    counts = rng.multinomial(200_000, np.ones(len(shapes)) / len(shapes))
+    pods = []
+    for s, ((req, sel), n) in enumerate(zip(shapes, counts)):
+        pods += [Pod(name=f"xx{s}-{i}", requests=req, node_selector=sel)
+                 for i in range(n)]
+    return pods, _pools_default(), []
+
+
+def mesh_parity_problem():
+    """``bench.run_mesh_parity``'s capped full-dissolve problem: 16
+    one-vCPU pods over a lattice of m5.4xlarge alone, so every shard's
+    slice under-fills its bin, the merge dissolves all of them and the
+    mesh plan must equal the single-device plan byte for byte. Returns
+    ``(lattice, problem)``."""
+    from .apis import NodePool, Pod
+    from .lattice import build_catalog, build_lattice
+    from .solver.problem import build_problem
+    big = build_lattice([s for s in build_catalog()
+                         if s.name == "m5.4xlarge"])
+    pods = [Pod(name=f"t{i}", requests={"cpu": "1", "memory": "2Gi"})
+            for i in range(16)]
+    return big, build_problem(pods, [NodePool(name="default")], big)
+
+
 # the microloop harness's pass schedule (bench.py DELTA_PASSES,
 # DELTA_CHURN_FRACTION, MICRO_NOCHURN_EVERY)
 STEADY_PASSES = 12
@@ -336,6 +403,22 @@ def steady_state_passes(solver, lattice, pools, churn: SteadyStateChurn,
         legs = (solver.pipeline_stats["micro_last_legs"]
                 if res.incremental else None)
         yield pass_i, res, plan, ms, legs
+
+
+def delta_on_mesh_passes(lattice, mesh, passes: int = STEADY_PASSES,
+                         device=None):
+    """``bench.run_sharded_artifact``'s delta-on-mesh row: cfg10's pods,
+    existing nodes and churn through ``steady_state_passes`` on a
+    mesh-native Solver (``Solver(lattice, mesh=mesh)``: every pass runs
+    on its mesh). Returns ``(solver, churn, pools, passes)``: the Solver,
+    the churn (its ``pods`` and ``existing`` are the current cluster), the
+    NodePools and the generator of ``steady_state_passes``'s tuples."""
+    from .solver import Solver
+    pods, pools, shapes = config10_steady_state()
+    churn = SteadyStateChurn(lattice, pods, shapes)
+    solver = Solver(lattice, device=device, mesh=mesh)
+    return solver, churn, pools, steady_state_passes(
+        solver, lattice, pools, churn, passes=passes)
 
 
 # ---- the provisioning controller over a simulated cluster -------------------

@@ -8,7 +8,9 @@ also serve ``test_torch_api_wave.py``, the API-mode wave).
   election lease is held by this process and the two servers hold equal
   claims, nodes and bindings; ``main`` returns 0 after its stop event.
 - Each flag of the port's CLI that reaches an unported part exits
-  non-zero, naming its roadmap item, before anything is served.
+  non-zero, naming its roadmap item, before anything is served; a mesh
+  (``--mesh N``, ``SOLVER_MESH=N``) starts the process, its Operator's
+  Solver on an N-shard mesh.
 
 Tolerance: none.
 """
@@ -130,11 +132,9 @@ def test_both_clis_bind_rest_posted_pods_equally():
     (["--sidecar-address", "unix:/tmp/s.sock"], {}, "A11"),
     (["--solver-address", "unix:/tmp/a.sock"], {}, "A11"),
     ([], {"SOLVER_ADDRESSES": "unix:/tmp/a.sock"}, "A11"),
-    (["--mesh", "2"], {}, "A10"),
-    ([], {"SOLVER_MESH": "4"}, "A10"),
     (["--compile-cache-dir", "cache"], {}, "compiles nothing"),
 ], ids=["warm-start", "profile-dir", "sidecar-address", "solver-address",
-        "SOLVER_ADDRESSES", "mesh", "SOLVER_MESH", "compile-cache-dir"])
+        "SOLVER_ADDRESSES", "compile-cache-dir"])
 def test_unported_flags_exit_before_serving(flags, env, item, monkeypatch,
                                             tmp_path):
     from karpenter_provider_aws_tpu_torch import cli
@@ -154,3 +154,34 @@ def test_unported_flags_exit_before_serving(flags, env, item, monkeypatch,
         with socket.socket() as sock:
             assert sock.connect_ex(("127.0.0.1", port)) != 0, port
     assert not list(tmp_path.iterdir())
+
+
+# ---- a mesh starts the process ----
+
+@pytest.mark.parametrize("flags,env,shards", [
+    (["--mesh", "2"], {}, 2),
+    ([], {"SOLVER_MESH": "4"}, 4),
+], ids=["mesh", "SOLVER_MESH"])
+def test_mesh_flags_start_the_process(flags, env, shards, monkeypatch,
+                                      tmp_path):
+    from karpenter_provider_aws_tpu_torch import cli
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    monkeypatch.chdir(tmp_path)
+    lat = cases.small_lattice(cases.TORCH_PKG)
+    built = []
+    real = cli.Operator
+
+    def operator(*a, **k):
+        op = real(*a, lattice=lat, **k)
+        built.append(op)
+        return op
+
+    monkeypatch.setattr(cli, "Operator", operator)
+    rc = cli.main(flags + ["--device", "cpu", "--metrics-port=0",
+                           "--duration=0.1"])
+    assert rc == 0
+    op, = built
+    assert op.mesh_plan.devices == shards and op.mesh_plan.source == "forced"
+    assert op.solver.mesh_devices == shards
+    assert op.solver.device.type == "cpu"

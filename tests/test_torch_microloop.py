@@ -222,13 +222,24 @@ class TestMicroloop:
         assert solver.stats()["micro_fetches"] == 2
 
     def test_restores_pipeline_flag_and_rejects_a_mesh(self, lattice):
+        """solve_delta forces the pipelined path for the call and restores
+        the flag; a per-call mesh rides the microloop (a sharded pass
+        equal to a sequential mesh solve) and a mesh planned for another
+        device type is refused."""
+        from karpenter_provider_aws_tpu_torch.parallel import plan_mesh
         s = TorchSolver(lattice, device=CPU, pipeline=False)
         problem = build_problem(_pods(), [NodePool(name="default")], lattice)
         plan = s.solve_delta(problem, dirty_groups=(0, 1))
         assert plan.pipelined and s.pipeline is False
         assert s.pipeline_stats["delta_dirty_groups"] == 2
-        with pytest.raises(NotImplementedError):
-            s.solve_delta(problem, mesh=object())
+        mesh = plan_mesh("8", device=CPU).mesh
+        meshed = s.solve_delta(problem, mesh=mesh)
+        assert meshed.mesh_devices == 8 and s.pipeline is False
+        assert s.stats()["micro_solves"] == 2
+        ref = TorchSolver(lattice, device=CPU, pipeline=False)
+        assert _canon(meshed) == _canon(ref.solve(problem, mesh=mesh))
+        with pytest.raises(ValueError):
+            s.solve_delta(problem, mesh=plan_mesh("8", device="cuda").mesh)
 
 
 class TestSteadyStateHarness:

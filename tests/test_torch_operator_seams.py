@@ -137,6 +137,10 @@ def test_api_mode_and_solver_pool_raise():
 
 
 def test_mesh_plans(monkeypatch):
+    """The reference's mesh planning: auto is single-device on the CPU and
+    with one card, the N-way plan with N cards; a forced N plans N shards
+    on the Solver's device; the Operator plans at boot and its Solver runs
+    the mesh; a mesh planned for another device type is refused."""
     import torch
     from karpenter_provider_aws_tpu_torch.operator import Options
     from karpenter_provider_aws_tpu_torch.parallel import plan_mesh
@@ -148,24 +152,28 @@ def test_mesh_plans(monkeypatch):
         plan = plan_mesh(spec, device="cpu")
         assert (plan.devices, plan.source, plan.mesh) == (1, "off", None)
     for spec in ("2", "8"):
-        with pytest.raises(NotImplementedError, match="A10"):
-            plan_mesh(spec, device="cpu")
+        plan = plan_mesh(spec, device="cpu")
+        assert (plan.devices, plan.source) == (int(spec), "forced")
+        assert plan.mesh.devices.size == int(spec)
+        assert plan.mesh.axis_names == ("pods",)
+        assert plan.mesh.device == torch.device("cpu")
     for spec in ("bogus", "0", "-2"):
         with pytest.raises(ValueError):
             plan_mesh(spec, device="cpu")
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     assert plan_mesh("auto", device="cuda").devices == 1
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    with pytest.raises(NotImplementedError, match="A10"):
-        plan_mesh("auto")
+    plan = plan_mesh("auto")
+    assert (plan.devices, plan.source, plan.mesh.shards) == (4, "auto", 4)
     assert plan_mesh("auto", device="cpu").devices == 1
-    with pytest.raises(NotImplementedError, match="A10"):
-        _operator(cases.TORCH_PKG, options=Options(mesh="2"))
+    op = _operator(cases.TORCH_PKG, options=Options(mesh="2"))
+    assert op.mesh_plan.devices == 2 and op.solver.mesh_devices == 2
+    assert op.solver.mesh.device == op.solver.device
     with pytest.raises(ValueError):
         Options(mesh="bogus").validate()
     lat = cases.family_lattice(cases.TORCH_PKG, SEAM_FAMILIES)
-    with pytest.raises(NotImplementedError, match="A10"):
-        Solver(lat, device="cpu", mesh=object())
+    with pytest.raises(ValueError, match="Solver's device"):
+        Solver(lat, device="cpu", mesh=plan_mesh("8", device="cuda").mesh)
 
 
 def test_compile_cache_dir_parsed_and_rejected(monkeypatch, tmp_path):

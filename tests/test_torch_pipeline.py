@@ -155,7 +155,17 @@ class TestResidentInputCache:
         tc.invalidate()
         tc.upload(("k",), a)
         assert tc.stats()["misses"] == 2
-        with pytest.raises(NotImplementedError):
+        # a mesh's shared placement: stored once on the cache's device,
+        # delta-served like any other entry under its shard-count key
+        from karpenter_provider_aws_tpu_torch.parallel import plan_mesh
+        from karpenter_provider_aws_tpu_torch.parallel.sharded import (
+            replicated_sharding)
+        repl = replicated_sharding(plan_mesh("8", device=CPU).mesh)
+        d = tc.upload(("g", 8), a, sharding=repl)
+        assert np.array_equal(d.numpy(), a)
+        tc.upload(("g", 8), a, sharding=repl)
+        assert (tc.stats()["misses"], tc.stats()["hits"]) == (3, 1)
+        with pytest.raises(ValueError):
             tc.upload(("k",), a, sharding=object())
 
 

@@ -42,6 +42,16 @@ they were made:
   (``WALL_TIME_ANNOTATIONS``), and the queue depths of ``stats()``
   follow the watchers' threads and are not compared.
 
+With ``plans=True`` the replay also records the plan of every call of a
+Solver's ``solve`` and ``solve_delta`` (``solve_relaxed`` calls ``solve``)
+as its ``serde.plan_semantic_dict``, in call order, and compares them.
+With ``buffers=True`` it records every call of the sharded pack
+(``parallel.sharded.sharded_pack``, the Solver's and the test's own) and
+of the seeded merge pack (``ops.binpack.pack_packed_seeded``): the
+sharded pack's [D,G] split, its stacked per-shard decode buffers byte for
+byte and its three totals (the float32 cost included: the port sums in
+the reference's order), the merge's fused input and result bytes.
+
 Everything is compared for equality; the only float slack is
 ``REL`` on the engine's savings. A test the port cannot run yet is named
 in its file's ``NOT_REPLAYED`` with the roadmap item that brings it.
@@ -117,6 +127,32 @@ def replayed(filename, not_replayed):
     for name, why in not_replayed.items():
         assert re.match(r"^(A|B)\d+[a-z]?\b", why), (name, why)
     return [n for n in names if n not in not_replayed]
+
+
+def parametrized(filename, tests):
+    """``(test_id, params)`` for each of ``tests`` (``file::Class::test``
+    ids): one per parameter set of a test that the JAX file parametrizes
+    (its ``pytest.mark.parametrize`` marks, crossed), ``{}`` for the
+    others."""
+    module = load(filename, cases.JAX_PKG)
+    out = []
+    for test_id in tests:
+        _, clsname, meth = test_id.split("::")
+        fn = getattr(getattr(module, clsname), meth)
+        combos = [{}]
+        for mark in getattr(fn, "pytestmark", ()):
+            if mark.name != "parametrize":
+                continue
+            names, values = mark.args[0], mark.args[1]
+            if isinstance(names, str):
+                names = [n.strip() for n in names.split(",")]
+            rows = [tuple(v.values) if hasattr(v, "values")   # pytest.param
+                    else tuple(v) if len(names) > 1 else (v,)
+                    for v in values]
+            combos = [{**c, **dict(zip(names, row))}
+                      for c in combos for row in rows]
+        out += [(test_id, c) for c in combos]
+    return out
 
 
 def _unported(name, item):
@@ -384,12 +420,73 @@ RECORDED = {
 }
 
 
+# the kinds under which plans (``plans=True``) and pack buffers
+# (``buffers=True``) are recorded, already in their observed form
+PLANS = ("solver.solve", "NodePlan")
+BUFFERS = ("parallel.sharded", "buffers")
+PLAN_ENTRY_POINTS = ("solve", "solve_delta")
+
+
+def _host(x):
+    """A device array of either package as a numpy array."""
+    import numpy as np
+    import torch
+    if isinstance(x, torch.Tensor):
+        return x.cpu().numpy()
+    return np.asarray(x)
+
+
+def _wrap_sharded(orig, made):
+    def sharded_pack(*args, **kwargs):
+        sp = orig(*args, **kwargs)
+        split = kwargs.get("count_split", args[7] if len(args) > 7 else None)
+        made.append((BUFFERS, (
+            "sharded", _host(split).astype("int32").tobytes(),
+            _host(sp.packed).shape, _host(sp.packed).tobytes(),
+            float(sp.total_cost), int(sp.total_nodes),
+            int(sp.total_leftover))))
+        return sp
+    return sharded_pack
+
+
+def _wrap_seeded(orig, made):
+    def pack_packed_seeded(alloc, avail, price, buf, split, *args, **kwargs):
+        out = orig(alloc, avail, price, buf, split, *args, **kwargs)
+        made.append((BUFFERS, ("seeded", _host(buf).tobytes(), int(split),
+                               _host(out).tobytes())))
+        return out
+    return pack_packed_seeded
+
+
 @contextlib.contextmanager
-def recording(pkg):
-    """Record every object of a RECORDED kind made while this is open;
-    on the port side default ``Operator`` and ``Solver`` to the CPU."""
+def recording(pkg, plans=False, buffers=False, module=None):
+    """Record every object of a RECORDED kind made while this is open
+    (with ``plans``, every plan a Solver's entry points return; with
+    ``buffers``, every sharded and seeded pack, the test ``module``'s own
+    calls included); on the port side default ``Operator`` and ``Solver``
+    to the CPU."""
     made = []
     with pytest.MonkeyPatch.context() as mp:
+        if buffers:
+            sharded = cases.mod(pkg, "parallel.sharded")
+            wrapped = _wrap_sharded(sharded.sharded_pack, made)
+            mp.setattr(sharded, "sharded_pack", wrapped)
+            if module is not None and "sharded_pack" in module.__dict__:
+                mp.setitem(module.__dict__, "sharded_pack", wrapped)
+            bp = cases.mod(pkg, "ops.binpack")
+            mp.setattr(bp, "pack_packed_seeded",
+                       _wrap_seeded(bp.pack_packed_seeded, made))
+        if plans:
+            solver_cls = cases.mod(pkg, "solver.solve").Solver
+            semantic = cases.mod(pkg, "apis.serde").plan_semantic_dict
+            for name in PLAN_ENTRY_POINTS:
+                def entry(self, *args, _orig=getattr(solver_cls, name),
+                          **kwargs):
+                    plan = _orig(self, *args, **kwargs)
+                    made.append((PLANS, semantic(plan)))
+                    return plan
+
+                mp.setattr(solver_cls, name, entry)
         for (modname, clsname) in RECORDED:
             cls = getattr(cases.mod(pkg, modname), clsname)
             orig = cls.__init__
@@ -452,19 +549,24 @@ def recording(pkg):
 def _observations(made):
     by_kind = {}
     for kind, obj in made:
-        by_kind.setdefault(kind, []).append(RECORDED[kind](obj))
+        by_kind.setdefault(kind, []).append(
+            obj if kind in (PLANS, BUFFERS) else RECORDED[kind](obj))
     return by_kind
 
 
-def run_test(module, test_id, tmp_path):
-    """Run one test of ``module`` (``file::Class::test``); returns the
-    observations of what it made, taken at its end."""
+def run_test(module, test_id, tmp_path, plans=False, params=None,
+             buffers=False):
+    """Run one test of ``module`` (``file::Class::test``, with ``params``
+    for its parametrized arguments); returns the observations of what it
+    made, taken at its end."""
     _, clsname, meth = test_id.split("::")
     instance = getattr(module, clsname)()
     fn = getattr(instance, meth)
     fx = _Fixtures(module, tmp_path, instance)
+    fx.values.update(params or {})
     try:
-        with recording(module._replay_pkg) as made:
+        with recording(module._replay_pkg, plans=plans, buffers=buffers,
+                       module=module) as made:
             fn(**{p: fx.get(p) for p in inspect.signature(fn).parameters})
             return _observations(made)
     finally:
@@ -485,14 +587,17 @@ def _same(j, t, where):
         assert t == j, f"{where} differs"
 
 
-def replay(filename, test_id, tmp_path, stubs=(), shims=(), threaded=False):
+def replay(filename, test_id, tmp_path, stubs=(), shims=(), threaded=False,
+           plans=False, params=None, buffers=False):
     """Run ``test_id`` on the JAX package and on the port, and require the
     same observations of everything both made (``threaded``: only the
-    kinds and counts of what both made)."""
+    kinds and counts of what both made; ``plans``: the plans of every
+    solve too)."""
     obs = {}
     for pkg in (cases.JAX_PKG, cases.TORCH_PKG):
         module = load(filename, pkg, stubs, shims)
-        obs[pkg] = run_test(module, test_id, tmp_path / pkg)
+        obs[pkg] = run_test(module, test_id, tmp_path / pkg, plans=plans,
+                            params=params, buffers=buffers)
     j, t = obs[cases.JAX_PKG], obs[cases.TORCH_PKG]
     assert {k[1]: len(v) for k, v in t.items()} \
         == {k[1]: len(v) for k, v in j.items()}

@@ -253,18 +253,32 @@ class TestSolverParity:
 
 class TestNotPorted:
     def test_mesh_and_probe_raise(self):
-        """The pipelined path, solve_delta and the batched probes are
-        ported; the mesh still raises wherever it can be asked for."""
-        lat = cases.small_lattice(cases.TORCH_PKG)
-        ts = TorchSolver(lat, device=CPU)
-        prob = cases.problem(cases.TORCH_PKG, "generic")
-        _, pods, pools, _ = cases.build(cases.TORCH_PKG, "generic")
-        with pytest.raises(NotImplementedError):
-            ts.solve(prob, mesh=object())
-        with pytest.raises(NotImplementedError):
-            ts.solve_relaxed(pods, pools, mesh=object())
-        with pytest.raises(NotImplementedError):
-            ts.solve_delta(prob, mesh=object())
+        """The pipelined path, solve_delta, the batched probes and the mesh
+        are ported: ``solve``, ``solve_relaxed`` and ``solve_delta`` with a
+        per-call 8-shard mesh give the JAX package's plans on its 8-way
+        CPU mesh (tolerance: none), each a sharded solve."""
+        from karpenter_provider_aws_tpu.parallel import plan_mesh as j_plan
+        from karpenter_provider_aws_tpu_torch.parallel import plan_mesh as t_plan
+        ts = TorchSolver(cases.small_lattice(cases.TORCH_PKG), device=CPU)
+        js = JaxSolver(cases.small_lattice(cases.JAX_PKG))
+        tmesh, jmesh = t_plan("8", device=CPU).mesh, j_plan("8").mesh
+        prob = {pkg: cases.problem(pkg, "generic")
+                for pkg in (cases.JAX_PKG, cases.TORCH_PKG)}
+        _, tpods, tpools, _ = cases.build(cases.TORCH_PKG, "generic")
+        _, jpods, jpools, _ = cases.build(cases.JAX_PKG, "generic")
+        plans = [
+            (ts.solve(prob[cases.TORCH_PKG], mesh=tmesh),
+             js.solve(prob[cases.JAX_PKG], mesh=jmesh)),
+            (ts.solve_relaxed(tpods, tpools, mesh=tmesh),
+             js.solve_relaxed(jpods, jpools, mesh=jmesh)),
+            (ts.solve_delta(prob[cases.TORCH_PKG], mesh=tmesh),
+             js.solve_delta(prob[cases.JAX_PKG], mesh=jmesh)),
+        ]
+        for tplan, jplan in plans:
+            assert tplan.mesh_devices == jplan.mesh_devices == 8
+            assert serde.plan_semantic_dict(tplan) == serde.plan_semantic_dict(jplan)
+        assert ts.stats()["mesh_solves"] == js.stats()["mesh_solves"] == 3
+        assert ts.mesh_devices == 1   # a per-call mesh leaves the Solver's
 
     def test_wave_split_raises(self):
         """Past the group ceiling (4,096, or an injected ``g_limit``) the
