@@ -185,21 +185,58 @@ Phases, in order; any failure exits non-zero and prints no result line:
    ``/metrics`` carrying ``karpenter_solver_mesh_devices 8.0`` and linting
    clean. The shard pack's D·B kernel rows and the merge's rows of (a)'s
    pipelined cold solve are held exactly against the plain version and
-   timed in phase 14;
-14. kernel timing: the kernel and its plain version at cfg5's and cfg10's
+   timed in phase 15;
+14. remote: the remote solver over the port's own gRPC wire
+   (``parallel/rpc.py``). (a) ``python -m
+   karpenter_provider_aws_tpu_torch.parallel.sidecar`` as its own process
+   on the card on a ``unix:`` socket (it must print its serving line
+   within ``SIDECAR_START_SECONDS``), and an
+   ``Operator(options=Options(solver_address=...))`` on the card through
+   one forced pass of cfg2 (5,000 pods with selectors and taints, 3
+   NodePools, the real catalog, 2.0 MB on the wire): one delegated solve,
+   no local one and no kernel launch in this process, the plan equal to
+   an in-process card solve by ``serde.plan_semantic_dict``, the pool
+   gauges on ``/metrics`` (lint clean). (e) That
+   Operator serves a ``ReplicationSource``; a ``StandbyReplica`` syncs the
+   snapshot over the wire, ``REMOTE_CHURN`` pods leave and arrive, a
+   second pass runs, delegated too (its pods not yet registered: a pass
+   over the registered wave ships every bound pod, over the 4 MiB
+   limit), the standby syncs the delta, its mirror
+   equals the leader's as serde documents and ``promotion_ready()`` holds.
+   (f) cfg2's Solve RPC to the sidecar process against the in-process
+   ``solve_relaxed``, ``REMOTE_TURNS`` each in turns, with the request and
+   response bytes, the serialize / wire-and-sidecar / decode split, the
+   sidecar's own spans of one traced call, and the Health RPC's p50.
+   (b) Two in-process ``ChaosSidecar``s on the card, each with its own
+   resident Solver: one cfg2 Solve RPC must launch the kernel exactly
+   once; its inputs, captured, are held exactly against the plain version
+   and timed in phase 15. (c) ``SolverPool``s over the two, one fresh pool
+   a step after a warm solve: one endpoint killed, hung (against a
+   ``REMOTE_HANG_DEADLINE`` solve deadline), answering junk, both killed,
+   and cfg3 (10,000 pods, 5.1 MB, over the 4 MiB message limit): each
+   step's endpoint that solved, breaker states, failovers, local solves
+   and failover reasons must be ``REMOTE_FAILOVER_EXPECTED``, the
+   reference's decisions (``pool-exhausted`` for the last two), and each
+   plan the in-process plan; only those two pools may end with a
+   ``pool-exhausted`` count. (d) ``REMOTE_WINDOW_THREADS`` threads send
+   Solve RPCs of distinct cfg1-sized problems to one sidecar with the
+   solve window at once: every plan equal to its serial solve, at least
+   two coalesced;
+15. kernel timing: the kernel and its plain version at cfg5's and cfg10's
    own inputs (captured in a solve of each), at the first consolidation
    pass's probe dispatch (K x B rows in one call), at cfg7's last wave, at
-   cfg11's shard pack (D·B rows) and merge, and at the dense largest bin
-   bucket (B=8192), and the card's launch floor (a one-element in-place
-   add), each the median of 100 device times from CUDA events, queued
-   behind a device sleep so that no host gap is timed.
+   cfg11's shard pack (D·B rows) and merge, at cfg2's Solve RPC in a
+   sidecar, and at the dense largest bin bucket (B=8192), and the card's
+   launch floor (a one-element in-place add), each the median of 100
+   device times from CUDA events, queued behind a device sleep so that no
+   host gap is timed.
 
 No fallback may hide the card: every Solver the script makes is kept,
 and after each phase each must have no FaultInjector attached and exactly
-the ``degraded_counts`` its phase allowed (none but cfg7's wave split and
-the injected rungs). A real CUDA fault (a sticky illegal address, say) is
-retried and then carried by the host FFD, so its plan alone would pass;
-its count fails the phase.
+the ``degraded_counts`` its phase allowed (none but cfg7's wave split, the
+injected rungs and the remote phase's two dark pools). A real CUDA fault
+(a sticky illegal address, say) is retried and then carried by the host
+FFD, so its plan alone would pass; its count fails the phase.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``. The script imports
@@ -234,6 +271,32 @@ MESH_SHARDS = 8            # the mesh phase's shards (--mesh 8)
 MESH_SOLVES = 3            # cfg11 solves per path, the three paths in turns
 MESH_LEGS = 2              # link legs of a steady pass on the mesh, and of
 MESH_LEGS_MERGE = 4        # one that re-ran the tail-bin merge (+2 a regrow)
+SIDECAR_START_SECONDS = 180  # the sidecar process must serve within this
+REMOTE_SOLVE_DEADLINE = 30.0  # the pools' solve deadline (s), the hang's apart
+REMOTE_HANG_DEADLINE = 3.0  # the solve deadline of the hang step (s)
+REMOTE_TURNS = 5           # cfg2 Solve RPCs and in-process solves, in turns
+REMOTE_HEALTH_CALLS = 20   # Health RPCs timed
+REMOTE_WINDOW_THREADS = 8  # concurrent Solve RPCs into the solve window
+REMOTE_CHURN = 250         # pods that leave and arrive before the second pass
+# the failover steps, each on a fresh pool over the two sidecars after one
+# warm cfg2 solve: step -> (fault on the sidecars, problem of the solve)
+REMOTE_FAILOVER_STEPS = {"kill": ("kill", "cfg2"), "hang": ("hang", "cfg2"),
+                         "junk": ("junk", "cfg2"), "dark": ("dark", "cfg2"),
+                         "cfg3": (None, "cfg3")}
+# what the reference's pool decides in each (tests/test_torch_remote.py
+# holds the JAX package's and the port's pools to it on the CPU)
+_ONE_FAILOVER = {"solved_by": 1, "failovers": 1, "local_solves": 0,
+                 "degraded_reason": ""}
+_EXHAUSTED = {"solved_by": None, "states": [0, 0], "failovers": 2,
+              "local_solves": 1, "degraded_reason": "pool-exhausted",
+              "reasons": ["sidecar-unreachable", "sidecar-unreachable"]}
+REMOTE_FAILOVER_EXPECTED = {
+    "kill": {**_ONE_FAILOVER, "states": [0, 0], "reasons": ["sidecar-unreachable"]},
+    "hang": {**_ONE_FAILOVER, "states": [2, 0], "reasons": ["sidecar-hung"]},
+    "junk": {**_ONE_FAILOVER, "states": [0, 0], "reasons": ["sidecar-unreachable"]},
+    "dark": _EXHAUSTED,
+    "cfg3": _EXHAUSTED,
+}
 
 
 def _fail(msg: str) -> int:
@@ -2407,6 +2470,451 @@ def _mesh(torch, workloads, lattice, oa):
     return out, launches, shard_rows[-1], merge_rows[-1]
 
 
+def _remote(torch, workloads, lattice, oa):
+    """Phase 14: the remote solver on the card. (a) A sidecar process on
+    the card serving an Operator's cfg2 pass; (b) cfg2's Solve RPC to an
+    in-process sidecar, its kernel launch captured; (c) failover through
+    a SolverPool over two sidecars; (d) the solve window under 8
+    concurrent RPCs; (e) replication of (a)'s Operator to a standby; (f)
+    the RPC's wall against the in-process solve, its bytes and split, and
+    Health. Returns its numbers, its launches and (b)'s kernel inputs."""
+    import shutil
+    import subprocess
+    import tempfile
+    import threading
+    from karpenter_provider_aws_tpu_torch import introspect, measure, trace
+    from karpenter_provider_aws_tpu_torch.apis import serde
+    from karpenter_provider_aws_tpu_torch.metrics import lint_exposition
+    from karpenter_provider_aws_tpu_torch.operator import Operator, Options
+    from karpenter_provider_aws_tpu_torch.operator.leaderelection import (
+        LeaderElector, MemoryLeaseStore)
+    from karpenter_provider_aws_tpu_torch.parallel import rpc
+    from karpenter_provider_aws_tpu_torch.parallel.pool import SolverPool
+    from karpenter_provider_aws_tpu_torch.parallel.sidecar import (
+        ChaosSidecar, SolverClient, serve)
+    from karpenter_provider_aws_tpu_torch.solver import Solver
+    from karpenter_provider_aws_tpu_torch.state import replication
+    from karpenter_provider_aws_tpu_torch.state.cluster import ClusterState
+    from karpenter_provider_aws_tpu_torch.trace import FlightRecorder
+    from karpenter_provider_aws_tpu_torch.utils.clock import FakeClock
+
+    failover = "solver pool failover: "
+
+    def canon(plan, core=False):
+        """The plan as plan_semantic_dict; ``core`` drops what a failover
+        or the local rung adds (its warnings, degraded and the reason)."""
+        d = serde.plan_semantic_dict(plan)
+        if core:
+            d["warnings"] = [w for w in d["warnings"] if not w.startswith(failover)]
+            for k in ("degraded", "degradedReason"):
+                d.pop(k, None)
+        return json.dumps(d, sort_keys=True)
+
+    pods2, pools2, _ = workloads.config2_selectors_taints()
+    pods3, pools3, _ = workloads.config3_affinity_spread()
+    local = Solver(lattice)
+    plan2 = local.solve_relaxed(pods2, pools2)
+    plan3 = local.solve_relaxed(pods3, pools3)
+    print(f"cfg2: {len(pods2)} pods, {len(pools2)} pools, in-process card plan "
+          f"{len(plan2.new_nodes)} nodes ${plan2.new_node_cost:.2f}/hr; cfg3: "
+          f"{len(pods3)} pods, {len(plan3.new_nodes)} nodes", flush=True)
+    out, launches = {}, {}
+    tmp = tempfile.mkdtemp(prefix="remote-")
+    proc, sidecars, servers, closers = None, [], [], []
+    try:
+        # (a) the sidecar as its own process on the card, and an Operator
+        # delegating to it
+        address = f"unix:{tmp}/s.sock"
+        t = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "karpenter_provider_aws_tpu_torch.parallel.sidecar",
+             "--address", address, "--device", "cuda", "--trace"],
+            cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        lines, up = [], threading.Event()
+
+        def drain():
+            for line in proc.stdout:
+                lines.append(line.rstrip())
+                if "serving on" in line:
+                    up.set()
+        threading.Thread(target=drain, daemon=True).start()
+        while not up.wait(0.5):
+            if proc.poll() is not None or time.perf_counter() - t > SIDECAR_START_SECONDS:
+                raise AssertionError(f"remote: the sidecar process did not come "
+                                     f"up (rc {proc.poll()}):\n" + "\n".join(lines[-30:]))
+        start_s = time.perf_counter() - t
+        print(f"sidecar process: {lines[-1]} ({start_s:.1f} s to serve)", flush=True)
+        clock = FakeClock()
+        op = Operator(options=Options(registration_delay=workloads.REGISTRATION_DELAY,
+                                      solver_address=address,
+                                      solver_solve_deadline=REMOTE_SOLVE_DEADLINE),
+                      lattice=lattice, cloud=workloads.wave_cloud(clock), clock=clock,
+                      node_pools=pools2)
+        closers.append(op.solver.close)
+        if not isinstance(op.solver, SolverPool) or op.solver.device.type != "cuda":
+            raise AssertionError(f"remote Operator: solver {type(op.solver).__name__} "
+                                 f"on {op.solver.device}")
+        results = []
+        orig_provision = op.provisioner.provision_once
+
+        def provision_once(*a, **kw):
+            r = orig_provision(*a, **kw)
+            results.append(r)
+            return r
+        op.provisioner.provision_once = provision_once
+        for p in pods2:
+            op.cluster.add_pod(p)
+        oa.LAUNCHES = 0
+        t = time.perf_counter()
+        op.run_once(force_provision=True)
+        torch.cuda.synchronize()
+        op_ms = (time.perf_counter() - t) * 1e3
+        local_launches = oa.LAUNCHES
+        if len(results) != 1:
+            raise AssertionError(f"remote Operator: {len(results)} provisioning passes")
+        _check_pass("remote Operator cfg2", results[0])
+        st = op.solver.pool_stats()
+        op.emit_gauges()
+        text = op.metrics.render()
+        gauges = ["karpenter_solver_pool_endpoints 1.0",
+                  "karpenter_solver_pool_healthy_endpoints 1.0",
+                  "karpenter_solver_pool_local_solves 0.0",
+                  f'karpenter_solver_pool_breaker_state{{endpoint="{address}"}} 0.0']
+        problems = lint_exposition(text)
+        print(f"remote Operator cfg2: {len(results[0].created_claims)} claims, "
+              f"{results[0].pods_scheduled} pods scheduled, pass wall {op_ms:.3f} ms, "
+              f"pool delegated {st['delegated_solves']} local {st['local_solves']} "
+              f"failovers {st['failovers']}, {local_launches} launch(es) in this "
+              f"process; /metrics lint problems {len(problems)}", flush=True)
+        if (st["delegated_solves"], st["local_solves"], st["failovers"]) != (1, 0, 0) \
+                or local_launches != 0:
+            raise AssertionError(f"remote Operator: not one delegated solve ({st}, "
+                                 f"{local_launches} local launches)")
+        missing = [g for g in gauges if g not in text.splitlines()]
+        if missing or problems:
+            raise AssertionError(f"remote Operator: /metrics lacks {missing} or lints "
+                                 f"{problems[:3]}")
+        if canon(results[0].plan) != canon(plan2):
+            raise AssertionError("remote Operator: the sidecar's plan differs from "
+                                 "the in-process card plan")
+        print("remote Operator cfg2: plan == in-process card plan "
+              "(plan_semantic_dict)", flush=True)
+        # no registration here: a pass over the registered wave would ship
+        # every bound pod with its node's labels, which puts the Solve
+        # request over the 4 MiB limit (the local rung, as the reference's)
+        out["operator_cfg2"] = {"wall_ms": op_ms, "sidecar_start_s": start_s,
+                                "claims": len(results[0].created_claims),
+                                "pool": st}
+
+        # (e) replication: the Operator serves its mirror to a standby
+        source = replication.ReplicationSource(op.cluster)
+        raddr = f"unix:{tmp}/r.sock"
+        servers.append(replication.serve_replication(
+            replication.ReplicationService(source), raddr))
+        elector = LeaderElector(MemoryLeaseStore(), "leader", 15.0, op.clock)
+        if not elector.try_acquire_or_renew():
+            raise AssertionError("replication: the leader did not take its lease")
+        op.wire_handoff(elector, source=source)
+        rclient = replication.ReplicationClient(raddr)
+        closers.append(rclient.close)
+        replica = replication.StandbyReplica(ClusterState(), rclient)
+
+        def mirror(c):
+            with c._lock:
+                return json.dumps({
+                    "pods": [serde.pod_to_dict(p) for _, p in sorted(c.pods.items())],
+                    "nodes": [serde.node_to_dict(n) for _, n in sorted(c.nodes.items())],
+                    "claims": [serde.nodeclaim_to_dict(x)
+                               for _, x in sorted(c.claims.items())],
+                    "leases": [serde.lease_to_dict(x) for _, x in sorted(c.leases.items())],
+                    "pdbs": [serde.pdb_to_dict(x) for _, x in sorted(c.pdbs.items())],
+                    "pvcs": [serde.pvc_to_dict(x) for _, x in sorted(c.pvcs.items())]},
+                    sort_keys=True)
+
+        t = time.perf_counter()
+        if not replica.sync_once():
+            raise AssertionError(f"replication: the snapshot failed: {replica.stats()}")
+        snap_ms = (time.perf_counter() - t) * 1e3
+        snap_bytes = len(json.dumps(
+            replication.ReplicationSource(op.cluster).snapshot_doc()))
+        if mirror(replica.cluster) != mirror(op.cluster):
+            raise AssertionError("replication: the standby's snapshot differs")
+        gone = sorted(op.cluster.pods)[:REMOTE_CHURN]
+        for name in gone:
+            op.cluster.delete_pod(name)
+        for p in pods2[:REMOTE_CHURN]:
+            op.cluster.add_pod(serde.pod_from_dict({**serde.pod_to_dict(p),
+                                                    "name": p.name + "-b"}))
+        results.clear()
+        op.run_once(force_provision=True)
+        torch.cuda.synchronize()
+        _check_pass("remote Operator second pass", results[0])
+        st = op.solver.pool_stats()
+        if (st["delegated_solves"], st["local_solves"], st["failovers"]) != (2, 0, 0):
+            raise AssertionError(f"remote Operator: the second pass was not "
+                                 f"delegated ({st})")
+        t = time.perf_counter()
+        if not replica.sync_once():
+            raise AssertionError(f"replication: the delta failed: {replica.stats()}")
+        delta_ms = (time.perf_counter() - t) * 1e3
+        rst = replica.stats()
+        if (rst["snapshots"], rst["deltas"]) != (1, 1) or \
+                mirror(replica.cluster) != mirror(op.cluster):
+            raise AssertionError(f"replication: the standby's mirror differs after "
+                                 f"the delta ({rst})")
+        if not replica.promotion_ready() or replica.stats()["stale_promotions"]:
+            raise AssertionError(f"replication: promotion_ready refused ({replica.stats()})")
+        ho = op.handoff_stats()
+        print(f"replication: snapshot of {len(op.cluster.pods)} pods "
+              f"({snap_bytes} B) in {snap_ms:.3f} ms, delta of {rst['delta_pods']} "
+              f"pods after a second delegated pass in {delta_ms:.3f} ms; mirror == "
+              f"leader's; promotion_ready; source {ho['source_snapshots']} "
+              f"snapshot(s) {ho['source_deltas']} delta(s)", flush=True)
+        out["replication"] = {"snapshot_ms": snap_ms, "snapshot_bytes": snap_bytes,
+                              "delta_ms": delta_ms, "delta_pods": rst["delta_pods"],
+                              "delegated_solves": op.solver.pool_stats()["delegated_solves"]}
+
+        # (f) cfg2's RPC against the in-process solve, in turns; Health
+        client = SolverClient(address, timeout=REMOTE_SOLVE_DEADLINE)
+        closers.append(client.close)
+        marks = {}
+        call = client._solve
+
+        def timed_call(request, **kw):
+            marks["sent"], marks["req_bytes"] = time.perf_counter(), len(request)
+            resp = call(request, **kw)
+            marks["answered"], marks["resp_bytes"] = time.perf_counter(), len(resp)
+            return resp
+        client._solve = timed_call
+        walls = {"rpc": [], "in_process": []}
+        split = {"serialize": [], "wire_and_sidecar": [], "decode": []}
+        for i in range(REMOTE_TURNS):
+            for path in (("rpc", "in_process") if i % 2 == 0 else ("in_process", "rpc")):
+                t = time.perf_counter()
+                plan = client.solve(pods2, pools2) if path == "rpc" \
+                    else local.solve_relaxed(pods2, pools2)
+                torch.cuda.synchronize()
+                end = time.perf_counter()
+                walls[path].append((end - t) * 1e3)
+                if path == "rpc":
+                    split["serialize"].append((marks["sent"] - t) * 1e3)
+                    split["wire_and_sidecar"].append((marks["answered"] - marks["sent"]) * 1e3)
+                    split["decode"].append((end - marks["answered"]) * 1e3)
+                if canon(plan) != canon(plan2):
+                    raise AssertionError(f"remote: a repeated {path} solve changed the plan")
+        # one traced call: the sidecar's spans come back in the response
+        rec = FlightRecorder(ring=16, retained=4, latency_budget_ms=1e9)
+        trace.enable(rec)
+        try:
+            with trace.span("chip.remote") as root:
+                client.solve(pods2, pools2)
+            spans = {s.name: s.duration * 1e3 for s in rec.get(root.trace_id)}
+        finally:
+            trace.disable()
+            trace.get_tracer().recorder = None
+        health = []
+        for _ in range(REMOTE_HEALTH_CALLS):
+            t = time.perf_counter()
+            doc = client.health()
+            health.append((time.perf_counter() - t) * 1e3)
+        if not doc["ok"] or doc["types"] != lattice.T:
+            raise AssertionError(f"remote: Health answered {doc}")
+        p50 = {k: statistics.median(v) for k, v in walls.items()}
+        print(f"cfg2 Solve RPC: p50 {p50['rpc']:.3f} ms against in-process "
+              f"solve_relaxed {p50['in_process']:.3f} ms ({REMOTE_TURNS} each, in "
+              f"turns); request {marks['req_bytes']} B, response "
+              f"{marks['resp_bytes']} B; split p50 ms "
+              f"{ {k: round(statistics.median(v), 3) for k, v in split.items()} }; "
+              f"the sidecar's spans (traced call) ms "
+              f"{ {k: round(v, 3) for k, v in spans.items() if k in ('sidecar.solve', 'solver.solve_relaxed')} }; "
+              f"Health p50 {statistics.median(health):.3f} ms over "
+              f"{REMOTE_HEALTH_CALLS}", flush=True)
+        out["cfg2_rpc"] = {"rpc_ms": walls["rpc"], "in_process_ms": walls["in_process"],
+                           "rpc_p50_ms": p50["rpc"], "in_process_p50_ms": p50["in_process"],
+                           "request_bytes": marks["req_bytes"],
+                           "response_bytes": marks["resp_bytes"],
+                           "split_p50_ms": {k: statistics.median(v)
+                                            for k, v in split.items()},
+                           "sidecar_spans_ms": {k: spans.get(k) for k in (
+                               "sidecar.solve", "solver.solve_relaxed")},
+                           "health_p50_ms": statistics.median(health)}
+
+        # (b) the kernel behind the wire: two in-process sidecars on the card
+        for i in range(2):
+            sc = ChaosSidecar(Solver(lattice), f"unix:{tmp}/b{i}.sock").start()
+            sidecars.append(sc)
+        bclient = SolverClient(sidecars[0].address, timeout=REMOTE_SOLVE_DEADLINE)
+        closers.append(bclient.close)
+        bclient.solve(pods2, pools2)        # the sidecar Solver's first solve
+        oa.LAUNCHES = 0
+        plan, captured = measure.captured_kernel_inputs(
+            lambda: bclient.solve(pods2, pools2))
+        launches["sidecar_cfg2"] = oa.LAUNCHES
+        if launches["sidecar_cfg2"] != 1 or len(captured) != 1:
+            raise AssertionError(f"remote: {launches['sidecar_cfg2']} launches and "
+                                 f"{len(captured)} captured calls in one Solve RPC")
+        if canon(plan) != canon(plan2):
+            raise AssertionError("remote: the in-process sidecar's plan differs")
+        tm, zc, pr = captured[0]
+        max_err = measure.check_exact("sidecar cfg2 inputs", oa.cheapest_offering(tm, zc, pr),
+                                      oa.cheapest_offering_ref(tm, zc, pr))
+        print(f"sidecar cfg2: {launches['sidecar_cfg2']} kernel launch in one Solve "
+              f"RPC (B={tm.shape[0]} T={tm.shape[1]} ZC={zc.shape[1]}), exact "
+              f"against the plain version", flush=True)
+
+        # (c) failover through a pool over the two sidecars
+        cut = {}
+
+        def before(step, pool):
+            closers.append(pool.close)
+            if REMOTE_FAILOVER_EXPECTED[step]["local_solves"]:
+                _ALLOWED[id(pool)] = {"pool-exhausted": 1}
+            oa.LAUNCHES = 0
+
+        def after(step, pool):
+            cut[step] = oa.LAUNCHES
+
+        def make_pool(deadline):
+            return SolverPool(lattice, ",".join(sc.address for sc in sidecars),
+                              clock=FakeClock(), solve_deadline=deadline)
+
+        def drained():
+            # the released handler goes on to solve; let it finish
+            while sidecars[0].server._active:
+                time.sleep(0.05)
+
+        steps = []
+        for step, row, plan, wall_ms in _failover_steps(
+                make_pool, sidecars, {"cfg2": (pods2, pools2), "cfg3": (pods3, pools3)},
+                {"hang": REMOTE_HANG_DEADLINE}, REMOTE_SOLVE_DEADLINE,
+                before=before, after=after, after_hang=drained):
+            torch.cuda.synchronize()
+            print(f"failover {step}: {row}, wall {wall_ms:.3f} ms", flush=True)
+            if row != REMOTE_FAILOVER_EXPECTED[step]:
+                raise AssertionError(f"failover {step}: {row}, the reference decides "
+                                     f"{REMOTE_FAILOVER_EXPECTED[step]}")
+            want = plan3 if REMOTE_FAILOVER_STEPS[step][1] == "cfg3" else plan2
+            if canon(plan, core=True) != canon(want, core=True):
+                raise AssertionError(f"failover {step}: the plan differs from the "
+                                     f"in-process plan")
+            steps.append({"step": step, "wall_ms": wall_ms, **row})
+        launches["pool_local_cfg3"] = cut["cfg3"]
+        hang = next(s for s in steps if s["step"] == "hang")
+        print(f"failover: every decision as the reference's; the hang's wall "
+              f"{hang['wall_ms']:.3f} ms against the {REMOTE_HANG_DEADLINE} s solve "
+              f"deadline plus one failover; cfg3's local rung "
+              f"{launches['pool_local_cfg3']} launch(es)", flush=True)
+        if launches["pool_local_cfg3"] < 1:
+            raise AssertionError("failover cfg3: the local rung never launched the kernel")
+        out["failover"] = steps
+
+        # (d) the solve window: concurrent RPCs to one sidecar
+        for sc in sidecars:
+            sc.kill()
+        waddr = f"unix:{tmp}/w.sock"
+        wsolver = Solver(lattice)
+        servers.append(serve(wsolver, waddr))
+        base1, pools1, _ = workloads.config1_parity()
+        problems1 = [[serde.pod_from_dict({**serde.pod_to_dict(p), "name": f"w{i}-{p.name}"})
+                      for p in base1[:len(base1) - 5 * i]]
+                     for i in range(REMOTE_WINDOW_THREADS)]
+        serial = [canon(Solver(lattice).solve_relaxed(p, pools1)) for p in problems1]
+        wclient = SolverClient(waddr, timeout=REMOTE_SOLVE_DEADLINE)
+        closers.append(wclient.close)
+        wclient.solve(problems1[0], pools1)
+        before = introspect.registry().collect()["solve_window"]
+        barrier = threading.Barrier(REMOTE_WINDOW_THREADS)
+        got = {}
+
+        def caller(i):
+            barrier.wait()
+            got[i] = canon(wclient.solve(problems1[i], pools1))
+        threads = [threading.Thread(target=caller, args=(i,))
+                   for i in range(REMOTE_WINDOW_THREADS)]
+        t = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(120)
+        window_ms = (time.perf_counter() - t) * 1e3
+        after = introspect.registry().collect()["solve_window"]
+        batches = after["batches"] - before["batches"]
+        coalesced = after["coalesced"] - before["coalesced"]
+        print(f"solve window: {REMOTE_WINDOW_THREADS} concurrent Solve RPCs of "
+              f"distinct cfg1-sized problems in {batches} drain(s), {coalesced} "
+              f"coalesced, {window_ms:.3f} ms", flush=True)
+        if [got.get(i) for i in range(REMOTE_WINDOW_THREADS)] != serial:
+            raise AssertionError("solve window: a plan differs from its serial solve")
+        if batches < 1 or coalesced < 2:
+            raise AssertionError(f"solve window: {batches} drains, {coalesced} coalesced")
+        out["window"] = {"rpcs": REMOTE_WINDOW_THREADS, "batches": batches,
+                         "coalesced": coalesced, "wall_ms": window_ms}
+        launches["remote_operator_cfg2_local"] = local_launches
+    finally:
+        for close in closers:
+            close()
+        for sc in sidecars:
+            sc.kill()
+        for server in servers:
+            server.stop(None)
+        if proc is not None:
+            proc.terminate()
+            try:
+                proc.wait(30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(30)
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["max_abs_err"] = max_err
+    return out, launches, (tm, zc, pr)
+
+
+def _failover_steps(make_pool, sidecars, problems, deadlines, deadline,
+                    before=None, after=None, after_hang=None):
+    """The remote phase's failover steps (``REMOTE_FAILOVER_STEPS``), on
+    either package's objects: for each step the two ``sidecars`` are
+    restored, ``make_pool(solve deadline)`` builds a fresh pool over them
+    (``deadlines`` by fault, else ``deadline``), one cfg2 solve warms it
+    (endpoint 0 answers), the fault lands and the step's problem is
+    solved once, between ``before(step, pool)`` and ``after(step,
+    pool)``. Yields (step, its decisions, the plan, wall ms); the
+    decisions are what ``REMOTE_FAILOVER_EXPECTED`` holds."""
+    failover = "solver pool failover: "
+    for step, (fault, problem) in REMOTE_FAILOVER_STEPS.items():
+        for sc in sidecars:
+            sc.restore()
+        pool = make_pool(deadlines.get(fault, deadline))
+        pool.solve_relaxed(*problems["cfg2"])
+        if fault == "kill":
+            sidecars[0].kill()
+        elif fault == "hang":
+            sidecars[0].set_hang(True)
+        elif fault == "junk":
+            sidecars[0].set_junk(True)
+        elif fault == "dark":
+            for sc in sidecars:
+                sc.kill()
+        if before is not None:
+            before(step, pool)
+        t = time.perf_counter()
+        plan = pool.solve_relaxed(*problems[problem])
+        wall_ms = (time.perf_counter() - t) * 1e3
+        if after is not None:
+            after(step, pool)
+        if fault == "hang":
+            sidecars[0].set_hang(False)
+            if after_hang is not None:
+                after_hang()
+        st = pool.pool_stats()
+        row = {"solved_by": pool._last_ep,
+               "states": [st["ep0_state"], st["ep1_state"]],
+               "failovers": st["failovers"], "local_solves": st["local_solves"],
+               "degraded_reason": plan.degraded_reason,
+               "reasons": sorted(w.rsplit(": ", 1)[1] for w in plan.warnings
+                                 if w.startswith(failover))}
+        yield step, row, plan, wall_ms
+
+
 def main() -> int:
     try:
         import torch
@@ -2612,7 +3120,14 @@ def _run(torch) -> int:
     launches.update(mesh_launches)
     _check_solvers(torch, "mesh")
 
-    # ---- 14. kernel times: the main paths' own inputs, the dense largest
+    # ---- 14. the remote solver: sidecars, the pool, the window, replication
+    _phase("remote: the sidecar on the card, failover, the window and replication")
+    remote, remote_launches, sidecar_inputs = _remote(torch, workloads, lattice, oa)
+    launches.update(remote_launches)
+    max_err = max(max_err, remote["max_abs_err"])
+    _check_solvers(torch, "remote")
+
+    # ---- 15. kernel times: the main paths' own inputs, the dense largest
     # bucket, the launch floor
     _phase("kernel timing")
     solver = Solver(lattice)
@@ -2626,6 +3141,7 @@ def _run(torch) -> int:
             ("cfg4_probe", probe_inputs), ("cfg7_last_wave", cfg7_inputs),
             ("cfg11_mesh_shards", mesh_shard_inputs),
             ("cfg11_mesh_merge", mesh_merge_inputs),
+            ("sidecar_cfg2", sidecar_inputs),
             ("dense", measure.on_device(offering_cases.dense_case(), dev))):
         max_err = max(max_err, measure.check_exact(
             f"{name} inputs", oa.cheapest_offering(tm, zc, pr),
@@ -2683,12 +3199,17 @@ def _run(torch) -> int:
                              "launches": launches["cfg11_mesh_merge"],
                              "launches_per_solve": launches["cfg11_mesh_merge"]},
         "cfg10_delta_on_mesh": {"launches": launches["cfg10_delta_on_mesh"]},
+        "sidecar_cfg2": {**timed["sidecar_cfg2"], "library_ms": None,
+                         "launches": launches["sidecar_cfg2"],
+                         "launches_per_rpc": launches["sidecar_cfg2"]},
+        "pool_local_cfg3": {"launches": launches["pool_local_cfg3"]},
         "dense": timed["dense"],
     }], "cfg5": cfg5, "cfg10": {k: v for k, v in steady.items()
                                 if k != "launches_per_pass"},
         "consolidation": consol, "operator": operator,
         "wave_split": wave, "ladder": ladder, "weather": weather, "api": api,
-        "mesh": mesh,
+        "mesh": mesh, "remote": {k: v for k, v in remote.items()
+                                 if k != "max_abs_err"},
         "provisioner": {"cfg5_wave": prov["cfg5_wave"],
                         "cfg10_first_wave": prov["cfg10_first_wave"],
                         "cfg10": {k: v for k, v in prov["cfg10"].items()

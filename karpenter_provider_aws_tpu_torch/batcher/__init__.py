@@ -1,3 +1,5 @@
 from .batcher import Batcher, BatcherOptions
+from .solve_window import SolveWindow, SOLVE_WINDOW_OPTIONS
 
-__all__ = ["Batcher", "BatcherOptions"]
+__all__ = ["Batcher", "BatcherOptions", "SolveWindow",
+           "SOLVE_WINDOW_OPTIONS"]

@@ -23,10 +23,12 @@ Operator; without CUDA it raises, and ``--device cpu`` runs the plain
 PyTorch path. No environment variable replaces it. Flags that reach a
 part this package does not carry fail before anything is served or
 built, naming the roadmap item that brings it: ``--warm-start`` and
-``--profile-dir`` (ahead-of-time compiles and device traces, B7),
-``--sidecar-address`` and ``--solver-address`` (the solver sidecar and
-pool, A11), and ``--compile-cache-dir`` (nothing is compiled at run time
-to cache). ``--mesh N`` runs N pod shards batched on the ``--device``.
+``--profile-dir`` (ahead-of-time compiles and device traces, B7), and
+``--compile-cache-dir`` (nothing is compiled at run time to cache).
+``--mesh N`` runs N pod shards batched on the ``--device``.
+``--sidecar-address`` also serves the Operator's Solver as a solver
+sidecar, and ``--solver-address`` (``SOLVER_ADDRESSES``) delegates the
+provisioning solves to a pool of sidecars (parallel/sidecar.py, pool.py).
 
 Run it as ``python -m karpenter_provider_aws_tpu_torch [flags]`` or as the
 ``karpenter-tpu-controller-torch`` console script.
@@ -51,7 +53,6 @@ _UNPORTED_FLAGS = (
      "B7: Solver.warmup, ahead-of-time compiles of the bucket ladder"),
     ("profile_dir", "--profile-dir",
      "B7: Solver.start_profiling, device traces of every solve"),
-    ("sidecar_address", "--sidecar-address", "A11: the solver sidecar"),
 )
 
 _GATES = {
@@ -158,7 +159,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="End-to-end trace duration above which the flight "
                         "recorder tail-retains the trace as 'slow'.")
     p.add_argument("--sidecar-address", default=None,
-                   help="Not ported (ROADMAP.md A11): fails at start.")
+                   help="Also serve the solver as a gRPC sidecar on this "
+                        "address (e.g. unix:/run/karpenter/solver.sock or "
+                        ":50051) so external controllers can Solve() "
+                        "against the resident lattice.")
     p.add_argument("--mesh", default=None,
                    help="Device mesh for the sharded solver (env "
                         "SOLVER_MESH): an integer N splits every solve "
@@ -172,8 +176,17 @@ def build_parser() -> argparse.ArgumentParser:
                         "single-device path. Batched on one card, a mesh "
                         "solve is slower than the single-device one.")
     p.add_argument("--solver-address", default=None,
-                   help="Not ported (ROADMAP.md A11; env SOLVER_ADDRESSES): "
-                        "fails at start.")
+                   help="Delegate provisioning solves to a POOL of solver "
+                        "sidecar processes: a comma-separated list of "
+                        "gRPC addresses (python -m "
+                        "karpenter_provider_aws_tpu_torch.parallel.sidecar; "
+                        "env SOLVER_ADDRESSES, singular SOLVER_ADDRESS still "
+                        "works). Each endpoint gets a circuit breaker "
+                        "with health-checked half-open probation; solves "
+                        "fail over to the least-loaded healthy endpoint, "
+                        "and the local solver (on --device) is the final "
+                        "rung only when the whole pool is dark "
+                        "(docs/reference/solver-pool.md).")
     p.add_argument("--solver-solve-deadline", type=float, default=None,
                    help="Solve RPC deadline in seconds against pool "
                         "endpoints (env SOLVER_SOLVE_DEADLINE; 0 = "
@@ -471,9 +484,6 @@ def _check_ported(args: argparse.Namespace, opts: Options):
         if getattr(args, attr):
             raise SystemExit(f"{flag} is not ported to this package "
                              f"(ROADMAP.md {item})")
-    if opts.solver_address:
-        raise SystemExit("--solver-address (SOLVER_ADDRESSES) is not ported "
-                         "to this package (ROADMAP.md A11, the solver pool)")
     if opts.compile_cache_dir:
         raise SystemExit("--compile-cache-dir (COMPILE_CACHE_DIR): this "
                          "package compiles nothing at run time, so there is "
@@ -581,6 +591,10 @@ def main(argv: Optional[Sequence[str]] = None,
                            certfile=args.api_tls_cert,
                            keyfile=args.api_tls_key)
               if args.metrics_port else None)
+    sidecar = None
+    if args.sidecar_address:
+        from .parallel.sidecar import serve as serve_sidecar
+        sidecar = serve_sidecar(op.solver, args.sidecar_address)
     deadline = (time.monotonic() + args.duration) if args.duration > 0 else None
     runtime = None
     try:
@@ -623,6 +637,8 @@ def main(argv: Optional[Sequence[str]] = None,
                 prof.stop()
         if runtime is not None:
             runtime.stop()
+        if sidecar is not None:
+            sidecar.stop(grace=None)
         if server is not None:
             server.shutdown()
         if api_httpd is not None:

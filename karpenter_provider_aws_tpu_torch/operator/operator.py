@@ -15,11 +15,11 @@ write through the apiserver client and informers feed the mirror.
 Beyond the JAX Operator's arguments it takes ``device``, where the
 Solver's tensors live: None means ``cuda`` and raises without CUDA, and
 tests pass ``"cpu"``. A solver mesh (``Options.mesh``) runs its shards
-batched on that device. What the port does not carry raises at
-construction instead of running another way: a solver pool
-(``Options.solver_address``; ROADMAP.md A11) and the persistent XLA
-compile cache (``Options.compile_cache_dir``), which has nothing to
-cache here.
+batched on that device. ``Options.solver_address`` delegates the
+provisioning solves to a pool of solver sidecars (parallel/pool.py)
+whose local rung runs on that device. The persistent XLA compile cache
+(``Options.compile_cache_dir``) has nothing to cache here, so a value
+raises at construction instead of being ignored.
 """
 
 from __future__ import annotations
@@ -82,10 +82,6 @@ class Operator:
         ``cuda``, raising when CUDA is absent)."""
         self.options = options or Options()
         self.options.validate()
-        if self.options.solver_address:
-            raise NotImplementedError(
-                "a solver pool (solver_address) is not ported to this "
-                "package (ROADMAP.md A11); the Operator solves in process")
         if self.options.compile_cache_dir:
             raise ValueError(
                 "compile_cache_dir: this package compiles nothing at run "
@@ -259,8 +255,32 @@ class Operator:
                           devices=self.mesh_plan.devices,
                           axis=self.mesh_plan.axis,
                           source=self.mesh_plan.source)
-        self.solver = Solver(self.lattice, device=self.device,
-                             clock=self.clock, mesh=self.mesh_plan.mesh)
+        if self.options.solver_address:
+            # delegate provisioning solves to the failover POOL of
+            # accelerator-resident sidecar processes (parallel/pool.py;
+            # docs/reference/solver-pool.md): per-endpoint circuit
+            # breakers on THIS operator's injected clock, solve/health
+            # deadlines split by purpose, least-outstanding failover
+            # routing. probe_batch and the degradation ladder's local
+            # fallback stay on this (fully functional) local Solver, on
+            # this Operator's device — the fallback rides the same
+            # planned mesh, and it solves only when the whole pool is
+            # dark (pool-exhausted).
+            from ..parallel.pool import SolverPool
+            self.solver = SolverPool(
+                self.lattice, self.options.solver_address,
+                clock=self.clock, mesh=self.mesh_plan.mesh,
+                device=self.device,
+                solve_deadline=self.options.solver_solve_deadline or None,
+                health_deadline=self.options.solver_health_deadline,
+                latency_budget_seconds=self.slo.latency_budget_seconds)
+            self.log.info("solver pool configured",
+                          endpoints=len(self.solver.endpoints),
+                          solve_deadline_s=self.solver.solve_deadline,
+                          health_deadline_s=self.solver.health_deadline)
+        else:
+            self.solver = Solver(self.lattice, device=self.device,
+                                 clock=self.clock, mesh=self.mesh_plan.mesh)
         self.provisioner = Provisioner(
             self.cluster, self.solver, self.node_pools, self.cloud_provider,
             self.unavailable, self.recorder, self.clock,

@@ -1,24 +1,31 @@
-"""Device-mesh planning and the pod-axis sharded solve: the boot-time mesh
-decision (``mesh.plan_mesh``) and D pod shards packed as one batched pass
-on the Solver's device (``sharded.sharded_pack``). The solver sidecar
-and the solver pool are not ported: their names raise, naming ROADMAP.md
-A11."""
+"""Device-mesh planning and the pod-axis sharded solve (``mesh.plan_mesh``,
+``sharded.sharded_pack``: D pod shards packed as one batched pass on the
+Solver's device), and the remote solver: the sidecar that serves a
+resident Solver (``sidecar``), the failover pool of sidecars (``pool``),
+over this package's own unary gRPC wire (``rpc``)."""
 
 from .mesh import MeshPlan, SolverMesh, plan_mesh, solver_mesh
 from .sharded import (ShardedPack, shard_groups, sharded_pack,
                       split_counts)
 
-__all__ = ["MeshPlan", "ShardedPack", "SolverMesh", "plan_mesh",
-           "shard_groups", "solver_mesh", "sharded_pack", "split_counts"]
+__all__ = ["ChaosSidecar", "MeshPlan", "RemoteSolver", "ShardedPack",
+           "SidecarProtocolError", "SolverClient", "SolverMesh", "SolverPool",
+           "SolverService", "plan_mesh", "serve_sidecar", "shard_groups",
+           "solver_mesh", "sharded_pack", "split_counts"]
 
-_NOT_PORTED = ("ChaosSidecar", "RemoteSolver", "SidecarProtocolError",
-               "SolverClient", "SolverPool", "SolverService",
-               "serve_sidecar")
+_SIDECAR = {"ChaosSidecar": "ChaosSidecar", "RemoteSolver": "RemoteSolver",
+            "SidecarProtocolError": "SidecarProtocolError",
+            "SolverClient": "SolverClient", "SolverService": "SolverService",
+            "serve_sidecar": "serve"}
 
 
 def __getattr__(name):
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"parallel.{name} is not ported to this package (ROADMAP.md "
-            "A11: the solver sidecar and pool)")
+    # lazy: the sidecar and the pool import solver/solve.py, which imports
+    # this package for the mesh
+    if name in _SIDECAR:
+        from . import sidecar
+        return getattr(sidecar, _SIDECAR[name])
+    if name == "SolverPool":
+        from .pool import SolverPool
+        return SolverPool
     raise AttributeError(name)

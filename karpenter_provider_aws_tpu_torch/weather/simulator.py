@@ -62,8 +62,7 @@ class WeatherSimulator:
 
         ``sidecars`` is the control-plane-weather seam: a
         sequence of handles with ``kill()/restart()/set_hang()/
-        set_junk()`` (the JAX package's parallel/sidecar.py ChaosSidecar;
-        this package has none yet) that scenario
+        set_junk()`` (parallel/sidecar.py ChaosSidecar) that scenario
         ``SidecarOutage`` elements drive — one handle per solver-pool
         endpoint index. An outage naming an endpoint beyond the list is
         recorded in the timeline but applies to nothing (the timeline

@@ -8,9 +8,12 @@ also serve ``test_torch_api_wave.py``, the API-mode wave).
   election lease is held by this process and the two servers hold equal
   claims, nodes and bindings; ``main`` returns 0 after its stop event.
 - Each flag of the port's CLI that reaches an unported part exits
-  non-zero, naming its roadmap item, before anything is served; a mesh
-  (``--mesh N``, ``SOLVER_MESH=N``) starts the process, its Operator's
-  Solver on an N-shard mesh.
+  non-zero, naming its roadmap item, before anything is served; the
+  solver sidecar and pool flags start the process (``--sidecar-address``
+  serves the Operator's Solver, ``--solver-address`` and
+  ``SOLVER_ADDRESSES`` put it on a solver pool); a mesh (``--mesh N``,
+  ``SOLVER_MESH=N``) starts the process, its Operator's Solver on an
+  N-shard mesh.
 
 Tolerance: none.
 """
@@ -124,22 +127,65 @@ def test_both_clis_bind_rest_posted_pods_equally():
     assert out[cases.TORCH_PKG][1] == out[cases.JAX_PKG][1]
 
 
-# ---- the port's CLI refuses flags that reach unported parts ----
+# ---- the port's CLI refuses flags that reach unported parts, and starts
+# on the solver sidecar and pool flags ----
 
 @pytest.mark.parametrize("flags,env,item", [
     (["--warm-start"], {}, "B7"),
     (["--profile-dir", "prof"], {}, "B7"),
-    (["--sidecar-address", "unix:/tmp/s.sock"], {}, "A11"),
-    (["--solver-address", "unix:/tmp/a.sock"], {}, "A11"),
-    ([], {"SOLVER_ADDRESSES": "unix:/tmp/a.sock"}, "A11"),
+    (["--sidecar-address", "unix:{tmp}/s.sock"], {}, None),
+    (["--solver-address", "unix:{tmp}/a.sock"], {}, None),
+    ([], {"SOLVER_ADDRESSES": "unix:{tmp}/a.sock"}, None),
     (["--compile-cache-dir", "cache"], {}, "compiles nothing"),
 ], ids=["warm-start", "profile-dir", "sidecar-address", "solver-address",
         "SOLVER_ADDRESSES", "compile-cache-dir"])
 def test_unported_flags_exit_before_serving(flags, env, item, monkeypatch,
                                             tmp_path):
+    """A flag that reaches a part this package does not carry (``item``
+    names it) exits non-zero before anything is served or built. The
+    solver sidecar and pool flags (``item`` None) start the process as
+    the JAX CLI's do: ``--sidecar-address`` serves the Operator's Solver
+    for the run and stops it at the end, ``--solver-address`` and
+    ``SOLVER_ADDRESSES`` build the Operator on a solver pool of those
+    endpoints."""
     from karpenter_provider_aws_tpu_torch import cli
+    from karpenter_provider_aws_tpu_torch.parallel import sidecar
+    flags = [f.format(tmp=tmp_path) for f in flags]
     for k, v in env.items():
-        monkeypatch.setenv(k, v)
+        monkeypatch.setenv(k, v.format(tmp=tmp_path))
+    if item is None:
+        lat = cases.small_lattice(cases.TORCH_PKG)
+        built, health = [], []
+        real, serve = cli.Operator, sidecar.serve
+
+        def operator(*a, **k):
+            op = real(*a, lattice=lat, **k)
+            built.append(op)
+            return op
+
+        def serve_and_probe(solver, address, **kw):
+            server = serve(solver, address, **kw)
+            client = sidecar.SolverClient(address)
+            health.append(client.health())
+            client.close()
+            return server
+
+        monkeypatch.setattr(cli, "Operator", operator)
+        monkeypatch.setattr(sidecar, "serve", serve_and_probe)
+        rc = cli.main(flags + ["--device", "cpu", "--metrics-port=0",
+                               "--duration=0.1"])
+        assert rc == 0
+        op, = built
+        if "--sidecar-address" in flags:
+            assert [h["types"] for h in health] == [lat.T]
+            assert type(op.solver).__name__ == "Solver"
+            assert not (tmp_path / "s.sock").exists()    # stopped
+        else:
+            assert not health
+            assert [ep.address for ep in op.solver.endpoints] == \
+                [f"unix:{tmp_path}/a.sock"]
+            assert op.solver.device.type == "cpu"
+        return
     monkeypatch.chdir(tmp_path)
     api, metrics = _free_port(), _free_port()
     built = []

@@ -11,8 +11,9 @@ package's virtual CPU mesh of as many devices.
   (merge reuse on an unchanged pass, mesh-shape reset, pinned groups
   leaving the microloop) are replayed on both packages by
   ``test_torch_replay``, with every solve's plan and every sharded and
-  seeded pack compared (buffers byte for byte). The sidecar, remote-solver
-  and ``kpctl`` cases are named in ``NOT_REPLAYED``.
+  seeded pack compared (buffers byte for byte), the sidecar's health
+  document and a remote solver reporting the sidecar's mesh included. The
+  ``kpctl`` case is named in ``NOT_REPLAYED``.
 - Every rung of the degradation ladder over an 8-shard mesh (the wave
   split under a group ceiling, a retried device error, the host FFD after
   two, and after bin-table exhaustion) gives the JAX package's plans,
@@ -38,10 +39,6 @@ from test_torch_replay import one_torch_thread  # noqa: F401 (autouse)
 
 FILE = "test_mesh.py"
 NOT_REPLAYED = {
-    "test_mesh.py::TestMeshSurfaces::test_sidecar_health_reports_mesh":
-        "A11 (parallel/sidecar.py, the solver sidecar over gRPC)",
-    "test_mesh.py::TestMeshSurfaces::test_remote_solver_reports_sidecar_mesh":
-        "A11 (parallel/sidecar.py RemoteSolver)",
     "test_mesh.py::TestMeshSurfaces::test_kpctl_solver_row_renders_mesh":
         "A12 (tools/kpctl.py, which renders the JAX package's surfaces)",
 }

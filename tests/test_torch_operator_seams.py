@@ -106,12 +106,23 @@ def test_operator_defaults_to_cuda_and_raises_without_it(monkeypatch):
 
 
 def test_api_mode_and_solver_pool_raise():
-    """A solver pool raises (A11); API mode builds on both packages and
-    its first ``sync_once`` hydrates the mirror with what the apiserver
-    held, equally."""
-    from karpenter_provider_aws_tpu_torch.operator import Options
-    with pytest.raises(NotImplementedError, match="A11"):
-        _operator(cases.TORCH_PKG, options=Options(solver_address="unix:/a.sock"))
+    """A ``solver_address`` builds the solver pool on both packages (the
+    name is from when the port raised there): two endpoints, the derived
+    solve deadline, the local rung on the Operator's device and clock,
+    and equal ``pool_stats`` before any solve. API mode builds on both
+    packages and its first ``sync_once`` hydrates the mirror with what
+    the apiserver held, equally."""
+    pools = {}
+    for pkg in (cases.JAX_PKG, cases.TORCH_PKG):
+        op = _operator(pkg, options=cases.mod(pkg, "operator").Options(
+            registration_delay=1.0, solver_address="unix:/a.sock, unix:/b.sock"))
+        assert type(op.solver).__name__ == "SolverPool"
+        assert op.solver._pool_clock is op.clock
+        pools[pkg] = op.solver.pool_stats()
+    assert op.solver.device.type == "cpu"
+    assert pools[cases.TORCH_PKG] == pools[cases.JAX_PKG]
+    assert pools[cases.JAX_PKG]["endpoints"] == 2
+    assert pools[cases.JAX_PKG]["solve_deadline_s"] == 10.0
     out = {}
     for pkg in (cases.JAX_PKG, cases.TORCH_PKG):
         m = lambda name: cases.mod(pkg, name)  # noqa: E731

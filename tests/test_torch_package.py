@@ -3,8 +3,9 @@
 The port imports torch and numpy, never jax and never the JAX package
 (whose name is a prefix of the port's: ``karpenter_provider_aws_tpu``
 followed by ``.`` or the end of the name, never ``_torch``), and never
-``jsonschema``, which the machine with the card does not have. Its entry
-points run on the card unless the caller asks for the CPU.
+``jsonschema`` or ``grpc``, which the machine with the card does not
+have. Its entry points run on the card unless the caller asks for the
+CPU.
 """
 
 import ast
@@ -76,14 +77,41 @@ def test_no_jsonschema_imports():
     assert not bad, bad
 
 
+def test_no_grpc_imports():
+    """The sidecar, the solver pool and replication speak the port's own
+    gRPC wire (parallel/rpc.py): no file of the port, nor chip_smoke.py,
+    imports ``grpc``."""
+    bad = {str(p.relative_to(REPO)): n for p in CHECKED_FILES
+           for n in _imported_names(p)
+           if n == "grpc" or n.startswith("grpc.")}
+    assert not bad, bad
+
+
+def test_guard_covers_the_remote_solver_modules():
+    """The import guards above check the wire, the sidecar, the pool, the
+    solve window and replication, and the parallel package exports what
+    the JAX package's does."""
+    mods = {_module_name(p) for p in PORT_FILES}
+    port = "karpenter_provider_aws_tpu_torch"
+    for name in ("parallel.rpc", "parallel.sidecar", "parallel.pool",
+                 "batcher.solve_window", "state.replication"):
+        assert f"{port}.{name}" in mods, name
+    import karpenter_provider_aws_tpu.parallel as jax_parallel
+    from karpenter_provider_aws_tpu_torch import parallel
+    assert set(jax_parallel.__all__) <= set(parallel.__all__)
+    for name in parallel.__all__:
+        assert getattr(parallel, name) is not None
+
+
 def test_every_module_imports_without_jax():
     """Every port module imports in a fresh process where importing jax,
-    the JAX package or jsonschema fails."""
+    the JAX package, jsonschema or grpc fails."""
     mods = [_module_name(p) for p in PORT_FILES]
     code = "\n".join([
         "import sys",
         "sys.modules['jax'] = None",
         "sys.modules['jsonschema'] = None",
+        "sys.modules['grpc'] = None",
         f"sys.modules['{JAX_PKG}'] = None",
         "import importlib",
         f"for m in {mods!r}:",
@@ -151,6 +179,7 @@ def test_cli_runs_where_jax_and_jsonschema_cannot_load(tmp_path):
         "import runpy, sys",
         "sys.modules['jax'] = None",
         "sys.modules['jsonschema'] = None",
+        "sys.modules['grpc'] = None",
         f"sys.modules['{JAX_PKG}'] = None",
         "sys.argv = ['karpenter_provider_aws_tpu_torch', '--device', 'cpu',",
         f"            '--metrics-port', '0', '--api-port', '{port}',",

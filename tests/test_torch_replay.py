@@ -22,7 +22,8 @@ they were made:
 - each domain provider: the contents of its TTL cache; the pricing
   provider: the lattice's prices and price version;
 - each metrics registry: its families (name, kind, labels), the value of
-  every gauge and counter series and the observation count of every
+  every gauge and counter series (a label naming a path in the test's own
+  directory, as a sidecar's address, with the package's directory masked) and the observation count of every
   histogram series. Series that measure wall time (``WALL_TIME``) and
   the build-info labels (``jax_version`` and ``backend`` name the
   runtime) are compared by presence only, and the headroom rows of
@@ -31,6 +32,11 @@ they were made:
 - each solver ``FaultInjector``: its ceilings, the device errors still
   pending and what fired;
 - each weather simulator: its seed, ticks, timeline and counters;
+- each solver pool: ``pool_stats()`` but the endpoint addresses (each
+  package's test runs in its own directory) and its ``degraded_counts``;
+  each chaos sidecar: whether it is alive, hung and answering junk;
+- each replication source: its counters; each standby replica: its
+  counters and the names in its mirror;
 - each fake apiserver: every stored object of every kind as its JSON
   text (the serde dict in its envelope, so key order, float formatting
   and ``resourceVersion`` are compared), the global resourceVersion, and
@@ -222,8 +228,10 @@ def _fixture_parts(obj):
 
 class _Fixtures:
     """Resolves a test's arguments from its class's and its module's
-    fixtures (module or function scope, plain or generator) and pytest's
-    ``monkeypatch`` and ``tmp_path``."""
+    fixtures (module or function scope, plain or generator; a generator
+    fixture of module scope is made anew for each test and finalized at
+    its end) and pytest's ``monkeypatch``, ``tmp_path`` and
+    ``tmp_path_factory``."""
 
     def __init__(self, module, tmp_path, instance=None):
         self.module = module
@@ -242,6 +250,8 @@ class _Fixtures:
         elif name == "tmp_path":
             self.tmp_path.mkdir(parents=True, exist_ok=True)
             value = self.tmp_path
+        elif name == "tmp_path_factory":
+            value = _TmpPathFactory(self.tmp_path)
         else:
             obj = getattr(type(self.instance), name, None)
             bound = hasattr(obj, "_fixture_function_marker")
@@ -253,11 +263,12 @@ class _Fixtures:
             if bound:
                 fn = fn.__get__(self.instance)
             cache = self.module._module_fixtures
-            if scope == "module" and name in cache:
+            shared = scope == "module" and not inspect.isgeneratorfunction(fn)
+            if shared and name in cache:
                 value = cache[name]
             else:
                 value = self._call(fn)
-                if scope == "module":
+                if shared:
                     cache[name] = value
         self.values[name] = value
         return value
@@ -274,6 +285,18 @@ class _Fixtures:
     def close(self):
         while self.finalizers:
             self.finalizers.pop()()
+
+
+class _TmpPathFactory:
+    """pytest's ``tmp_path_factory``, as far as ``mktemp`` goes."""
+
+    def __init__(self, root):
+        self._root = root
+
+    def mktemp(self, name):
+        path = self._root / name
+        path.mkdir(parents=True, exist_ok=True)
+        return path
 
 
 # ---- what is recorded and how it is observed ----
@@ -329,6 +352,17 @@ def observe_pricing(provider):
             "updated": provider.last_update is not None}
 
 
+# a replay runs each package's copy of a test in a directory of its own
+# (``tmp_path / "jax"`` and ``tmp_path / "port"``, in ``replay``): a label
+# value naming a path in it (a sidecar address) names that directory
+_PKG_DIR = re.compile(r"/(jax|port)/")
+
+
+def _labels(key):
+    return tuple(_PKG_DIR.sub("/<pkg>/", v) if isinstance(v, str) else v
+                 for v in key)
+
+
 def observe_registry(reg):
     families, values, present = [], {}, set()
     for m in sorted(reg._metrics.values(), key=lambda m: m.name):
@@ -341,6 +375,7 @@ def observe_registry(reg):
                     values[(m.name, k)] = (n, tuple(m._counts[k]))
         else:
             for k, v in m._values.items():
+                k = _labels(k)
                 if m.name.startswith("karpenter_headroom_") \
                         and k and k[0] in WALL_TIME_RESOURCES:
                     continue
@@ -362,6 +397,30 @@ def observe_queue(queue):
 def observe_faults(inj):
     return {"g_limit": inj.g_limit, "b_limit": inj.b_limit,
             "device_errors": inj.device_errors, "fired": dict(inj.fired)}
+
+
+def observe_pool(pool):
+    return {"stats": {k: v for k, v in pool.pool_stats().items()
+                      if not k.endswith("_address")},
+            "degraded": dict(pool.degraded_counts)}
+
+
+def observe_sidecar(sidecar):
+    return {"alive": sidecar.alive, "hanging": sidecar.service._hanging,
+            "junk": sidecar.service._junk}
+
+
+def observe_replica(replica):
+    c = replica.cluster
+    return {"stats": replica.stats(),
+            "pods": sorted((p.name, p.node_name) for p in c.snapshot_pods()),
+            "tables": [sorted(t) for t in (c.nodes, c.claims, c.pvcs,
+                                           c.storage_classes, c.leases,
+                                           c.pdbs)]}
+
+
+def observe_source(source):
+    return source.stats()
 
 
 def observe_weather(sim):
@@ -417,6 +476,10 @@ RECORDED = {
     ("solver.faults", "FaultInjector"): observe_faults,
     ("weather.simulator", "WeatherSimulator"): observe_weather,
     ("kube.apiserver", "FakeAPIServer"): observe_apiserver,
+    ("parallel.pool", "SolverPool"): observe_pool,
+    ("parallel.sidecar", "ChaosSidecar"): observe_sidecar,
+    ("state.replication", "StandbyReplica"): observe_replica,
+    ("state.replication", "ReplicationSource"): observe_source,
 }
 
 
@@ -538,8 +601,8 @@ def recording(pkg, plans=False, buffers=False, module=None):
             solver_init = solver_cls.__init__
 
             def sinit(self, lattice, *args, **kwargs):
-                if not args:
-                    kwargs.setdefault("device", "cpu")
+                if not args and kwargs.get("device") is None:
+                    kwargs["device"] = "cpu"
                 solver_init(self, lattice, *args, **kwargs)
 
             mp.setattr(solver_cls, "__init__", sinit)
@@ -556,12 +619,16 @@ def _observations(made):
 
 def run_test(module, test_id, tmp_path, plans=False, params=None,
              buffers=False):
-    """Run one test of ``module`` (``file::Class::test``, with ``params``
-    for its parametrized arguments); returns the observations of what it
-    made, taken at its end."""
-    _, clsname, meth = test_id.split("::")
-    instance = getattr(module, clsname)()
-    fn = getattr(instance, meth)
+    """Run one test of ``module`` (``file::Class::test``, or
+    ``file::test`` for a module-level one, with ``params`` for its
+    parametrized arguments); returns the observations of what it made,
+    taken at its end."""
+    parts = test_id.split("::")
+    if len(parts) == 2:
+        instance, fn = None, getattr(module, parts[1])
+    else:
+        instance = getattr(module, parts[1])()
+        fn = getattr(instance, parts[2])
     fx = _Fixtures(module, tmp_path, instance)
     fx.values.update(params or {})
     try:
@@ -596,7 +663,10 @@ def replay(filename, test_id, tmp_path, stubs=(), shims=(), threaded=False,
     obs = {}
     for pkg in (cases.JAX_PKG, cases.TORCH_PKG):
         module = load(filename, pkg, stubs, shims)
-        obs[pkg] = run_test(module, test_id, tmp_path / pkg, plans=plans,
+        # a short directory per package: a unix socket's path is at most
+        # 107 bytes
+        sub = "jax" if pkg == cases.JAX_PKG else "port"
+        obs[pkg] = run_test(module, test_id, tmp_path / sub, plans=plans,
                             params=params, buffers=buffers)
     j, t = obs[cases.JAX_PKG], obs[cases.TORCH_PKG]
     assert {k[1]: len(v) for k, v in t.items()} \

@@ -40,11 +40,7 @@ REPLAYS = {
          "TestFaultsMidPipeline::test_wave_fault_mid_pipeline",
          "TestFaultsMidPipeline::test_persistent_failure_reaches_host_ffd",
          "TestStageTimings::test_wave_split_accumulates_stages"],
-        [("from karpenter_provider_aws_tpu.batcher import (Batcher, "
-          "BatcherOptions,\n                                                "
-          "SolveWindow)",
-          "from karpenter_provider_aws_tpu_torch.batcher import (Batcher, "
-          "BatcherOptions)\nSolveWindow = _unported('SolveWindow', 'A11')")]),
+        []),
     "test_microloop.py": (
         ["TestMicroloopSingleDevice::test_overlap_runs_exactly_once",
          "TestDonationSafety::test_fault_mid_microloop_rebuilds_donated_state"],
