@@ -185,7 +185,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
    ``/metrics`` carrying ``karpenter_solver_mesh_devices 8.0`` and linting
    clean. The shard pack's D·B kernel rows and the merge's rows of (a)'s
    pipelined cold solve are held exactly against the plain version and
-   timed in phase 15;
+   timed in phase 19;
 14. remote: the remote solver over the port's own gRPC wire
    (``parallel/rpc.py``). (a) ``python -m
    karpenter_provider_aws_tpu_torch.parallel.sidecar`` as its own process
@@ -210,7 +210,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
    (b) Two in-process ``ChaosSidecar``s on the card, each with its own
    resident Solver: one cfg2 Solve RPC must launch the kernel exactly
    once; its inputs, captured, are held exactly against the plain version
-   and timed in phase 15. (c) ``SolverPool``s over the two, one fresh pool
+   and timed in phase 19. (c) ``SolverPool``s over the two, one fresh pool
    a step after a warm solve: one endpoint killed, hung (against a
    ``REMOTE_HANG_DEADLINE`` solve deadline), answering junk, both killed,
    and cfg3 (10,000 pods, 5.1 MB, over the 4 MiB message limit): each
@@ -222,7 +222,35 @@ Phases, in order; any failure exits non-zero and prints no result line:
    Solve RPCs of distinct cfg1-sized problems to one sidecar with the
    solve window at once: every plan equal to its serial solve, at least
    two coalesced;
-15. kernel timing: the kernel and its plain version at cfg5's and cfg10's
+15. warm start: cfg5's first ``solve_relaxed`` in three fresh processes
+   (this script run with a mode, so each has its own CUDA context): cold;
+   after the boot warmup ladder (``Solver.warmup`` over
+   ``BOOT_G_BUCKETS`` x ``BOOT_B_BUCKETS`` with probes, on its
+   background thread, waited for through ``on_done``); and cold under
+   ``start_profiling``, whose trace gives the breakdown of the cold cost
+   (device kernels, CUDA runtime and driver calls by name, the pack
+   span). Each prints its context creation, its first solve, the
+   allocator segments it added and the p50 of ``WARM_LATER_SOLVES``
+   later solves; the warm one the ladder's wall and kernel launches. The
+   phase fails if the ladder launched no kernel, a first solve launched
+   none or left a pod unplaced, or the three plans differ;
+16. profiling: ``PROFILED_SOLVES`` cfg5 solves between ``start_profiling``
+   and ``stop_profiling`` on a warm Solver: the trace file must exist and
+   name one ``solver.pack`` span and at least one
+   ``cheapest_offering_kernel`` event a solve, and each solve launch the
+   kernel once;
+17. native: the C++ FFD referee (``native/``) built from the checkout's
+   ``ffd.cc`` into the port's ``_build/`` (never ``native/libffd.so``),
+   run on cfg5: its node count and cost must equal the Python
+   ``ffd_oracle``'s (cost within 1e-5 relative); both are timed;
+18. device lost: a child process runs an Operator with cfg10's 20,000
+   pending pods through the CLI's loop (``cli.run_passes``); the first
+   pack first indexes a CUDA tensor out of range (a device-side assert,
+   patched in the child). The child must exit with ``EXIT_DEVICE_LOST``
+   right after that pass, with no pass after the error (or, were the
+   context to recover, go on planning and exit 0); it prints whether a
+   one-element op still runs;
+19. kernel timing: the kernel and its plain version at cfg5's and cfg10's
    own inputs (captured in a solve of each), at the first consolidation
    pass's probe dispatch (K x B rows in one call), at cfg7's last wave, at
    cfg11's shard pack (D·B rows) and merge, at cfg2's Solve RPC in a
@@ -235,8 +263,8 @@ No fallback may hide the card: every Solver the script makes is kept,
 and after each phase each must have no FaultInjector attached and exactly
 the ``degraded_counts`` its phase allowed (none but cfg7's wave split, the
 injected rungs and the remote phase's two dark pools). A real CUDA fault
-(a sticky illegal address, say) is retried and then carried by the host
-FFD, so its plan alone would pass; its count fails the phase.
+is retried and then raises (``DeviceLostError`` when it took the
+context, as phase 18 shows), failing its phase.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``. The script imports
@@ -278,6 +306,10 @@ REMOTE_TURNS = 5           # cfg2 Solve RPCs and in-process solves, in turns
 REMOTE_HEALTH_CALLS = 20   # Health RPCs timed
 REMOTE_WINDOW_THREADS = 8  # concurrent Solve RPCs into the solve window
 REMOTE_CHURN = 250         # pods that leave and arrive before the second pass
+WARM_LATER_SOLVES = 5      # cfg5 solves timed after a child's first one
+CHILD_SECONDS = 600        # a child process of phases 15 and 18 must end in this
+PROFILED_SOLVES = 2        # cfg5 solves inside the profiling session
+DEVICE_LOST_SECONDS = 120  # the sticky-error child's run_passes deadline
 # the failover steps, each on a fresh pool over the two sidecars after one
 # warm cfg2 solve: step -> (fault on the sidecars, problem of the solve)
 REMOTE_FAILOVER_STEPS = {"kill": ("kill", "cfg2"), "hang": ("hang", "cfg2"),
@@ -2915,6 +2947,384 @@ def _failover_steps(make_pool, sidecars, problems, deadlines, deadline,
         yield step, row, plan, wall_ms
 
 
+# ---- phases 15-18: warm start, profiling, the native referee and the
+# sticky device error (their child processes run this file with a mode)
+
+_CHILD_MODES = ("--cold-first-solve", "--warm-first-solve",
+                "--cold-profiled-solve", "--device-lost")
+
+
+def _child_result(mode: str, timeout: float = CHILD_SECONDS):
+    """Run this script as a child process in ``mode`` (a fresh CUDA
+    context), killed at ``timeout``; (exit code, its result dict, output
+    tail)."""
+    import subprocess
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), mode],
+                          cwd=HERE, capture_output=True, text=True,
+                          timeout=timeout)
+    result = None
+    for line in proc.stdout.splitlines():
+        if line.startswith("CHILD "):
+            result = json.loads(line[len("CHILD "):])
+    tail = "\n".join((proc.stdout + proc.stderr).splitlines()[-25:])
+    return proc.returncode, result, tail
+
+
+def _trace_breakdown(path: str, top: int = 12):
+    """Of a Chrome trace of ``torch.profiler``: the device kernels (count,
+    summed ms), the CUDA runtime and driver calls summed by name (count,
+    ms; the ``top`` largest), and the pack spans."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    api, kernels = {}, [0, 0.0]
+    spans = []
+    for e in events:
+        cat, name, dur = e.get("cat", ""), e.get("name", ""), e.get("dur", 0)
+        if cat == "kernel":
+            kernels[0] += 1
+            kernels[1] += dur / 1e3
+        elif cat in ("cuda_runtime", "cuda_driver"):
+            row = api.setdefault(name, [0, 0.0])
+            row[0] += 1
+            row[1] += dur / 1e3
+        elif cat == "user_annotation" and name.startswith("solver.pack"):
+            spans.append((name, dur / 1e3))
+    ranked = sorted(api.items(), key=lambda kv: -kv[1][1])[:top]
+    return {"kernels": kernels[0], "kernel_ms": kernels[1],
+            "api_ms_by_call": {k: {"count": c, "ms": ms}
+                               for k, (c, ms) in ranked},
+            "api_ms": sum(ms for _, ms in api.values()),
+            "pack_spans": spans}
+
+
+def _child_first_solve(torch, mode: str) -> int:
+    """A fresh process's first cfg5 solve: ``--cold-first-solve`` times it
+    as it comes, ``--warm-first-solve`` after the boot warmup ladder on a
+    background thread (waited for through ``on_done``), and
+    ``--cold-profiled-solve`` under ``start_profiling`` for the breakdown
+    of the cold cost. Then ``WARM_LATER_SOLVES`` more solves. Prints one
+    ``CHILD {json}`` line."""
+    import tempfile
+    import threading
+    from karpenter_provider_aws_tpu_torch import workloads
+    from karpenter_provider_aws_tpu_torch.ops import offering_argmin as oa
+    from karpenter_provider_aws_tpu_torch.solver import Solver
+
+    out = {"mode": mode}
+    t = time.perf_counter()
+    lattice = workloads.real_lattice()
+    pods, pools, existing = workloads.config5_full_scale()
+    out["setup_ms"] = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    out["context_ms"] = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    solver = Solver(lattice)
+    torch.cuda.synchronize()
+    out["solver_init_ms"] = (time.perf_counter() - t) * 1e3
+    # the kernel library's load (dlopen; built by the parent), timed where
+    # the wrapper first asks for it
+    from karpenter_provider_aws_tpu_torch.ops import cuda_build
+    real_load, loads = cuda_build.load, []
+
+    def load(name):
+        t = time.perf_counter()
+        lib = real_load(name)
+        loads.append((time.perf_counter() - t) * 1e3)
+        return lib
+
+    cuda_build.load = load
+
+    def segments():
+        return int(torch.cuda.memory_stats().get("segment.all.allocated", 0))
+
+    if mode == "--warm-first-solve":
+        done = threading.Event()
+        oa.LAUNCHES = 0
+        t = time.perf_counter()
+        thread = solver.warmup(node_pools_count=len(pools),
+                               g_buckets=Solver.BOOT_G_BUCKETS,
+                               b_buckets=Solver.BOOT_B_BUCKETS,
+                               probes=True, background=True,
+                               on_done=done.set)
+        if not done.wait(CHILD_SECONDS / 2):
+            raise AssertionError("the warmup ladder did not end")
+        out["warmup_ms"] = (time.perf_counter() - t) * 1e3
+        thread.join(60)
+        out["warmup_launches"] = oa.LAUNCHES
+        # each (G, B) bucket: two packs (without and with existing bins)
+        # and a probe pack at each of the first two K
+        out["warmup_buckets"] = len(Solver.BOOT_G_BUCKETS) * len(
+            Solver.BOOT_B_BUCKETS)
+        out["warmup_segments"] = segments()
+    trace_dir = None
+    if mode == "--cold-profiled-solve":
+        trace_dir = tempfile.mkdtemp(prefix="cold-trace-")
+        solver.start_profiling(trace_dir)
+    seg0 = segments()
+    oa.LAUNCHES = 0
+    t = time.perf_counter()
+    plan = solver.solve_relaxed(pods, pools, existing=existing)
+    torch.cuda.synchronize()
+    out["first_solve_ms"] = (time.perf_counter() - t) * 1e3
+    out["first_solve_launches"] = oa.LAUNCHES
+    out["first_solve_new_segments"] = segments() - seg0
+    out["first_solve_stage_ms"] = plan.stage_ms
+    # e2e less the stages: build_problem, relaxation and the host around
+    out["first_solve_rest_ms"] = out["first_solve_ms"] - sum(
+        plan.stage_ms.values())
+    out["library_load_ms"] = loads[0] if loads else None
+    if trace_dir is not None:
+        path = solver.stop_profiling()
+        out["breakdown"] = _trace_breakdown(path)
+        import shutil
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    placed = sum(len(n.pods) for n in plan.new_nodes)
+    out["plan"] = {"nodes": len(plan.new_nodes), "placed": placed,
+                   "cost": plan.new_node_cost,
+                   "unschedulable": len(plan.unschedulable)}
+    later, rest = [], []
+    for _ in range(WARM_LATER_SOLVES):
+        t = time.perf_counter()
+        p = solver.solve_relaxed(pods, pools, existing=existing)
+        torch.cuda.synchronize()
+        later.append((time.perf_counter() - t) * 1e3)
+        rest.append(later[-1] - sum(p.stage_ms.values()))
+    out["later_ms"] = later
+    out["later_rest_p50_ms"] = statistics.median(rest)
+    out["later_p50_ms"] = statistics.median(later)
+    out["later_new_segments"] = segments() - seg0 - out["first_solve_new_segments"]
+    print("CHILD " + json.dumps(out), flush=True)
+    return 0
+
+
+def _child_device_lost(torch) -> int:
+    """A real sticky error on the card: an Operator (direct mode, the wall
+    clock, a batch window of 0 s) with cfg10's 20,000 pending pods runs
+    the CLI's single-threaded loop (``cli.run_passes``); the Solver's first
+    pack first indexes a CUDA tensor out of range (a device-side assert,
+    monkeypatched in here, not a knob of the package). The loop must end
+    with ``EXIT_DEVICE_LOST`` right after that pass. Prints one ``CHILD``
+    line (the passes, how many began after the error, whether a
+    one-element op still runs) and exits with the loop's code."""
+    import threading
+    from karpenter_provider_aws_tpu_torch import cli, workloads
+    from karpenter_provider_aws_tpu_torch.operator import Operator, Options
+    from karpenter_provider_aws_tpu_torch.ops import binpack
+
+    lattice = workloads.real_lattice()
+    pods, pools, _ = workloads.config10_steady_state()
+    op = Operator(options=Options(batch_idle_duration=0.0,
+                                  batch_max_duration=0.0),
+                  lattice=lattice, node_pools=pools)
+    for p in pods:
+        op.cluster.add_pod(p)
+    real_pack, fired = binpack.pack_packed_efused, []
+
+    def pack(*args, **kwargs):
+        if not fired:
+            fired.append(time.perf_counter())
+            t = torch.zeros(4, device="cuda")
+            t[torch.tensor([t.numel()], device="cuda")]   # device-side assert
+        return real_pack(*args, **kwargs)
+
+    binpack.pack_packed_efused = pack
+    passes = []
+    real_run = op.run_once
+
+    def run_once(*args, **kwargs):
+        passes.append(op.solver.device_lost is not None)
+        return real_run(*args, **kwargs)
+
+    op.run_once = run_once
+    t = time.perf_counter()
+    code = cli.run_passes(op, threading.Event(),
+                          time.monotonic() + DEVICE_LOST_SECONDS, 0.0)
+    wall_s = time.perf_counter() - t
+    try:
+        torch.ones(1, device="cuda").add_(1).cpu()
+        recovered = True
+    except RuntimeError:
+        recovered = False
+    events = [e.reason for e in op.recorder.events()]
+    lost = op.solver.device_lost
+    print("CHILD " + json.dumps({
+        "exit_code": code, "passes": len(passes),
+        "passes_after_error": sum(passes), "fired": len(fired),
+        "solver_failed_events": events.count("SolverFailed"),
+        "degraded_counts": dict(op.solver.degraded_counts),
+        "device_lost": None if lost is None else str(lost)[:300],
+        "context_recovered": recovered, "wall_s": wall_s}), flush=True)
+    return code
+
+
+def _warm_start(torch, oa):
+    """Phase 15: cfg5's first solve in fresh processes: cold, after the
+    boot warmup ladder, and cold under the profiler (the breakdown)."""
+    out = {}
+    for mode in _CHILD_MODES[:3]:
+        rc, res, tail = _child_result(mode)
+        if rc != 0 or res is None:
+            raise AssertionError(f"warm start {mode}: rc {rc}\n{tail}")
+        plan = res["plan"]
+        if plan["unschedulable"] or plan["placed"] != 50000:
+            raise AssertionError(f"warm start {mode}: plan {plan}")
+        if res["first_solve_launches"] < 1:
+            raise AssertionError(f"warm start {mode}: the first solve "
+                                 f"launched no kernel")
+        out[mode.strip("-")] = res
+        print(f"{mode}: context {res['context_ms']:.1f} ms, Solver "
+              f"{res['solver_init_ms']:.1f} ms"
+              + (f", warmup {res['warmup_ms']:.1f} ms over "
+                 f"{res['warmup_buckets']} (G, B) buckets with {res['warmup_launches']} "
+                 f"kernel launches" if "warmup_ms" in res else "")
+              + f"; first cfg5 solve {res['first_solve_ms']:.1f} ms "
+              f"({res['first_solve_launches']} launches, "
+              f"{res['first_solve_new_segments']} new allocator segments, "
+              f"stages {({k: round(v, 1) for k, v in res['first_solve_stage_ms'].items()})}, "
+              f"rest {res['first_solve_rest_ms']:.1f} ms, kernel library load "
+              f"{res['library_load_ms']} ms); "
+              f"later p50 {res['later_p50_ms']:.1f} ms (rest p50 "
+              f"{res['later_rest_p50_ms']:.1f} ms) "
+              f"({[round(x, 1) for x in res['later_ms']]}, "
+              f"{res['later_new_segments']} new segments)", flush=True)
+        if "breakdown" in res:
+            b = res["breakdown"]
+            print(f"  profiled first solve: {b['kernels']} kernels, "
+                  f"{b['kernel_ms']:.1f} ms of device time; CUDA API "
+                  f"{b['api_ms']:.1f} ms, by call "
+                  f"{ {k: (v['count'], round(v['ms'], 1)) for k, v in b['api_ms_by_call'].items()} }; "
+                  f"pack spans {[(n, round(ms, 1)) for n, ms in b['pack_spans']]}",
+                  flush=True)
+    cold, warm = out["cold-first-solve"], out["warm-first-solve"]
+    if warm["warmup_launches"] < 1:
+        raise AssertionError("warm start: the warmup launched no kernel")
+    if {json.dumps(o["plan"], sort_keys=True) for o in out.values()} != {
+            json.dumps(cold["plan"], sort_keys=True)}:
+        raise AssertionError(f"warm start: the first plans differ: "
+                             f"{[o['plan'] for o in out.values()]}")
+    print(f"warm start: first cfg5 solve cold {cold['first_solve_ms']:.1f} ms, "
+          f"warm-started {warm['first_solve_ms']:.1f} ms (warmup "
+          f"{warm['warmup_ms']:.1f} ms); later p50 cold {cold['later_p50_ms']:.1f} "
+          f"/ warm {warm['later_p50_ms']:.1f} ms", flush=True)
+    return out
+
+
+def _profiling(torch, lattice, oa, pods, pools, existing):
+    """Phase 16: ``PROFILED_SOLVES`` cfg5 solves between
+    ``start_profiling`` and ``stop_profiling``: the trace must exist and
+    name the ``solver.pack`` span and the cheapest-offering kernel."""
+    import shutil
+    import tempfile
+    from karpenter_provider_aws_tpu_torch.solver import Solver
+    solver = Solver(lattice)
+    solver.solve_relaxed(pods, pools, existing=existing)   # outside the trace
+    torch.cuda.synchronize()
+    trace_dir = tempfile.mkdtemp(prefix="profile-")
+    try:
+        solver.start_profiling(trace_dir)
+        oa.LAUNCHES = 0
+        walls = []
+        try:
+            for _ in range(PROFILED_SOLVES):
+                t = time.perf_counter()
+                solver.solve_relaxed(pods, pools, existing=existing)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t) * 1e3)
+        finally:
+            path = solver.stop_profiling()
+        launches = oa.LAUNCHES
+        if path is None or not os.path.isfile(path):
+            raise AssertionError(f"profiling: no trace file ({path})")
+        size = os.path.getsize(path)
+        with open(path) as f:
+            names = [e.get("name", "") for e in json.load(f)["traceEvents"]]
+        # a span shows twice (host and device timelines): count names
+        packs = sorted({n for n in names if n.startswith("solver.pack#")})
+        kernels = [n for n in names if "cheapest_offering_kernel" in n]
+        b = _trace_breakdown(path)
+    finally:
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    print(f"profiling: {PROFILED_SOLVES} cfg5 solves {[round(w, 1) for w in walls]} ms "
+          f"under the profiler, {launches} kernel launches; trace "
+          f"{size} bytes, {len(packs)} solver.pack spans, {len(kernels)} "
+          f"cheapest_offering_kernel events; {b['kernels']} kernels, "
+          f"{b['kernel_ms']:.1f} ms of device time", flush=True)
+    if len(packs) != PROFILED_SOLVES or len(kernels) < PROFILED_SOLVES \
+            or launches != PROFILED_SOLVES:
+        raise AssertionError(f"profiling: {len(packs)} pack spans, "
+                             f"{len(kernels)} kernel events, {launches} "
+                             f"launches for {PROFILED_SOLVES} solves")
+    return {"walls_ms": walls, "launches": launches,
+            "launches_per_solve": launches / PROFILED_SOLVES,
+            "trace_bytes": size, "pack_spans": len(packs),
+            "kernel_events": len(kernels), "kernels": b["kernels"],
+            "kernel_ms": b["kernel_ms"]}
+
+
+def _native(problem):
+    """Phase 17: the native FFD referee on cfg5, built from the checkout's
+    ``ffd.cc`` into the port's ``_build/``: its node count and cost must
+    equal the Python ``ffd_oracle``'s; both are timed."""
+    from karpenter_provider_aws_tpu_torch.native import build as native_build
+    from karpenter_provider_aws_tpu_torch.native import native_ffd_pack
+    from karpenter_provider_aws_tpu_torch.solver.oracle import ffd_oracle
+    repo_lib = os.path.join(HERE, "native", "libffd.so")
+    before = os.stat(repo_lib).st_mtime_ns if os.path.exists(repo_lib) else None
+    t = time.perf_counter()
+    lib = native_build.ensure_built()
+    build_s = time.perf_counter() - t
+    if lib is None:
+        raise AssertionError("native: ffd.cc did not build (no g++?)")
+    want = os.path.join(HERE, "karpenter_provider_aws_tpu_torch", "_build",
+                        "libffd.so")
+    if os.path.abspath(str(native_build._LIB)) != want or not os.path.isfile(want):
+        raise AssertionError(f"native: built {native_build._LIB}, not {want}")
+    after = os.stat(repo_lib).st_mtime_ns if os.path.exists(repo_lib) else None
+    if after != before:
+        raise AssertionError("native: the port wrote native/libffd.so")
+    t = time.perf_counter()
+    nat = native_ffd_pack(problem)
+    native_ms = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    py = ffd_oracle(problem)
+    python_ms = (time.perf_counter() - t) * 1e3
+    if nat is None or nat.leftover != 0:
+        raise AssertionError(f"native: no plan or pods left over ({nat})")
+    rel = abs(nat.new_node_cost - py.new_node_cost) / py.new_node_cost
+    print(f"native referee: built in {build_s:.2f} s; cfg5 {nat.num_new_nodes} "
+          f"nodes ${nat.new_node_cost:.4f}/hr in {native_ms:.1f} ms; Python "
+          f"ffd_oracle {py.num_new_nodes} nodes ${py.new_node_cost:.4f}/hr in "
+          f"{python_ms:.1f} ms (relative cost difference {rel:.2e})", flush=True)
+    if nat.num_new_nodes != py.num_new_nodes or not rel <= 1e-5:
+        raise AssertionError("native: node count or cost differs from the "
+                             "Python oracle's")
+    return {"build_s": build_s, "native_ms": native_ms, "python_ms": python_ms,
+            "nodes": nat.num_new_nodes, "cost": nat.new_node_cost,
+            "python_cost": py.new_node_cost, "rel_cost_diff": rel}
+
+
+def _device_lost():
+    """Phase 18: the sticky-error child (``_child_device_lost``)."""
+    from karpenter_provider_aws_tpu_torch import cli
+    rc, res, tail = _child_result("--device-lost")
+    print(f"device lost: child exit code {rc}; {res}", flush=True)
+    if res is None:
+        raise AssertionError(f"device lost: the child printed no result "
+                             f"(rc {rc})\n{tail}")
+    res["child_exit_code"] = rc
+    if res["context_recovered"]:
+        # the context came back: the loop must have gone on planning
+        if rc != 0 or res["device_lost"] is not None:
+            raise AssertionError(f"device lost: recovered, yet {res}")
+    elif rc != cli.EXIT_DEVICE_LOST or res["passes_after_error"] != 0 \
+            or res["device_lost"] is None or res["fired"] != 1:
+        raise AssertionError(f"device lost: the process did not end after "
+                             f"the sticky error: rc {rc}, {res}\n{tail}")
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -2928,6 +3338,12 @@ def main() -> int:
         return _fail(f"the port package is not next to chip_smoke.py: {e}")
     if not os.path.abspath(port.__file__).startswith(HERE + os.sep):
         return _fail(f"imported the port from {port.__file__}, not from {HERE}")
+    if len(sys.argv) > 1:
+        if sys.argv[1] not in _CHILD_MODES:
+            return _fail(f"unknown mode {sys.argv[1]!r}")
+        if sys.argv[1] == "--device-lost":
+            return _child_device_lost(torch)
+        return _child_first_solve(torch, sys.argv[1])
     try:
         return _run(torch)
     except Exception:
@@ -3127,7 +3543,26 @@ def _run(torch) -> int:
     max_err = max(max_err, remote["max_abs_err"])
     _check_solvers(torch, "remote")
 
-    # ---- 15. kernel times: the main paths' own inputs, the dense largest
+    # ---- 15. warm start: cfg5's first solve in fresh processes
+    _phase("warm start: cfg5's first solve, cold and after the boot ladder")
+    warm_start = _warm_start(torch, oa)
+    launches["warmup_ladder"] = warm_start["warm-first-solve"]["warmup_launches"]
+
+    # ---- 16. profiling: cfg5 solves inside a profiler session
+    _phase("profiling: cfg5 solves between start_profiling and stop_profiling")
+    profiling = _profiling(torch, lattice, oa, pods, pools, existing)
+    launches["cfg5_profiled"] = profiling["launches"]
+    _check_solvers(torch, "profiling")
+
+    # ---- 17. the native FFD referee on cfg5
+    _phase("native: the C++ FFD referee on cfg5 against the Python oracle")
+    native = _native(problem)
+
+    # ---- 18. a sticky device error in a child process
+    _phase("device lost: a device-side assert in an Operator's pass")
+    device_lost = _device_lost()
+
+    # ---- 19. kernel times: the main paths' own inputs, the dense largest
     # bucket, the launch floor
     _phase("kernel timing")
     solver = Solver(lattice)
@@ -3203,6 +3638,12 @@ def _run(torch) -> int:
                          "launches": launches["sidecar_cfg2"],
                          "launches_per_rpc": launches["sidecar_cfg2"]},
         "pool_local_cfg3": {"launches": launches["pool_local_cfg3"]},
+        "warmup_ladder": {
+            "launches": launches["warmup_ladder"],
+            "launches_per_bucket": launches["warmup_ladder"] / max(
+                warm_start["warm-first-solve"]["warmup_buckets"], 1)},
+        "cfg5_profiled": {"launches": launches["cfg5_profiled"],
+                          "launches_per_solve": profiling["launches_per_solve"]},
         "dense": timed["dense"],
     }], "cfg5": cfg5, "cfg10": {k: v for k, v in steady.items()
                                 if k != "launches_per_pass"},
@@ -3210,6 +3651,8 @@ def _run(torch) -> int:
         "wave_split": wave, "ladder": ladder, "weather": weather, "api": api,
         "mesh": mesh, "remote": {k: v for k, v in remote.items()
                                  if k != "max_abs_err"},
+        "warm_start": warm_start, "profiling": profiling, "native": native,
+        "device_lost": device_lost,
         "provisioner": {"cfg5_wave": prov["cfg5_wave"],
                         "cfg10_first_wave": prov["cfg10_first_wave"],
                         "cfg10": {k: v for k, v in prov["cfg10"].items()

@@ -20,15 +20,21 @@ While the reconcile loop runs, the process serves:
 The port of the JAX package's CLI, with one flag of its own: ``--device``
 (default ``cuda``) is where the Solver's tensors live, passed to the
 Operator; without CUDA it raises, and ``--device cpu`` runs the plain
-PyTorch path. No environment variable replaces it. Flags that reach a
-part this package does not carry fail before anything is served or
-built, naming the roadmap item that brings it: ``--warm-start`` and
-``--profile-dir`` (ahead-of-time compiles and device traces, B7), and
-``--compile-cache-dir`` (nothing is compiled at run time to cache).
-``--mesh N`` runs N pod shards batched on the ``--device``.
+PyTorch path. No environment variable replaces it.
+``--compile-cache-dir`` fails before anything is served or built: nothing
+is compiled at run time to cache. ``--warm-start`` runs the Solver's boot
+bucket ladder on the card on a background thread while the SLO warmup
+window is open, and ``--profile-dir`` writes a ``torch.profiler`` trace
+of the run there on the way out. ``--mesh N`` runs N pod shards batched
+on the ``--device``.
 ``--sidecar-address`` also serves the Operator's Solver as a solver
 sidecar, and ``--solver-address`` (``SOLVER_ADDRESSES``) delegates the
 provisioning solves to a pool of sidecars (parallel/sidecar.py, pool.py).
+
+A device error that takes the CUDA context (``errors.DeviceLostError``: a
+sticky error such as a device-side assert) ends the run after its pass
+with exit code ``EXIT_DEVICE_LOST`` (75), so that the deployment restarts
+the process with a fresh context instead of failing every later pass.
 
 Run it as ``python -m karpenter_provider_aws_tpu_torch [flags]`` or as the
 ``karpenter-tpu-controller-torch`` console script.
@@ -43,17 +49,9 @@ import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional, Sequence
 
+from .errors import EXIT_DEVICE_LOST
 from .operator import Operator, Options
 from .webhooks import validate_wire
-
-# flags that reach a part this package does not carry: (attribute,
-# flag, ROADMAP.md item and what it brings)
-_UNPORTED_FLAGS = (
-    ("warm_start", "--warm-start",
-     "B7: Solver.warmup, ahead-of-time compiles of the bucket ladder"),
-    ("profile_dir", "--profile-dir",
-     "B7: Solver.start_profiling, device traces of every solve"),
-)
 
 _GATES = {
     "Drift": "drift_enabled",
@@ -117,12 +115,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Port serving /metrics, /healthz, /readyz "
                         "(0 disables).")
     p.add_argument("--warm-start", action="store_true",
-                   help="Not ported (ROADMAP.md B7): fails at start.")
+                   help="Run the Solver's boot (G, B) bucket ladder on the "
+                        "--device on a background thread at start (the "
+                        "SLO warmup window stays open until it ends), so "
+                        "the first real pass does not pay the cold cost.")
     p.add_argument("--compile-cache-dir", default=None,
                    help="Not carried (env COMPILE_CACHE_DIR): nothing is "
                         "compiled at run time; fails at start when set.")
     p.add_argument("--profile-dir", default=None,
-                   help="Not ported (ROADMAP.md B7): fails at start.")
+                   help="Profile every solve with torch.profiler (CPU and "
+                        "CUDA activity, a named span per pack call) and "
+                        "write the Chrome trace under this directory on "
+                        "exit.")
     p.add_argument("--profile", action="store_true",
                    help="Run the whole-process wall-clock sampling "
                         "profiler (docs/reference/profiling.md): a daemon "
@@ -169,12 +173,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "(full, wave-split and the steady-state delta) "
                         "into N pod shards packed as one batched pass on "
                         "the --device, then merges their tail bins; "
-                        "'auto' (default) plans one shard per card when "
-                        "several are visible (still batched on the "
-                        "--device) and stays single-device on the CPU "
-                        "and with one card; 'off' or 1 pins the "
-                        "single-device path. Batched on one card, a mesh "
-                        "solve is slower than the single-device one.")
+                        "'auto' (default) plans the single-device path "
+                        "however many cards are visible, since the "
+                        "shards would share the --device and a mesh "
+                        "batched on one card is slower than the "
+                        "single-device solve; 'off' or 1 pins the "
+                        "single-device path.")
     p.add_argument("--solver-address", default=None,
                    help="Delegate provisioning solves to a POOL of solver "
                         "sidecar processes: a comma-separated list of "
@@ -476,20 +480,37 @@ def start_server(op: Operator, port: int,
 
 
 def _check_ported(args: argparse.Namespace, opts: Options):
-    """Fail before anything is served or built when a flag (or the
-    option it sets, flag or environment) reaches a part this package
-    does not carry; resolve ``--device`` (raising without CUDA). Returns
-    the device."""
-    for attr, flag, item in _UNPORTED_FLAGS:
-        if getattr(args, attr):
-            raise SystemExit(f"{flag} is not ported to this package "
-                             f"(ROADMAP.md {item})")
+    """Fail before anything is served or built when an option (flag or
+    environment) reaches a part this package does not carry; resolve
+    ``--device`` (raising without CUDA). Returns the device."""
     if opts.compile_cache_dir:
         raise SystemExit("--compile-cache-dir (COMPILE_CACHE_DIR): this "
                          "package compiles nothing at run time, so there is "
                          "no compile cache to persist")
     from .device import resolve_device
     return resolve_device(args.device)
+
+
+def device_lost(op: Operator) -> Optional[BaseException]:
+    """The sticky device error that took the Operator's Solver, or None
+    while its device works."""
+    return op.solver.device_lost
+
+
+def run_passes(op: Operator, stop: threading.Event,
+               deadline: Optional[float], step: float) -> int:
+    """The single-threaded loop: ``op.run_once()`` every ``step`` seconds
+    until ``stop`` is set or the monotonic ``deadline`` passes. Returns 0,
+    or EXIT_DEVICE_LOST right after the pass whose solve lost the device:
+    every later pass would fail with solve-error on that context."""
+    while not stop.is_set():
+        op.run_once()
+        if device_lost(op) is not None:
+            return EXIT_DEVICE_LOST
+        if deadline is not None and time.monotonic() >= deadline:
+            break
+        stop.wait(step)
+    return 0
 
 
 def main(argv: Optional[Sequence[str]] = None,
@@ -572,8 +593,9 @@ def main(argv: Optional[Sequence[str]] = None,
     # ring series behind /debug/vars?series=1 and kpctl top. One provider
     # fan-out per second — off every hot path by construction.
     op.sampler.start(interval=1.0)
-    # (--profile has no device cost-model capture here: the Solver has no
-    # capture_cost_model, ROADMAP.md B7)
+    # (--profile fills no device cost model at boot: capture_cost_model
+    # reads an XLA executable's analysis, which a torch pack does not
+    # have; completed solves still feed the model)
     op.burn_capture.resize(args.profile_captures)
 
     stop = stop_event or threading.Event()
@@ -595,8 +617,23 @@ def main(argv: Optional[Sequence[str]] = None,
     if args.sidecar_address:
         from .parallel.sidecar import serve as serve_sidecar
         sidecar = serve_sidecar(op.solver, args.sidecar_address)
+    if args.warm_start:
+        # the SLO warmup window opens now and closes when the ladder
+        # finishes: latency recorded while the first shapes load the
+        # kernel and fill the allocator is boot cost, not burn
+        # (introspect/slo.py). There is no ahead-of-time path (a compile
+        # cache directory is refused above): the ladder executes each shape
+        op.slo.begin_warmup()
+        op.solver.warmup(node_pools_count=len(op.node_pools),
+                         g_buckets=op.solver.BOOT_G_BUCKETS,
+                         b_buckets=op.solver.BOOT_B_BUCKETS,
+                         probes=True, background=True,
+                         on_done=op.slo.end_warmup)
+    if args.profile_dir:
+        op.solver.start_profiling(args.profile_dir)
     deadline = (time.monotonic() + args.duration) if args.duration > 0 else None
     runtime = None
+    code = 0
     try:
         if args.async_runtime:
             from .operator.runtime import ControllerRuntime, operator_specs
@@ -619,15 +656,14 @@ def main(argv: Optional[Sequence[str]] = None,
             runtime = ControllerRuntime(operator_specs(op),
                                         elector=elector).start()
             while not stop.is_set():
+                if device_lost(op) is not None:
+                    code = EXIT_DEVICE_LOST
+                    break
                 if deadline is not None and time.monotonic() >= deadline:
                     break
                 stop.wait(0.2)
         else:
-            while not stop.is_set():
-                op.run_once()
-                if deadline is not None and time.monotonic() >= deadline:
-                    break
-                stop.wait(args.step)
+            code = run_passes(op, stop, deadline, args.step)
     finally:
         op.sampler.stop()
         if args.profile:
@@ -637,13 +673,20 @@ def main(argv: Optional[Sequence[str]] = None,
                 prof.stop()
         if runtime is not None:
             runtime.stop()
+        if args.profile_dir:
+            op.solver.stop_profiling()
         if sidecar is not None:
             sidecar.stop(grace=None)
         if server is not None:
             server.shutdown()
         if api_httpd is not None:
             api_httpd.shutdown()
-    return 0
+    if code == EXIT_DEVICE_LOST:
+        from .utils.logging import get_logger
+        get_logger("cli").error(
+            "the solver's device is lost; exiting for a restart",
+            error=str(device_lost(op)), exit_code=code)
+    return code
 
 
 if __name__ == "__main__":

@@ -12,9 +12,11 @@ allocation or transfer. The Solver's degradation ladder
 (solver/solve.py ``_solve_problem``) reads these classes: a capacity
 error goes straight to the host FFD, a device error is retried once
 (``retryable``) and then lands there too, except on a CUDA device, where
-only an ``injected`` one does and a real one raises. A CUDA source that
-does not build or load raises ``KernelBuildError``, which no rung
-carries.
+only an ``injected`` one does and a real one raises. A real one after
+which the device no longer runs a one-element probe is ``DeviceLostError``:
+a sticky error (a device-side assert) took the CUDA context, so the
+process must restart. A CUDA source that does not build or load raises
+``KernelBuildError``, which no rung carries.
 """
 
 from __future__ import annotations
@@ -82,6 +84,24 @@ class SolverDeviceError(SolverError):
         self.cause = cause
         # raised by a FaultInjector (solver/faults.py), not by the device
         self.injected = injected
+
+
+class DeviceLostError(SolverDeviceError):
+    """A device error that outlived its retry, after which a one-element
+    probe of the device (an op and a synchronize) fails too: a sticky
+    error, such as a device-side assert, left the CUDA context unusable,
+    and every later call on it fails. No retry and no rung helps; the
+    Solver raises it from every later entry point, and the CLI ends the
+    process with its own exit code so that the deployment restarts it
+    with a fresh context."""
+
+    retryable = False
+
+
+# the exit code of a process whose Solver lost its device (the CLI and the
+# solver sidecar): EX_TEMPFAIL, a failure that a restart with a fresh CUDA
+# context may clear
+EXIT_DEVICE_LOST = 75
 
 
 class KernelBuildError(RuntimeError):

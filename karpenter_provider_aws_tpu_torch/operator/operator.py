@@ -243,8 +243,8 @@ class Operator:
             launch_templates=self.launch_template_provider,
             version=self.version_provider), self.metrics)
         # the mesh decision, once, at boot (parallel/mesh.py plan_mesh):
-        # several visible cards auto-mesh, --mesh/SOLVER_MESH forces a
-        # shape, and single-device stays the passthrough. The Solver then
+        # auto is the single-device passthrough, --mesh/SOLVER_MESH forces
+        # a shape. The Solver then
         # runs every solve (full, wave-split and the steady-state delta)
         # over this mesh, its shards batched on the Solver's device
         from ..parallel.mesh import plan_mesh

@@ -87,9 +87,10 @@ class Options:
     # sidecar must answer in about a second, not a solve timeout
     solver_health_deadline: float = 1.0
     # device mesh for the sharded solver (parallel/mesh.py plan_mesh).
-    # "" or "auto" auto-selects, "off" pins the single-device path, an
-    # integer forces an N-way mesh, its shards batched on the Solver's
-    # device.
+    # "" or "auto" plans the single-device path, however many cards are
+    # visible (the shards would share the Solver's one card, which is
+    # slower than one device), "off" pins it, an integer forces an N-way
+    # mesh, its shards batched on the Solver's device.
     mesh: str = ""
     # directory for the JAX package's persistent XLA compilation cache.
     # Parsed so the same settings load, but the port compiles nothing at

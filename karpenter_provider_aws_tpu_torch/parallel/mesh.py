@@ -13,12 +13,14 @@ rows. A mesh never moves work off the Solver's device, and there is no
 virtual-CPU fallback: ``--mesh 8`` on the card runs 8 shards on the
 card.
 
-Auto policy, as the reference's: ``auto`` is single-device on the CPU
-and with one card; with several cards visible it plans the N-way mesh
-(still batched on the Solver's device; one shard per card is not
-ported). Batched on one card, a mesh solve is slower than the
-single-device one, so ``off`` is the faster choice there until shards
-sit one per card.
+Auto policy: ``auto`` plans the single-device path, on the CPU and on
+CUDA with any number of cards visible. The reference's ``auto`` takes
+every chip of a multi-chip backend because each shard gets a chip of its
+own; here the N shards would all share the Solver's one card (one shard
+per card is not ported), so ``auto`` gains no hardware from them, and a
+mesh batched on one card is slower than the single-device solve (cfg11:
+677-721 ms on 8 shards against 305-318 ms, PERF.md). A forced ``"N"``
+still plans the batched mesh.
 """
 
 from __future__ import annotations
@@ -63,7 +65,7 @@ class MeshPlan:
 
     devices: int
     axis: str
-    source: str               # "auto" | "forced" | "single" | "off"
+    source: str               # "forced" | "single" (auto) | "off"
     mesh: Optional[SolverMesh]
 
 
@@ -81,9 +83,9 @@ def plan_mesh(spec: Optional[str] = None, axis: str = "pods",
               device: DeviceLike = None) -> MeshPlan:
     """Resolve a mesh spec for a Solver on ``device`` (None = ``cuda``).
 
-    ``spec``: ``None``/``""``/``"auto"`` auto-selects (every card when
-    more than one is visible; single-device on the CPU and with one
-    card), ``"off"``/``"none"``/``"single"``/``"1"`` pins the
+    ``spec``: ``None``/``""``/``"auto"`` auto-selects (the single-device
+    path, whatever the number of cards: the module docstring),
+    ``"off"``/``"none"``/``"single"``/``"1"`` pins the
     single-device passthrough, and an integer string forces an N-way
     mesh, batched on the Solver's device. Raises ValueError for an
     unparseable spec or a count below 1.
@@ -92,11 +94,7 @@ def plan_mesh(spec: Optional[str] = None, axis: str = "pods",
     if s in ("off", "none", "single", "1"):
         return _single(axis, "off")
     if s == "auto":
-        n = _visible(device)
-        if n <= 1:
-            return _single(axis, "single")
-        return MeshPlan(devices=n, axis=axis, source="auto",
-                        mesh=solver_mesh(n, axis=axis, device=device))
+        return _single(axis, "single")
     try:
         n = int(s)
     except ValueError:

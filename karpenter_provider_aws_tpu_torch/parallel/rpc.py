@@ -23,17 +23,21 @@ What it speaks:
   MAX_FRAME_SIZE; receiving advertises 16 MiB windows and returns what it
   consumed with WINDOW_UPDATEs.
 - HPACK: the decoder keeps the 61-entry static table and the dynamic
-  table (size updates, evictions) and reads every literal form; the
-  encoder sends literals without indexing. Huffman-coded strings are not
-  decoded: one from a peer is a connection error (COMPRESSION_ERROR),
-  never a misread header. grpcio sends none.
-- gRPC: the 5-byte length-prefixed message (identity encoding only),
+  table (size updates, evictions) and reads every literal form, raw or
+  Huffman-coded (parallel/hpack_huffman.py); a block it cannot read is
+  a connection error (COMPRESSION_ERROR), never a misread header. The
+  encoder sends raw literals without indexing.
+- gRPC: the 5-byte length-prefixed message, read under the
+  ``grpc-encoding`` its headers name: identity, ``gzip`` or ``deflate``
+  (``zlib``), as grpcio reads them; another encoding is
+  ``UNIMPLEMENTED``. Both ends send ``grpc-accept-encoding`` and send
+  their own messages uncompressed.
   ``:status 200`` with the ``grpc-status`` and ``grpc-message`` trailers,
   ``grpc-timeout`` deadlines enforced by the client as
   ``DEADLINE_EXCEEDED`` (a handler runs to its end: the server does not
   cancel it), and grpcio's default limit of 4 MiB on a received
-  message, at the server and at the client, answered with
-  ``RESOURCE_EXHAUSTED``. A handler that raises gives ``UNKNOWN``; a method
+  message, at the server and at the client, on its length prefix and on
+  its decompressed size, answered with ``RESOURCE_EXHAUSTED``. A handler that raises gives ``UNKNOWN``; a method
   no handler serves gives ``UNIMPLEMENTED``.
 - Reconnects: after a failed connect a channel waits out a jittered
   backoff (the ``grpc.*_reconnect_backoff_ms`` options, grpc's defaults
@@ -55,8 +59,11 @@ import stat
 import struct
 import threading
 import time
+import zlib
 from collections import deque, namedtuple
 from typing import Dict, List, Optional, Sequence, Tuple
+
+from . import hpack_huffman
 
 # grpcio's default limit on a received message, at servers and clients
 MAX_MESSAGE_BYTES = 4 * 1024 * 1024
@@ -85,6 +92,10 @@ HEADER_TABLE_SIZE = 4096
 RECV_WINDOW = 16 * 1024 * 1024
 _FRAME = struct.Struct(">IBI")   # length<<8 | type, flags, stream id
 _USER_AGENT = "karpenter-port-rpc/1"
+# the message encodings read, with zlib's window bits for each: gzip is
+# RFC 1952's format, gRPC's "deflate" the zlib format of RFC 1950
+_ENCODINGS = {"gzip": 16 + zlib.MAX_WBITS, "deflate": zlib.MAX_WBITS}
+ACCEPT_ENCODING = "identity,deflate,gzip"
 
 
 class StatusCode(enum.Enum):
@@ -254,12 +265,15 @@ class Decoder:
             raise HpackError("truncated string")
         huffman = data[pos] & 0x80
         length, pos = _decode_int(data, pos, 7)
-        if huffman:
-            raise HpackError("Huffman-coded string literal: this decoder "
-                             "reads raw literals only")
         if pos + length > len(data):
             raise HpackError("truncated string")
-        return bytes(data[pos:pos + length]).decode("latin-1"), pos + length
+        raw = bytes(data[pos:pos + length])
+        if huffman:
+            try:
+                raw = hpack_huffman.decode(raw)
+            except hpack_huffman.HuffmanError as e:
+                raise HpackError(str(e)) from e
+        return raw.decode("latin-1"), pos + length
 
     def decode(self, block) -> List[Tuple[str, str]]:
         headers: List[Tuple[str, str]] = []
@@ -816,6 +830,7 @@ class _Connection:
         headers = [(":method", "POST"), (":scheme", "http"),
                    (":path", method), (":authority", authority),
                    ("content-type", "application/grpc"), ("te", "trailers"),
+                   ("grpc-accept-encoding", ACCEPT_ENCODING),
                    ("user-agent", _USER_AGENT)]
         if deadline is not None:
             headers.append(("grpc-timeout", encode_timeout(
@@ -852,7 +867,8 @@ class _Connection:
         status. Nothing is sent once the client reset the stream."""
         if stream.reset is not None:
             return
-        status = [(":status", "200"), ("content-type", "application/grpc")]
+        status = [(":status", "200"), ("content-type", "application/grpc"),
+                  ("grpc-accept-encoding", ACCEPT_ENCODING)]
         trailers = [("grpc-status", str(code.value))]
         if details:
             trailers.append(("grpc-message", _percent_encode(details)))
@@ -870,20 +886,44 @@ class _Connection:
             self.streams.pop(stream.id, None)
 
 
-def _message(stream: _Stream) -> bytes:
-    """The one message of a finished stream; RpcError for a malformed
-    one."""
+def _message(stream: _Stream, encoding: Optional[str] = None) -> bytes:
+    """The one message of a finished stream, decompressed under the
+    ``grpc-encoding`` of its headers; RpcError for a malformed one, an
+    encoding not read here, or a decompressed size over the limit."""
     data = stream.data
     if len(data) < 5:
         raise RpcError(StatusCode.INTERNAL, "no message in the stream")
     flag, n = struct.unpack(">BI", data[:5])
-    if flag:
-        raise RpcError(StatusCode.INTERNAL,
-                       "compressed message: only identity encoding is read")
     if len(data) != 5 + n:
         raise RpcError(StatusCode.INTERNAL,
                        "not exactly one message in a unary call")
-    return bytes(data[5:])
+    body = bytes(data[5:])
+    if not flag or encoding in (None, "", "identity"):
+        # grpcio reads a flagged message under the identity encoding as
+        # it stands
+        return body
+    wbits = _ENCODINGS.get(encoding)
+    if wbits is None:
+        raise RpcError(StatusCode.UNIMPLEMENTED,
+                       f"Compression algorithm '{encoding}' is not "
+                       "supported")
+    inflater = zlib.decompressobj(wbits)
+    try:
+        out = inflater.decompress(body, MAX_MESSAGE_BYTES + 1)
+    except zlib.error as e:
+        raise RpcError(StatusCode.INTERNAL,
+                       f"Unexpected error decompressing data for algorithm "
+                       f"{encoding}: {e}") from e
+    if len(out) > MAX_MESSAGE_BYTES:
+        # stop at the limit: what is left is never inflated
+        raise RpcError(StatusCode.RESOURCE_EXHAUSTED,
+                       f"Received message larger than max (more than "
+                       f"{MAX_MESSAGE_BYTES} vs. {MAX_MESSAGE_BYTES})")
+    if not inflater.eof:
+        raise RpcError(StatusCode.INTERNAL,
+                       f"Unexpected error decompressing data for algorithm "
+                       f"{encoding}: truncated")
+    return out
 
 
 # ---- server ---------------------------------------------------------------
@@ -979,7 +1019,7 @@ class Server:
                          "Method not found!")
             return
         try:
-            request = _message(stream)
+            request = _message(stream, fields.get("grpc-encoding"))
         except RpcError as e:
             conn.respond(stream, None, e.code(), e.details())
             return
@@ -1173,7 +1213,7 @@ class Channel:
         if code is not StatusCode.OK:
             raise RpcError(code, _percent_decode(
                 trailers.get("grpc-message", "")))
-        return _message(stream)
+        return _message(stream, headers.get("grpc-encoding"))
 
     def close(self) -> None:
         with self._lock:

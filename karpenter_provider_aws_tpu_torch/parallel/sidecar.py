@@ -35,6 +35,7 @@ import numpy as np
 from .. import trace
 from ..apis import serde
 from ..device import DeviceLike
+from ..errors import EXIT_DEVICE_LOST
 from ..solver.solve import NodePlan, Solver
 from . import rpc
 
@@ -567,7 +568,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     solver as its own accelerator-resident process, the operator's
     control loop elsewhere pointing at it via ``--solver-address``.
     ``--device`` (default ``cuda``, raising without CUDA) is where the
-    resident Solver's tensors live."""
+    resident Solver's tensors live. Once the Solver has lost its device
+    (``errors.DeviceLostError``: a sticky error took the CUDA context) the
+    process stops serving and returns ``EXIT_DEVICE_LOST``, so that its
+    deployment restarts it; the pool's breakers fail its callers over
+    meanwhile."""
     import argparse
     import signal
     import threading
@@ -634,9 +639,15 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         signal.signal(signal.SIGTERM, lambda *_: stop.set())
     except ValueError:
         pass
-    stop.wait()
+    code = 0
+    while not stop.wait(1.0):
+        if solver.device_lost is not None:
+            print(f"solver sidecar: the device is lost, exiting "
+                  f"({solver.device_lost})", flush=True)
+            code = EXIT_DEVICE_LOST
+            break
     server.stop(grace=None)
-    return 0
+    return code
 
 
 if __name__ == "__main__":

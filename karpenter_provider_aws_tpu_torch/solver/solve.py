@@ -33,7 +33,10 @@ fault: a structural ceiling (``SolverCapacityError``) and an injected
 device fault. A real device error that outlives its retry, a kernel that
 does not build (``KernelBuildError``, never retried) and a host-side bug
 on the device path raise to the caller, so no plan made on the host
-stands in for a card that does not work. On the CPU the ladder is the
+stands in for a card that does not work. A failure on the card after
+which a one-element probe of the device fails too is sticky (the CUDA
+context is gone): it raises ``DeviceLostError``, kept in ``device_lost``,
+and every later entry point raises it at once. On the CPU the ladder is the
 reference's in full: the host is the solve's own device there.
 
 ``solve_relaxed``, ``solve`` and ``solve_delta`` open the JAX package's
@@ -42,6 +45,14 @@ trace spans (``solver.solve_relaxed``, ``solver.solve``,
 ``stage.*`` span per stage timer), and a problem built with
 ``explain=True`` carries its constraint-elimination ledgers into the
 unplaced reasons.
+
+``warmup`` runs the boot (G, B) bucket ladder once on the Solver's
+device (optionally on a background thread) so that a process's first
+real solve does not pay the cold cost: the first launch of each of the
+scan's kernels (CUDA loads a kernel's module at its first use), the
+caching allocator's first pools and the kernel library's load. ``start_profiling`` / ``stop_profiling``
+wrap every pack call in a named ``torch.profiler`` span and write the
+trace as Chrome JSON.
 
 ``probe_batch`` answers K consolidation what-ifs in one batched device
 pass (ops/binpack.py ``pack_probe_fused``) on the Solver's own device,
@@ -62,8 +73,11 @@ shape in the device cost model (solver/costmodel.py).
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import logging
+import os
+import threading
 import time
 from dataclasses import dataclass, field, replace
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -74,8 +88,8 @@ import torch
 from .. import trace
 from ..apis.resources import R
 from ..device import DeviceLike, resolve_device
-from ..errors import (KernelBuildError, SolverCapacityError,
-                      SolverDeviceError, SolverError,
+from ..errors import (DeviceLostError, KernelBuildError,
+                      SolverCapacityError, SolverDeviceError, SolverError,
                       is_retryable_solver_error)
 from ..lattice.tensors import Lattice
 from ..ops import binpack
@@ -339,6 +353,10 @@ def _locked(fn):
     @functools.wraps(fn)
     def wrapper(self, *args, **kwargs):
         with self._solve_lock:
+            if self.device_lost is not None:
+                # a lost context fails every call: fail at once
+                raise DeviceLostError(str(self.device_lost)) \
+                    from self.device_lost
             if self.device.type != "cuda":
                 return fn(self, *args, **kwargs)
             with torch.cuda.device(self.device):
@@ -400,6 +418,9 @@ class Solver:
         # off-primary-path event
         self.faults: Optional[FaultInjector] = None
         self.degraded_counts: Dict[str, int] = {}
+        # the sticky device error that took this Solver's device (None
+        # while the device works); every entry point raises it once set
+        self.device_lost: Optional[DeviceLostError] = None
         # the overlapped solve path: resident input deltas, the result
         # copy started at dispatch, decode prep while the card computes.
         # Off = the strictly sequential path
@@ -458,6 +479,12 @@ class Solver:
         self._mesh_alloc = None
         # the last probe_batch dispatch: its buckets and raw [K,6] summary
         self.last_probe: Optional[Dict[str, object]] = None
+        # torch.profiler session (start_profiling): every pack call is a
+        # named span, numbered by _trace_step
+        self._tracing = False
+        self._trace_step = 0
+        self._profiler = None
+        self._profile_dir = ""
 
     def set_pipeline(self, enabled: bool) -> None:
         """Toggle the overlapped solve path (thread-safe)."""
@@ -578,6 +605,18 @@ class Solver:
             return False
         return self._host_ffd_carries_all
 
+    def _device_alive(self) -> bool:
+        """Whether the device still runs a one-element op and a
+        synchronize: after a sticky error (a device-side assert) the CUDA
+        context fails every later call."""
+        try:
+            torch.ones(1, device=self.device).add_(1)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            return True
+        except RuntimeError:
+            return False
+
     def _estimate_bins(self, problem: Problem) -> int:
         """Lower-bound estimate of bins the pack will open: each group
         needs at least count / (best-case per-node fit) bins, and never
@@ -678,6 +717,74 @@ class Solver:
         if a.size:
             out[tuple(slice(0, s) for s in a.shape)] = a
         return out
+
+    def _padded_groups(self, problem: Problem, G: int,
+                       A: Optional[int] = None,
+                       NP: Optional[int] = None) -> binpack.GroupBatch:
+        """The group fields of the fused buffer as separate padded
+        tensors on the Solver's device (kernel tests and the unfused
+        ``binpack.pack_packed``; every solve path ships the fused
+        buffer)."""
+        layout, _ = self._layout(problem, G, A, NP)
+        return binpack.GroupBatch(**{
+            f.name: torch.as_tensor(self._pad_field(problem, f),
+                                    device=self.device)
+            for f in layout if f.name in binpack.GroupBatch._fields})
+
+    def _pool_params(self, problem: Problem,
+                     NP: Optional[int] = None) -> binpack.PoolParams:
+        layout, _ = self._layout(problem, 1, None, NP)
+        return binpack.PoolParams(**{
+            f.name: torch.as_tensor(self._pad_field(problem, f),
+                                    device=self.device)
+            for f in layout if f.name in binpack.PoolParams._fields})
+
+    def _init_state(self, problem: Problem, B: int,
+                    A: Optional[int] = None) -> binpack.BinState:
+        """The bin table of B rows with the problem's existing bins open
+        in its first E rows, on the Solver's device (what the fused
+        existing-bin buffer unpacks to)."""
+        lat = self.lattice
+        E = problem.E
+        A = max(problem.A, 1) if A is None else A
+        state = binpack.empty_state(B, lat.T, lat.Z, lat.C, R, A,
+                                    device=self.device)
+        if E == 0:
+            return state
+        cum = np.zeros((B, R), np.float32)
+        tmask = np.zeros((B, lat.T), bool)
+        zmask = np.zeros((B, lat.Z), bool)
+        cmask = np.zeros((B, lat.C), bool)
+        np_id = np.full((B,), -1, np.int32)
+        open_ = np.zeros((B,), bool)
+        fixed = np.zeros((B,), bool)
+        alloc_cap = np.full((B, R), np.inf, np.float32)
+        pm = np.zeros((B, A), np.int32)
+        po = np.zeros((B, A), bool)
+        cum[:E] = problem.e_used
+        tmask[np.arange(E), problem.e_type] = True
+        zmask[np.arange(E), problem.e_zone] = True
+        cmask[np.arange(E), problem.e_cap] = True
+        np_id[:E] = problem.e_np
+        open_[:E] = True
+        fixed[:E] = True
+        alloc_cap[:E] = problem.e_alloc  # real node allocatable wins
+        if problem.A:
+            pm[:E, : problem.A] = problem.e_pm
+            po[:E, : problem.A] = problem.e_po
+        dev = self.device
+        return state._replace(
+            cum=torch.as_tensor(cum, device=dev),
+            tmask=torch.as_tensor(tmask, device=dev),
+            zmask=torch.as_tensor(zmask, device=dev),
+            cmask=torch.as_tensor(cmask, device=dev),
+            np_id=torch.as_tensor(np_id, device=dev),
+            open=torch.as_tensor(open_, device=dev),
+            fixed=torch.as_tensor(fixed, device=dev),
+            alloc_cap=torch.as_tensor(alloc_cap, device=dev),
+            pm=torch.as_tensor(pm, device=dev),
+            po=torch.as_tensor(po, device=dev),
+            next_open=torch.tensor(E, dtype=torch.int32, device=dev))
 
     def _fused_inputs_np(self, problem: Problem, G: int,
                          A: Optional[int] = None, NP: Optional[int] = None,
@@ -892,6 +999,16 @@ class Solver:
                     self._clock.sleep(self._RETRY_BACKOFF_SECONDS * retries)
                     continue
                 if not self._host_ffd_may_carry(e):
+                    # whatever raised, a device that no longer runs the
+                    # probe is lost (the error may surface in host code
+                    # that touched the device first)
+                    if not self._device_alive():
+                        self.device_lost = DeviceLostError(
+                            f"the device is lost: a one-element probe "
+                            f"fails after {type(e).__name__}: {e}; "
+                            f"restart the process",
+                            cause=e)
+                        raise self.device_lost from e
                     raise
                 reason = ("device-error" if isinstance(e, SolverDeviceError)
                           else "internal-error")
@@ -1033,7 +1150,8 @@ class Solver:
                         with stages.span("upload"):
                             init_dev = self._stage_upload(
                                 ("i", B, init_np.size), init_np, pipelined)
-                    with stages.span("compute"):
+                    with self._trace_span("solver.pack"), \
+                            stages.span("compute"):
                         dev_buf = binpack.pack_packed_efused(
                             self._alloc, avail, price, gbuf, init_dev,
                             problem.E, B, G, lat.T, lat.Z, lat.C, NP, A,
@@ -1048,7 +1166,8 @@ class Solver:
                     with stages.span("upload"):
                         combined = self._upload(combined_np)
                         self._sync()
-                    with stages.span("compute"):
+                    with self._trace_span("solver.pack"), \
+                            stages.span("compute"):
                         dev_buf = binpack.pack_packed_combined(
                             self._alloc, avail, price, combined,
                             len(fused_np), problem.E, B,
@@ -1645,7 +1764,8 @@ class Solver:
                                     else self._stage_upload(key, init_np,
                                                             False))
                 self._maybe_inject_device_fault()
-                with stages.span("compute"):
+                with self._trace_span("solver.pack_sharded"), \
+                        stages.span("compute"):
                     # the [D,G] split ships from the host here (the
                     # microloop derives it on the device instead)
                     self._account_link("upload", count_split.nbytes)
@@ -2223,7 +2343,8 @@ class Solver:
                     f.offset for f in binpack.group_layout(
                         G, lat.T, lat.Z, lat.C, NP, A, R)[0]
                     if f.name == "count")
-                with stages.span("compute"):
+                with self._trace_span("solver.pack_micro"), \
+                        stages.span("compute"):
                     csplit = device_split_counts(gslice, D, count_off, G)
                     sp_res = sharded_pack(
                         mesh, alloc_r, avail, price, gslice, islice,
@@ -2231,7 +2352,8 @@ class Solver:
                 new_dev = sp_res.packed
             else:
                 avail, price = self._device_avail_price(problem)
-                with stages.span("compute"):
+                with self._trace_span("solver.pack_micro"), \
+                        stages.span("compute"):
                     if problem.E:
                         new_dev = binpack.pack_packed_combined(
                             self._alloc, avail, price, comb_dev, g_size,
@@ -2352,6 +2474,151 @@ class Solver:
             self.pipeline_stats["micro_merge_skips"] += 1
         return plan
 
+    # ---- warmup (the boot bucket ladder) ----
+
+    # the shapes a production operator's first real passes hit: G=16..128
+    # covers batches up to ~128 scheduling signatures (a 50k-pod wave of
+    # 30 deployment shapes is G=31, bucket 32); B up to 2048 covers plans
+    # up to ~2k nodes
+    WARM_G_BUCKETS: Sequence[int] = (16, 32, 64)
+    WARM_B_BUCKETS: Sequence[int] = (32, 128, 512)
+    BOOT_G_BUCKETS: Sequence[int] = (16, 32, 64, 96, 128)
+    BOOT_B_BUCKETS: Sequence[int] = (32, 128, 512, 1024, 2048)
+
+    def warmup(self, node_pools_count: int = 1, affinity_classes: int = 1,
+               g_buckets: Sequence[int] = WARM_G_BUCKETS,
+               b_buckets: Sequence[int] = WARM_B_BUCKETS,
+               probes: bool = False,
+               background: bool = False,
+               aot: bool = False,
+               on_done=None):
+        """Run the solve's device path once for each warm (G, B) bucket.
+
+        Nothing is compiled at run time here, but a process's first solve
+        still pays a cold cost on the card: the first launch of each torch
+        kernel the scan uses (CUDA loads a kernel's module at its first
+        use), the caching allocator's first pools of each size, the pinned
+        host buffers of the result fetch, the cheapest-offering kernel's
+        library load. Each (G, B) bucket,
+        without and with an existing-bin buffer, goes once through
+        ``pack_packed_efused`` (which launches the kernel) from zero-filled
+        fused buffers, and its result comes back through ``fetch_async``;
+        with ``probes``, ``pack_probe_fused`` runs too at the first two
+        probe buckets K. ``node_pools_count`` and ``affinity_classes`` size
+        the pool and affinity axes of the buffers, as a real problem's.
+
+        ``aot`` is accepted for the reference's signature and changes
+        nothing: there is no ahead-of-time lowering of a torch pack, so
+        every shape runs on the executing path. (The CLI passes it only
+        with a compile cache directory, which this package refuses.)
+
+        Each shape runs under the solve lock, so a real solve that arrives
+        mid-warmup waits for the shape in flight. ``background=True`` runs
+        the ladder on a daemon thread named ``solver-warmup`` and returns
+        it, started. ``on_done`` (no arguments) fires once when the ladder
+        ends, whether it succeeded or not; the Operator uses it to close
+        the SLO warmup window (introspect/slo.py), and a callback that
+        raises does not kill the thread.
+        """
+        if background:
+            t = threading.Thread(
+                target=self.warmup, name="solver-warmup", daemon=True,
+                kwargs=dict(node_pools_count=node_pools_count,
+                            affinity_classes=affinity_classes,
+                            g_buckets=g_buckets, b_buckets=b_buckets,
+                            probes=probes, aot=aot, on_done=on_done))
+            t.start()
+            return t
+        try:
+            lat = self.lattice
+            NP = max(node_pools_count, 1)
+            A = max(affinity_classes, 1)
+            dev = self.device
+
+            def run_shape(pack) -> None:
+                with self._solve_lock:
+                    ctx = (torch.cuda.device(dev) if dev.type == "cuda"
+                           else contextlib.nullcontext())
+                    with ctx:
+                        fetch_async(pack()).wait()
+
+            for G in g_buckets:
+                _, g_total = binpack.group_layout(G, lat.T, lat.Z, lat.C,
+                                                  NP, A, R)
+                gbuf = torch.zeros((g_total,), dtype=torch.uint8, device=dev)
+                for B in b_buckets:
+                    _, i_total = binpack.init_layout(B, R, A)
+                    ibuf = torch.zeros((i_total,), dtype=torch.uint8,
+                                       device=dev)
+                    for init in (None, ibuf):
+                        run_shape(lambda init=init, B=B:
+                                  binpack.pack_packed_efused(
+                                      self._alloc, self._avail, self._price,
+                                      gbuf, init, 0, B, G, lat.T, lat.Z,
+                                      lat.C, NP, A, lean=True))
+                    if probes:
+                        for K in self._K_BUCKETS[:2]:
+                            run_shape(lambda K=K, B=B:
+                                      binpack.pack_probe_fused(
+                                          self._alloc, self._avail,
+                                          self._price,
+                                          gbuf.expand(K, -1).contiguous(),
+                                          ibuf.expand(K, -1).contiguous(),
+                                          torch.zeros((K,), dtype=torch.int32,
+                                                      device=dev),
+                                          B, G, lat.T, lat.Z, lat.C, NP, A))
+        finally:
+            if on_done is not None:
+                try:
+                    on_done()
+                except Exception:   # noqa: BLE001
+                    pass   # a callback bug must not kill the warmup thread
+        return None
+
+    # ---- profiling ----
+
+    def start_profiling(self, log_dir: str) -> None:
+        """Open a ``torch.profiler`` session (CPU activity, and CUDA's on
+        the card); every device pack call is then a named span
+        (``solver.pack``, ``solver.pack_micro``, ``solver.pack_probe``,
+        ``solver.pack_sharded``) beside the kernels it launched.
+        :meth:`stop_profiling` writes the trace under ``log_dir``."""
+        from torch.profiler import ProfilerActivity, profile
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        os.makedirs(log_dir, exist_ok=True)
+        self._profile_dir = log_dir
+        self._profiler = profile(activities=activities)
+        self._profiler.start()
+        self._tracing = True
+
+    def stop_profiling(self) -> Optional[str]:
+        """Close the session and write its Chrome trace where the
+        reference's profiler puts a run, ``<log_dir>/plugins/profile/<run>/``
+        (``<run>`` the stop time); returns the file's path (None when no
+        session was open)."""
+        self._tracing = False
+        prof, self._profiler = self._profiler, None
+        if prof is None:
+            return None
+        prof.stop()
+        run = os.path.join(self._profile_dir, "plugins", "profile",
+                           time.strftime("%Y_%m_%d_%H_%M_%S")
+                           + f"_{time.time_ns() % 10 ** 9:09d}")
+        os.makedirs(run, exist_ok=True)
+        path = os.path.join(run, f"solver-{os.getpid()}.pt.trace.json")
+        prof.export_chrome_trace(path)
+        return path
+
+    def _trace_span(self, name: str):
+        """A profiler span named ``name#<step>`` while profiling; nothing
+        otherwise."""
+        if not self._tracing:
+            return contextlib.nullcontext()
+        self._trace_step += 1
+        return torch.profiler.record_function(f"{name}#{self._trace_step}")
+
     # ---- batched what-if probes ----
 
     _K_BUCKETS = (4, 8, 16, 32)
@@ -2413,9 +2680,11 @@ class Solver:
                         [self._fused_init_np(problems[i], B, A) for i in idx])
                         if any(p.E for p in problems) else None)
                     td = time.perf_counter()
-                    summ = binpack.ProbeSummary(*binpack.pack_probe_fused(
-                        self._alloc, avail, price, gbufs, ibufs, n_existing,
-                        B, G, lat.T, lat.Z, lat.C, NP, A).cpu().numpy().T)
+                    with self._trace_span("solver.pack_probe"):
+                        summ = binpack.ProbeSummary(*binpack.pack_probe_fused(
+                            self._alloc, avail, price, gbufs, ibufs,
+                            n_existing, B, G, lat.T, lat.Z, lat.C, NP,
+                            A).cpu().numpy().T)
                     device_s = time.perf_counter() - td
                     if bool((summ.overflow[:K] > 0).any()):
                         B, grew = _grow_bucket(B)

@@ -7,8 +7,9 @@ also serve ``test_torch_api_wave.py``, the API-mode wave).
   one batch window; when every pod is bound (read over REST), the
   election lease is held by this process and the two servers hold equal
   claims, nodes and bindings; ``main`` returns 0 after its stop event.
-- Each flag of the port's CLI that reaches an unported part exits
-  non-zero, naming its roadmap item, before anything is served; the
+- ``--compile-cache-dir`` exits non-zero before anything is served;
+  ``--warm-start`` starts the process and runs the boot ladder inside the
+  SLO warmup window, ``--profile-dir`` leaves a profiler trace; the
   solver sidecar and pool flags start the process (``--sidecar-address``
   serves the Operator's Solver, ``--solver-address`` and
   ``SOLVER_ADDRESSES`` put it on a solver pool); a mesh (``--mesh N``,
@@ -128,11 +129,11 @@ def test_both_clis_bind_rest_posted_pods_equally():
 
 
 # ---- the port's CLI refuses flags that reach unported parts, and starts
-# on the solver sidecar and pool flags ----
+# on the warm-start, profiling, solver sidecar and pool flags ----
 
 @pytest.mark.parametrize("flags,env,item", [
-    (["--warm-start"], {}, "B7"),
-    (["--profile-dir", "prof"], {}, "B7"),
+    (["--warm-start"], {}, None),
+    (["--profile-dir", "{tmp}/prof"], {}, None),
     (["--sidecar-address", "unix:{tmp}/s.sock"], {}, None),
     (["--solver-address", "unix:{tmp}/a.sock"], {}, None),
     ([], {"SOLVER_ADDRESSES": "unix:{tmp}/a.sock"}, None),
@@ -143,11 +144,14 @@ def test_unported_flags_exit_before_serving(flags, env, item, monkeypatch,
                                             tmp_path):
     """A flag that reaches a part this package does not carry (``item``
     names it) exits non-zero before anything is served or built. The
-    solver sidecar and pool flags (``item`` None) start the process as
-    the JAX CLI's do: ``--sidecar-address`` serves the Operator's Solver
-    for the run and stops it at the end, ``--solver-address`` and
-    ``SOLVER_ADDRESSES`` build the Operator on a solver pool of those
-    endpoints."""
+    other flags (``item`` None) start the process as the JAX CLI's do:
+    ``--warm-start`` runs the Solver's boot ladder (cut to one shape
+    here) on a ``solver-warmup`` thread inside the SLO warmup window,
+    which its end closes; ``--profile-dir`` writes a profiler trace under
+    the directory on the way out; ``--sidecar-address`` serves the
+    Operator's Solver for the run and stops it at the end,
+    ``--solver-address`` and ``SOLVER_ADDRESSES`` build the Operator on a
+    solver pool of those endpoints."""
     from karpenter_provider_aws_tpu_torch import cli
     from karpenter_provider_aws_tpu_torch.parallel import sidecar
     flags = [f.format(tmp=tmp_path) for f in flags]
@@ -172,11 +176,36 @@ def test_unported_flags_exit_before_serving(flags, env, item, monkeypatch,
 
         monkeypatch.setattr(cli, "Operator", operator)
         monkeypatch.setattr(sidecar, "serve", serve_and_probe)
+        Solver = cases.mod(cases.TORCH_PKG, "solver").Solver
+        monkeypatch.setattr(Solver, "BOOT_G_BUCKETS", (16,))
+        monkeypatch.setattr(Solver, "BOOT_B_BUCKETS", (32,))
+        windows = []
+        if "--warm-start" in flags:
+            real_warmup = Solver.warmup
+
+            def warmup(self, **kw):
+                windows.append(built[0].slo.warmup_active())
+                return real_warmup(self, **kw)
+
+            monkeypatch.setattr(Solver, "warmup", warmup)
         rc = cli.main(flags + ["--device", "cpu", "--metrics-port=0",
                                "--duration=0.1"])
         assert rc == 0
         op, = built
-        if "--sidecar-address" in flags:
+        if "--warm-start" in flags:
+            warm = [t for t in threading.enumerate()
+                    if t.name == "solver-warmup"]
+            for t in warm:
+                t.join(120)
+            assert windows and all(windows)
+            assert not op.slo.warmup_active()
+            assert op.solver.device.type == "cpu"
+        elif "--profile-dir" in flags:
+            traces = list((tmp_path / "prof" / "plugins" / "profile").glob(
+                "*/*.pt.trace.json"))
+            assert len(traces) == 1 and traces[0].stat().st_size > 0
+            assert not op.solver._tracing
+        elif "--sidecar-address" in flags:
             assert [h["types"] for h in health] == [lat.T]
             assert type(op.solver).__name__ == "Solver"
             assert not (tmp_path / "s.sock").exists()    # stopped

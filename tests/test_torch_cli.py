@@ -1,6 +1,6 @@
 """The PyTorch port's CLI against the JAX package's, on the CPU.
 
-Every test of the JAX package's ``tests/test_cli.py`` but one (flags and
+Every test of the JAX package's ``tests/test_cli.py`` (flags and
 the environment into Options, feature gates, the metrics and health
 server, the main loop, the HTTP admission endpoint in both review
 dialects, and ``--api-port`` serving the apiserver to an external agent)
@@ -9,8 +9,9 @@ is replayed on both packages by ``test_torch_replay`` (on the port side
 each, and the two must make the same Operators and apiserver objects
 (tolerances in ``test_torch_replay``; everything else exact). The two
 tests whose ``main`` runs on the wall clock are named in ``THREADED``.
-The test of the JAX profiler hook is named in ``NOT_REPLAYED``: the
-port's CLI refuses ``--profile-dir`` (``test_torch_api_slice.py``).
+The profiler hook's test replays too: the port's ``start_profiling``
+writes its trace where the reference's does, under
+``<dir>/plugins/profile/<run>/``.
 """
 
 import pytest
@@ -19,10 +20,7 @@ import test_torch_replay as replay
 from test_torch_replay import one_torch_thread  # noqa: F401 (autouse)
 
 FILE = "test_cli.py"
-NOT_REPLAYED = {
-    "test_cli.py::TestProfilingHook::test_solver_trace_writes_xprof_artifacts":
-        "B7 (Solver.start_profiling writes a JAX profiler trace)",
-}
+NOT_REPLAYED = {}
 THREADED = {
     "test_cli.py::TestMainLoop::test_main_runs_for_duration_and_exits",
     "test_cli.py::TestApiPortFlag::test_cli_serves_apiserver_rest",

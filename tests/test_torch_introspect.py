@@ -15,7 +15,8 @@ checks run on each, and the two must make the same Operator state,
 metric series and apiserver objects (tolerances in
 ``test_torch_replay``; everything else exact). The tests that need
 ``tools/kpctl.py`` in process or an XLA executable are named in
-``NOT_REPLAYED`` with the roadmap item that brings them.
+``NOT_REPLAYED``: with the roadmap item that brings kpctl, and as
+``XLA`` for what no torch pack has.
 """
 
 import pytest
@@ -23,7 +24,7 @@ import pytest
 import test_torch_replay as replay
 
 _KPCTL = "A12 (tools/kpctl.py, which renders the JAX package's surfaces)"
-_XLA = ("B7 (record_compiled and capture_cost_model read an XLA "
+_XLA = ("XLA (record_compiled and capture_cost_model read an XLA "
         "executable's analysis, which a torch pack does not have)")
 FILES = {
     "test_introspect.py": {

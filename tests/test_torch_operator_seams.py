@@ -148,10 +148,11 @@ def test_api_mode_and_solver_pool_raise():
 
 
 def test_mesh_plans(monkeypatch):
-    """The reference's mesh planning: auto is single-device on the CPU and
-    with one card, the N-way plan with N cards; a forced N plans N shards
-    on the Solver's device; the Operator plans at boot and its Solver runs
-    the mesh; a mesh planned for another device type is refused."""
+    """Mesh planning: auto is single-device on the CPU and on CUDA with
+    one card or several (the shards would share one card); a forced N
+    plans N shards on the Solver's device; the Operator plans at boot and
+    its Solver runs the mesh; a mesh planned for another device type is
+    refused."""
     import torch
     from karpenter_provider_aws_tpu_torch.operator import Options
     from karpenter_provider_aws_tpu_torch.parallel import plan_mesh
@@ -175,7 +176,10 @@ def test_mesh_plans(monkeypatch):
     assert plan_mesh("auto", device="cuda").devices == 1
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
     plan = plan_mesh("auto")
-    assert (plan.devices, plan.source, plan.mesh.shards) == (4, "auto", 4)
+    # four cards still plan the single-device path: the shards would
+    # share one card (no shard per card yet), slower than one device
+    assert (plan.devices, plan.source, plan.mesh) == (1, "single", None)
+    assert plan_mesh("8").mesh.shards == 8
     assert plan_mesh("auto", device="cpu").devices == 1
     op = _operator(cases.TORCH_PKG, options=Options(mesh="2"))
     assert op.mesh_plan.devices == 2 and op.solver.mesh_devices == 2

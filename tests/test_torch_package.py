@@ -103,6 +103,24 @@ def test_guard_covers_the_remote_solver_modules():
         assert getattr(parallel, name) is not None
 
 
+def test_guard_covers_the_native_referee_and_every_jax_module():
+    """Every module file of the JAX package has its counterpart in the
+    port (the native referee, ``native/``, was the last), so the import
+    guards above check the port's copy of each; the referee's C++ source
+    ships inside the port package."""
+    jax_root = REPO / JAX_PKG
+    jax_files = {p.relative_to(jax_root) for p in jax_root.rglob("*.py")}
+    port_files = {p.relative_to(PORT) for p in PORT_FILES}
+    assert jax_files <= port_files, sorted(map(str, jax_files - port_files))
+    mods = {_module_name(p) for p in PORT_FILES}
+    for name in ("native", "native.build", "native.oracle"):
+        assert f"karpenter_provider_aws_tpu_torch.{name}" in mods, name
+    assert (PORT / "native" / "ffd.cc").is_file()
+    from karpenter_provider_aws_tpu_torch import native
+    assert set(native.__all__) >= {"ensure_built", "native_available",
+                                   "native_ffd_pack"}
+
+
 def test_every_module_imports_without_jax():
     """Every port module imports in a fresh process where importing jax,
     the JAX package, jsonschema or grpc fails."""

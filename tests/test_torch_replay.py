@@ -60,7 +60,12 @@ the reference's order), the merge's fused input and result bytes.
 
 Everything is compared for equality; the only float slack is
 ``REL`` on the engine's savings. A test the port cannot run yet is named
-in its file's ``NOT_REPLAYED`` with the roadmap item that brings it.
+in its file's ``NOT_REPLAYED`` with the roadmap item that brings it, or,
+where no item will, with ``seam`` (a settled divergence of the port) or
+``XLA`` (the test reads XLA's own state). A test's own ``skipif`` marks
+apply on both packages. Module-level tests replay like methods
+(``file::test``), and a test over a parametrized fixture of its module
+replays once per value (``parametrized``).
 A test whose run follows the wall clock through threads (a controller
 runtime, an HTTP server, leader election) is named in its file's
 ``THREADED``: there the test's own checks run on both packages, and of
@@ -113,7 +118,8 @@ _PKG_RE = re.compile(r"\bkarpenter_provider_aws_tpu\b")
 
 
 def jax_tests(filename):
-    """``file::Class::test`` for every test method of a JAX test file."""
+    """``file::Class::test`` for every test method of a JAX test file,
+    and ``file::test`` for every module-level test, in file order."""
     src = (TESTS / filename).read_text()
     out = []
     for node in ast.parse(src).body:
@@ -121,31 +127,50 @@ def jax_tests(filename):
             out += [f"{filename}::{node.name}::{f.name}" for f in node.body
                     if isinstance(f, ast.FunctionDef)
                     and f.name.startswith("test_")]
+        elif isinstance(node, ast.FunctionDef) and \
+                node.name.startswith("test_"):
+            out.append(f"{filename}::{node.name}")
     return out
+
+
+# why a test is not replayed: the roadmap item that brings it, or a
+# reason no item can remove (a settled seam of the port, or a test that
+# reads XLA's own state)
+NOT_REPLAYED_REASON = re.compile(r"^((A|B)\d+[a-z]?|seam|XLA)\b")
 
 
 def replayed(filename, not_replayed):
     """The tests of ``filename`` to replay; ``not_replayed`` must name
-    only tests that exist, each with the roadmap item that brings it."""
+    only tests that exist, each with the roadmap item that brings it or
+    the reason none will (``NOT_REPLAYED_REASON``)."""
     names = jax_tests(filename)
     stale = set(not_replayed) - set(names)
     assert not stale, f"NOT_REPLAYED names no test of {filename}: {stale}"
     for name, why in not_replayed.items():
-        assert re.match(r"^(A|B)\d+[a-z]?\b", why), (name, why)
+        assert NOT_REPLAYED_REASON.match(why), (name, why)
     return [n for n in names if n not in not_replayed]
 
 
 def parametrized(filename, tests):
     """``(test_id, params)`` for each of ``tests`` (``file::Class::test``
-    ids): one per parameter set of a test that the JAX file parametrizes
-    (its ``pytest.mark.parametrize`` marks, crossed), ``{}`` for the
-    others."""
+    or ``file::test`` ids): one per parameter set of a test that the JAX
+    file parametrizes (its ``pytest.mark.parametrize`` marks and the
+    ``params`` of the module's fixtures it takes, crossed), ``{}`` for
+    the others."""
     module = load(filename, cases.JAX_PKG)
     out = []
     for test_id in tests:
-        _, clsname, meth = test_id.split("::")
-        fn = getattr(getattr(module, clsname), meth)
+        parts = test_id.split("::")
+        fn = getattr(module, parts[1])
+        if len(parts) == 3:
+            fn = getattr(fn, parts[2])
         combos = [{}]
+        for name in inspect.signature(fn).parameters:
+            fixture = module.__dict__.get(name)
+            params = getattr(getattr(fixture, "_fixture_function_marker",
+                                     None), "params", None)
+            if params:
+                combos = [{**c, name: v} for c in combos for v in params]
         for mark in getattr(fn, "pytestmark", ()):
             if mark.name != "parametrize":
                 continue
@@ -159,6 +184,14 @@ def parametrized(filename, tests):
                       for c in combos for row in rows]
         out += [(test_id, c) for c in combos]
     return out
+
+
+def case_id(test_id, params):
+    """A pytest id for a ``parametrized`` case: the test id, with its
+    parameter values in brackets as pytest writes them."""
+    if not params:
+        return test_id
+    return f"{test_id}[{'-'.join(str(v) for v in params.values())}]"
 
 
 def _unported(name, item):
@@ -247,6 +280,9 @@ class _Fixtures:
             mp = pytest.MonkeyPatch()
             self.finalizers.append(mp.undo)
             value = mp
+        elif name == "capsys":
+            value = _Capsys()
+            self.finalizers.append(value.close)
         elif name == "tmp_path":
             self.tmp_path.mkdir(parents=True, exist_ok=True)
             value = self.tmp_path
@@ -285,6 +321,28 @@ class _Fixtures:
     def close(self):
         while self.finalizers:
             self.finalizers.pop()()
+
+
+class _Capsys:
+    """pytest's ``capsys``, as far as ``readouterr`` goes: the test's
+    standard output and error from the moment it is made."""
+
+    def __init__(self):
+        import io
+        self._saved = (sys.stdout, sys.stderr)
+        self._out, self._err = io.StringIO(), io.StringIO()
+        sys.stdout, sys.stderr = self._out, self._err
+
+    def readouterr(self):
+        import collections
+        out, err = self._out.getvalue(), self._err.getvalue()
+        for buf in (self._out, self._err):
+            buf.seek(0)
+            buf.truncate()
+        return collections.namedtuple("CaptureResult", "out err")(out, err)
+
+    def close(self):
+        sys.stdout, sys.stderr = self._saved
 
 
 class _TmpPathFactory:
@@ -629,6 +687,10 @@ def run_test(module, test_id, tmp_path, plans=False, params=None,
     else:
         instance = getattr(module, parts[1])()
         fn = getattr(instance, parts[2])
+    for mark in getattr(fn, "pytestmark", ()):
+        # the file's own skip conditions, as pytest would apply them
+        if mark.name == "skipif" and any(mark.args):
+            pytest.skip(mark.kwargs.get("reason", "skipif"))
     fx = _Fixtures(module, tmp_path, instance)
     fx.values.update(params or {})
     try:

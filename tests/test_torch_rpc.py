@@ -2,9 +2,23 @@
 
 - HPACK: RFC 7541's integer and literal examples, its request sequence
   without Huffman coding (C.3: the dynamic table carried across three
-  header blocks) and its response sequence with a 256-byte table (C.5:
-  evictions); a Huffman-coded block (C.4.1) is refused, and a peer that
-  sends one gets GOAWAY with COMPRESSION_ERROR.
+  header blocks) and with it (C.4), and its response sequence with a
+  256-byte table (C.5: evictions). The Huffman code
+  (``parallel/hpack_huffman.py``) equals the table in grpcio's own
+  library, round-trips every byte value, and refuses long padding,
+  padding that is not all ones and an encoded EOS; a peer that sends a
+  Huffman string is answered, and one that sends a bad one gets GOAWAY
+  with COMPRESSION_ERROR. A raw client sending Huffman-coded headers gets
+  the same answers from a grpcio server and a port server.
+- Message compression: a grpcio client that compresses (gzip, deflate;
+  per call and per channel) calling a port server, and a port client
+  calling a grpcio server built with ``compression=Gzip``, end with the
+  status codes grpcio gives between grpcio peers, the 4 MiB limit on the
+  decompressed size (4,194,304 B pass, 4,194,305 B are
+  RESOURCE_EXHAUSTED). A raw client's flagged message under the identity
+  encoding and a corrupt gzip body get grpcio's answers (OK, INTERNAL);
+  an encoding neither end reads gets UNIMPLEMENTED from the port, as the
+  gRPC spec has it (grpcio 1.76 resets the stream instead).
 - grpcio interoperates with the port both ways (a grpcio client calling
   a port server, a port client calling a grpcio server) on ``unix:`` and
   on TCP: payloads of 2 MB, 4,194,304 B and 4,194,305 B, as requests and
@@ -26,6 +40,7 @@ Tolerance: none.
 """
 
 import os
+import pathlib
 import signal
 import socket
 import struct
@@ -35,10 +50,12 @@ import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
+import zlib
+
 import grpc
 import pytest
 
-from karpenter_provider_aws_tpu_torch.parallel import rpc
+from karpenter_provider_aws_tpu_torch.parallel import hpack_huffman, rpc
 
 LIMIT = rpc.MAX_MESSAGE_BYTES
 SIZES = [2_000_000, LIMIT, LIMIT + 1]
@@ -128,16 +145,81 @@ def test_hpack_evictions_with_a_small_table():
 
 
 def test_hpack_refuses_huffman_and_bad_blocks():
-    """RFC 7541 C.4.1 is C.3.1 with its literal Huffman-coded: refused,
-    never misread. An index past the tables and a size update above the
-    advertised size are refused too."""
-    with pytest.raises(rpc.HpackError, match="Huffman"):
-        rpc.Decoder().decode(bytes.fromhex(
-            "828684418cf1e3c2e5f23a6ba0ab90f4ff"))
+    """RFC 7541 C.4.1 is C.3.1 with its literal Huffman-coded: it decodes
+    to the same four fields. An index past the tables and a size update
+    above the advertised size are refused."""
+    assert rpc.Decoder().decode(bytes.fromhex(
+        "828684418cf1e3c2e5f23a6ba0ab90f4ff")) == [
+            (":method", "GET"), (":scheme", "http"), (":path", "/"),
+            (":authority", "www.example.com")]
     with pytest.raises(rpc.HpackError):
         rpc.Decoder().decode(b"\xbe")             # index 62, empty table
     with pytest.raises(rpc.HpackError):
         rpc.Decoder().decode(rpc._encode_int(4097, 5, 0x20))
+
+
+def test_hpack_huffman_request_sequence():
+    """RFC 7541 C.4: C.3's three requests with Huffman-coded literals, on
+    one decoder."""
+    d = rpc.Decoder()
+    blocks = ["828684418cf1e3c2e5f23a6ba0ab90f4ff",
+              "828684be5886a8eb10649cbf",
+              "828785bf408825a849e95ba97d7f8925a849e95bb8e8b4bf"]
+    base = [(":method", "GET"), (":scheme", "http"), (":path", "/"),
+            (":authority", "www.example.com")]
+    want = [base, base + [("cache-control", "no-cache")],
+            [(":method", "GET"), (":scheme", "https"),
+             (":path", "/index.html"), (":authority", "www.example.com"),
+             ("custom-key", "custom-value")]]
+    for block, headers, size in zip(blocks, want, (57, 110, 164)):
+        assert d.decode(bytes.fromhex(block)) == headers
+        assert d.size == size
+
+
+def test_huffman_round_trips_every_byte():
+    codes = hpack_huffman.CODES
+    assert len(codes) == 257 and codes[hpack_huffman.EOS] == (0x3fffffff, 30)
+    assert sum(2.0 ** -n for _, n in codes) == 1.0     # a complete code
+    for b in range(256):
+        one = bytes([b])
+        assert hpack_huffman.decode(hpack_huffman.encode(one)) == one
+    every = bytes(range(256)) + bytes(range(255, -1, -1))
+    assert hpack_huffman.decode(hpack_huffman.encode(every)) == every
+    assert hpack_huffman.encode(b"www.example.com") == bytes.fromhex(
+        "f1e3c2e5f23a6ba0ab90f4ff")
+    assert hpack_huffman.encode(b"") == b"" == hpack_huffman.decode(b"")
+
+
+def test_huffman_decoding_errors():
+    """RFC 7541 §5.2: padding longer than 7 bits, padding that is not the
+    high bits of EOS, and an encoded EOS are errors; in a header block
+    each is an HpackError."""
+    a = hpack_huffman.encode(b"a")              # 5 bits and 3 of padding
+    assert a == b"\x1f"
+    for bad, why in ((a + b"\xff", "padding"),     # 11 bits of padding
+                     (b"\x18", "padding"),          # padding of zeros
+                     (b"\xff\xff\xff\xfc", "EOS")):   # EOS, then 2 ones
+        with pytest.raises(hpack_huffman.HuffmanError, match=why):
+            hpack_huffman.decode(bad)
+        with pytest.raises(rpc.HpackError, match=why):
+            rpc.Decoder().decode(b"\x04" + bytes([0x80 | len(bad)]) + bad)
+
+
+def _grpcio_huffman_table():
+    """The (code, length) pairs of grpcio's HPACK Huffman table, found in
+    its own library by the first entries as little-endian uint32 pairs."""
+    lib = next(pathlib.Path(grpc.__file__).parent.glob(
+        "_cython/cygrpc*.so"))
+    data = lib.read_bytes()
+    at = data.find(struct.pack("<4I", 0x1ff8, 13, 0x7fffd8, 23))
+    assert at >= 0, "no HPACK Huffman table in grpcio's library"
+    return tuple(struct.unpack_from("<2I", data, at + 8 * i)
+                 for i in range(257))
+
+
+def test_huffman_table_equals_grpcio():
+    pytest.importorskip("grpc")
+    assert hpack_huffman.CODES == _grpcio_huffman_table()
 
 
 def test_hpack_encoder_round_trip():
@@ -155,37 +237,84 @@ def test_hpack_encoder_round_trip():
         "boom é 100%"
 
 
-def test_peer_sending_huffman_gets_goaway_compression_error(tmp_path):
-    """A raw client sends C.4.1's Huffman-coded header block: the port's
-    server answers GOAWAY with COMPRESSION_ERROR (9) and closes."""
-    server = rpc.server(ThreadPoolExecutor(1))
-    address = f"unix:{tmp_path}/h.sock"
-    server.add_insecure_port(address)
-    server.start()
+def _raw_frames(path, frames, until_close=False):
+    """Send HTTP/2 ``frames`` after the preface and a SETTINGS frame on a
+    raw connection to the unix socket ``path``; (type, flags, stream,
+    payload) of every frame read back until the peer closes, or, unless
+    ``until_close``, until stream 1 ends or is reset."""
+    sock = socket.socket(socket.AF_UNIX)
+    sock.connect(str(path))
+    sock.sendall(rpc.PREFACE + rpc._Connection._frame(rpc.SETTINGS, 0, 0)
+                 + b"".join(frames))
+    sock.settimeout(5)
+    data, out = b"", []
     try:
-        sock = socket.socket(socket.AF_UNIX)
-        sock.connect(str(tmp_path / "h.sock"))
-        block = bytes.fromhex("828684418cf1e3c2e5f23a6ba0ab90f4ff")
-        sock.sendall(rpc.PREFACE + rpc._Connection._frame(rpc.SETTINGS, 0, 0)
-                     + rpc._Connection._frame(
-                         rpc.HEADERS, rpc.FLAG_END_HEADERS, 1, block))
-        sock.settimeout(5)
-        data = b""
         while True:
             chunk = sock.recv(65536)
             if not chunk:
                 break
             data += chunk
-        frames = []
-        while len(data) >= 9:
-            length_type, _, sid = struct.unpack(">IBI", data[:9])
-            length = length_type >> 8
-            frames.append((length_type & 0xFF, data[9:9 + length]))
-            data = data[9 + length:]
-        goaway = [p for t, p in frames if t == rpc.GOAWAY]
+            while len(data) >= 9:
+                length_type, flags, sid = struct.unpack(">IBI", data[:9])
+                length = length_type >> 8
+                if len(data) < 9 + length:
+                    break
+                out.append((length_type & 0xFF, flags, sid,
+                            data[9:9 + length]))
+                data = data[9 + length:]
+            last = out[-1] if out else None
+            if not until_close and last is not None and last[2] == 1 and (
+                    last[0] == rpc.RST_STREAM or last[1] & rpc.FLAG_END_STREAM):
+                break
+    finally:
+        sock.close()
+    return out
+
+
+def _answer(frames):
+    """(grpc-status, or the RST_STREAM code of a stream reset before an
+    answer; the message) of stream 1."""
+    d = rpc.Decoder()
+    fields, body = {}, b""
+    for ftype, _, sid, payload in frames:
+        if ftype == rpc.HEADERS:
+            block = rpc._Connection._unpad(0, payload)
+            fields.update(d.decode(block))
+        elif ftype == rpc.DATA and sid == 1:
+            body += payload
+        elif ftype == rpc.RST_STREAM and sid == 1:
+            if "grpc-status" in fields:
+                break             # a reset after the answer (NO_ERROR)
+            return f"reset {struct.unpack('>I', payload)[0]}", None
+    return fields.get("grpc-status"), body[5:] if body else None
+
+
+def test_peer_sending_huffman_gets_goaway_compression_error(tmp_path):
+    """A raw client sends C.4.1's Huffman-coded header block (a GET of
+    ``/``): the port's server decodes it and answers UNIMPLEMENTED (12),
+    no GOAWAY. A Huffman string with 11 bits of padding is a decoding
+    error: GOAWAY with COMPRESSION_ERROR (9), and the connection
+    closes."""
+    server = rpc.server(ThreadPoolExecutor(1))
+    address = f"unix:{tmp_path}/h.sock"
+    server.add_insecure_port(address)
+    server.start()
+    frame = rpc._Connection._frame
+    try:
+        block = bytes.fromhex("828684418cf1e3c2e5f23a6ba0ab90f4ff")
+        frames = _raw_frames(tmp_path / "h.sock", [frame(
+            rpc.HEADERS, rpc.FLAG_END_HEADERS | rpc.FLAG_END_STREAM, 1,
+            block)])
+        assert not [f for f in frames if f[0] == rpc.GOAWAY]
+        assert _answer(frames) == (str(rpc.StatusCode.UNIMPLEMENTED.value),
+                                   None)
+        bad = hpack_huffman.encode(b"www.example.com") + b"\xff"
+        block = bytes.fromhex("82868441") + bytes([0x80 | len(bad)]) + bad
+        frames = _raw_frames(tmp_path / "h.sock", [frame(
+            rpc.HEADERS, rpc.FLAG_END_HEADERS, 1, block)], until_close=True)
+        goaway = [f[3] for f in frames if f[0] == rpc.GOAWAY]
         assert len(goaway) == 1
         assert struct.unpack(">II", goaway[0][:8])[1] == rpc.COMPRESSION_ERROR
-        sock.close()
     finally:
         server.stop(None)
 
@@ -213,10 +342,14 @@ def _handler(mod):
 
 
 class _Pair:
-    """A server of one package and a channel of another on one address."""
+    """A server of one package and a channel of another on one address;
+    ``compression`` builds the grpcio server or channel with it."""
 
-    def __init__(self, server_mod, client_mod, transport, tmp_path):
-        self.server = server_mod.server(ThreadPoolExecutor(4))
+    def __init__(self, server_mod, client_mod, transport, tmp_path,
+                 server_compression=None, channel_compression=None):
+        self.server = server_mod.server(ThreadPoolExecutor(4), **(
+            {"compression": server_compression} if server_compression
+            else {}))
         self.server.add_generic_rpc_handlers((_handler(server_mod),))
         if transport == "unix":
             address = f"unix:{tmp_path}/{server_mod.__name__[-4:]}.sock"
@@ -226,12 +359,18 @@ class _Pair:
             address = f"127.0.0.1:{port}"
         self.server.start()
         self.client_mod = client_mod
-        self.channel = client_mod.insecure_channel(address)
+        self.address = address
+        self.channel = client_mod.insecure_channel(address, **(
+            {"compression": channel_compression} if channel_compression
+            else {}))
 
-    def call(self, method, request, timeout=30.0):
-        """(status name, response or None)"""
+    def call(self, method, request, timeout=30.0, compression=None):
+        """(status name, response or None); ``compression`` is a grpcio
+        client's per-call compression."""
+        kwargs = {"compression": compression} if compression else {}
         try:
-            out = self.channel.unary_unary(method)(request, timeout=timeout)
+            out = self.channel.unary_unary(method)(request, timeout=timeout,
+                                                   **kwargs)
             return "OK", out
         except self.client_mod.RpcError as e:
             return e.code().name, None
@@ -455,3 +594,176 @@ def test_reconnect_backoff_and_wait_for_ready(tmp_path):
         server.stop(None)
     with pytest.raises(ValueError, match="unsupported channel options"):
         rpc.insecure_channel(address, options=[("grpc.max_send", 1)])
+
+
+# ---- Huffman-coded headers and compressed messages ----
+
+def _huffman_request(method, message, encoding=None, flag=0, indexed=False):
+    """A request's HEADERS and DATA frames on stream 1 whose header
+    strings are all Huffman-coded, as literals with incremental indexing
+    (``indexed``) or without."""
+    fields = [(":method", "POST"), (":scheme", "http"), (":path", method),
+              (":authority", "localhost"),
+              ("content-type", "application/grpc"), ("te", "trailers")]
+    if encoding is not None:
+        fields.append(("grpc-encoding", encoding))
+    block = bytearray()
+    for name, value in fields:
+        block.append(0x40 if indexed else 0x00)
+        for text in (name, value):
+            coded = hpack_huffman.encode(text.encode("latin-1"))
+            block += rpc._encode_int(len(coded), 7, 0x80) + coded
+    frame = rpc._Connection._frame
+    return [frame(rpc.HEADERS, rpc.FLAG_END_HEADERS, 1, bytes(block)),
+            frame(rpc.DATA, rpc.FLAG_END_STREAM, 1,
+                  struct.pack(">BI", flag, len(message)) + message)]
+
+
+def _servers(tmp_path, mods=(rpc, grpc)):
+    out = {}
+    for mod in mods:
+        server = mod.server(ThreadPoolExecutor(2))
+        server.add_generic_rpc_handlers((_handler(mod),))
+        path = tmp_path / f"{mod.__name__[-4:]}.sock"
+        server.add_insecure_port(f"unix:{path}")
+        server.start()
+        out[mod] = (server, path)
+    return out
+
+
+def test_raw_huffman_headers_get_the_same_answers(tmp_path):
+    """Requests whose header strings are all Huffman-coded, raw and as
+    incrementally indexed literals: the same answers from a grpcio server
+    and a port server (an echo, a method nobody serves)."""
+    servers = _servers(tmp_path)
+    try:
+        answers = {}
+        for mod, (_, path) in servers.items():
+            answers[mod] = [_answer(_raw_frames(path, _huffman_request(
+                method, body, indexed=indexed)))
+                for method, body in (("/t.T/Echo", b"huffman"),
+                                     ("/t.T/Nobody", b""))
+                for indexed in (False, True)]
+        assert answers[rpc] == answers[grpc]
+        assert answers[rpc][:2] == [("0", b"huffman")] * 2
+        assert [a[0] for a in answers[rpc][2:]] == ["12", "12"]
+    finally:
+        for server, _ in servers.values():
+            server.stop(None)
+
+
+def _dir(tmp_path, mod, role):
+    path = tmp_path / f"{role}-{mod.__name__.rsplit('.', 1)[-1]}"
+    path.mkdir()
+    return path
+
+
+def _gzip(data, wbits=31):
+    c = zlib.compressobj(6, zlib.DEFLATED, wbits)
+    return c.compress(data) + c.flush()
+
+
+def test_raw_encodings_get_grpcio_answers(tmp_path):
+    """A raw client's message under each ``grpc-encoding``: gzip and
+    deflate bodies are read, a flagged message under the identity
+    encoding is read as it stands and a corrupt gzip body is INTERNAL,
+    on both servers. An encoding neither reads: UNIMPLEMENTED from the
+    port (the gRPC spec's answer), a stream reset with INTERNAL_ERROR
+    (2) from grpcio 1.76, whose header parser refuses the value."""
+    servers = _servers(tmp_path)
+    cases = [("gzip", 1, _gzip(b"zipped")), ("deflate", 1,
+                                             zlib.compress(b"deflated")),
+             ("gzip", 0, b"plain"), ("identity", 1, b"flagged"),
+             (None, 1, b"flagged"), ("gzip", 1, b"not gzip"),
+             ("gzip", 1, _gzip(b"cut")[:-4])]
+    try:
+        got = {mod: [_answer(_raw_frames(path, _huffman_request(
+            "/t.T/Echo", body, encoding, flag))) for encoding, flag, body
+            in cases] for mod, (_, path) in servers.items()}
+        assert got[rpc] == got[grpc]
+        assert got[rpc] == [("0", b"zipped"), ("0", b"deflated"),
+                            ("0", b"plain"), ("0", b"flagged"),
+                            ("0", b"flagged"), ("13", None), ("13", None)]
+        assert _answer(_raw_frames(servers[rpc][1], _huffman_request(
+            "/t.T/Echo", b"x", "br", 1))) == ("12", None)
+        assert _answer(_raw_frames(servers[grpc][1], _huffman_request(
+            "/t.T/Echo", b"x", "br", 1))) == ("reset 2", None)
+    finally:
+        for server, _ in servers.values():
+            server.stop(None)
+
+
+COMPRESSIBLE = {LIMIT: b"z" * LIMIT, LIMIT + 1: b"z" * (LIMIT + 1)}
+
+
+@pytest.mark.parametrize("compression", ["Gzip", "Deflate"])
+def test_grpcio_client_compressing_calls_port_server(compression, tmp_path):
+    """A grpcio client compressing each call, and a grpcio channel built
+    with the compression: a port server answers as a grpcio server does,
+    the limit applying to the decompressed size (4,194,304 B OK,
+    4,194,305 B RESOURCE_EXHAUSTED; compressible payloads, a few KB on
+    the wire)."""
+    algo = getattr(grpc.Compression, compression)
+    seen = []
+    message = rpc._message
+
+    def spy(stream, encoding=None):
+        seen.append((encoding, stream.data[0]))
+        return message(stream, encoding)
+
+    pairs = {mod: _Pair(mod, grpc, "unix", _dir(tmp_path, mod, "call"))
+             for mod in (rpc, grpc)}
+    channels = {mod: _Pair(mod, grpc, "unix", _dir(tmp_path, mod, "channel"),
+                           channel_compression=algo) for mod in (rpc, grpc)}
+    try:
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(rpc, "_message", spy)
+            got = {mod: [p.call("/t.T/Echo", COMPRESSIBLE[n], compression=algo)
+                         for n in (LIMIT, LIMIT + 1)]
+                   + [channels[mod].call("/t.T/Echo", b"y" * 101_000)]
+                   for mod, p in pairs.items()}
+        assert [g[0] for g in got[rpc]] == [g[0] for g in got[grpc]] == [
+            "OK", "RESOURCE_EXHAUSTED", "OK"]
+        assert got[rpc][0][1] == COMPRESSIBLE[LIMIT]
+        assert got[rpc][2][1] == b"y" * 101_000
+        want = compression.lower()
+        assert [e for e, flag in seen] == [want] * 3
+        assert all(flag == 1 for _, flag in seen)
+    finally:
+        for p in list(pairs.values()) + list(channels.values()):
+            p.close()
+
+
+def test_port_client_calls_compressing_grpcio_server(tmp_path):
+    """A grpcio server built with ``compression=Gzip`` compresses what it
+    sends to a client that accepts gzip: the port's client reads it, and
+    ends with the codes a grpcio client gets (4,194,304 B OK, 4,194,305 B
+    RESOURCE_EXHAUSTED), random payloads included (grpcio then sends them
+    uncompressed)."""
+    seen = []
+    message = rpc._message
+
+    def spy(stream, encoding=None):
+        seen.append((encoding, stream.data[0], len(stream.data)))
+        return message(stream, encoding)
+
+    pairs = {mod: _Pair(grpc, mod, "unix", _dir(tmp_path, mod, "client"),
+                        server_compression=grpc.Compression.Gzip)
+             for mod in (rpc, grpc)}
+    try:
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(rpc, "_message", spy)
+            got = {mod: [p.call("/t.T/Sized", str(n).encode())
+                         for n in (LIMIT, LIMIT + 1, 300)]
+                   + [p.call("/t.T/Echo", os.urandom(LIMIT))]
+                   for mod, p in pairs.items()}
+        assert [g[0] for g in got[rpc]] == [g[0] for g in got[grpc]] == [
+            "OK", "RESOURCE_EXHAUSTED", "OK", "OK"]
+        assert got[rpc][0][1] == got[grpc][0][1]
+        assert got[rpc][2][1] == bytes(range(256)) + b"z" * 44
+        # the Sized answers arrived gzipped, a few KB for 4 MiB
+        assert [(e, flag) for e, flag, _ in seen[:3]] == [("gzip", 1)] * 3
+        assert seen[0][2] < 100_000
+    finally:
+        for p in pairs.values():
+            p.close()
