@@ -185,7 +185,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
    ``/metrics`` carrying ``karpenter_solver_mesh_devices 8.0`` and linting
    clean. The shard pack's D·B kernel rows and the merge's rows of (a)'s
    pipelined cold solve are held exactly against the plain version and
-   timed in phase 19;
+   timed in phase 20;
 14. remote: the remote solver over the port's own gRPC wire
    (``parallel/rpc.py``). (a) ``python -m
    karpenter_provider_aws_tpu_torch.parallel.sidecar`` as its own process
@@ -210,7 +210,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
    (b) Two in-process ``ChaosSidecar``s on the card, each with its own
    resident Solver: one cfg2 Solve RPC must launch the kernel exactly
    once; its inputs, captured, are held exactly against the plain version
-   and timed in phase 19. (c) ``SolverPool``s over the two, one fresh pool
+   and timed in phase 20. (c) ``SolverPool``s over the two, one fresh pool
    a step after a warm solve: one endpoint killed, hung (against a
    ``REMOTE_HANG_DEADLINE`` solve deadline), answering junk, both killed,
    and cfg3 (10,000 pods, 5.1 MB, over the 4 MiB message limit): each
@@ -243,14 +243,26 @@ Phases, in order; any failure exits non-zero and prints no result line:
    ``ffd.cc`` into the port's ``_build/`` (never ``native/libffd.so``),
    run on cfg5: its node count and cost must equal the Python
    ``ffd_oracle``'s (cost within 1e-5 relative); both are timed;
-18. device lost: a child process runs an Operator with cfg10's 20,000
+18. bench: the port's bench (``karpenter_provider_aws_tpu_torch/bench.py``,
+   the rows of the repository's ``bench.py``). (a) ``python -m
+   karpenter_provider_aws_tpu_torch.bench --smoke`` as a child process
+   must exit 0 with the cfg1 row as its last line, its ``detail.device``
+   naming this card. (b) The north-star cfg5 row in this process through
+   the bench's ``run_config`` at ``BENCH_ITERS`` iterations with
+   ``kernel_parity_check``: 1,840 new nodes at $2938.00/hr as phase 4's
+   plan, 0 unschedulable, ``cost_vs_ffd_oracle`` at most 1.02, both
+   referees ``native`` (a ``python`` referee means the native build failed
+   here), the kernel parity checked with prices and choices identical, and
+   the kernel's launch count risen by exactly the row's solves (one
+   launch each) plus the parity check's one;
+19. device lost: a child process runs an Operator with cfg10's 20,000
    pending pods through the CLI's loop (``cli.run_passes``); the first
    pack first indexes a CUDA tensor out of range (a device-side assert,
    patched in the child). The child must exit with ``EXIT_DEVICE_LOST``
    right after that pass, with no pass after the error (or, were the
    context to recover, go on planning and exit 0); it prints whether a
    one-element op still runs;
-19. kernel timing: the kernel and its plain version at cfg5's and cfg10's
+20. kernel timing: the kernel and its plain version at cfg5's and cfg10's
    own inputs (captured in a solve of each), at the first consolidation
    pass's probe dispatch (K x B rows in one call), at cfg7's last wave, at
    cfg11's shard pack (D·B rows) and merge, at cfg2's Solve RPC in a
@@ -264,7 +276,7 @@ and after each phase each must have no FaultInjector attached and exactly
 the ``degraded_counts`` its phase allowed (none but cfg7's wave split, the
 injected rungs and the remote phase's two dark pools). A real CUDA fault
 is retried and then raises (``DeviceLostError`` when it took the
-context, as phase 18 shows), failing its phase.
+context, as phase 19 shows), failing its phase.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``. The script imports
@@ -307,8 +319,10 @@ REMOTE_HEALTH_CALLS = 20   # Health RPCs timed
 REMOTE_WINDOW_THREADS = 8  # concurrent Solve RPCs into the solve window
 REMOTE_CHURN = 250         # pods that leave and arrive before the second pass
 WARM_LATER_SOLVES = 5      # cfg5 solves timed after a child's first one
-CHILD_SECONDS = 600        # a child process of phases 15 and 18 must end in this
+CHILD_SECONDS = 600        # a child process of phases 15 and 19 must end in this
 PROFILED_SOLVES = 2        # cfg5 solves inside the profiling session
+BENCH_ITERS = 3            # timed solves of the bench phase's cfg5 row
+BENCH_SMOKE_SECONDS = 300  # the bench's --smoke child must end in this
 DEVICE_LOST_SECONDS = 120  # the sticky-error child's run_passes deadline
 # the failover steps, each on a fresh pool over the two sidecars after one
 # warm cfg2 solve: step -> (fault on the sidecars, problem of the solve)
@@ -2947,8 +2961,8 @@ def _failover_steps(make_pool, sidecars, problems, deadlines, deadline,
         yield step, row, plan, wall_ms
 
 
-# ---- phases 15-18: warm start, profiling, the native referee and the
-# sticky device error (their child processes run this file with a mode)
+# ---- phases 15-17 and 19: warm start, profiling, the native referee and
+# the sticky device error (their child processes run this file with a mode)
 
 _CHILD_MODES = ("--cold-first-solve", "--warm-first-solve",
                 "--cold-profiled-solve", "--device-lost")
@@ -3305,8 +3319,78 @@ def _native(problem):
             "python_cost": py.new_node_cost, "rel_cost_diff": rel}
 
 
+def _bench(torch, lattice, oa, cpu_plan):
+    """Phase 18: the port's bench: its ``--smoke`` child, then the cfg5
+    row in this process with the kernel parity check, its launches
+    counted. Returns (the phase's record, the row's launches)."""
+    import subprocess
+    from karpenter_provider_aws_tpu_torch import bench, workloads
+    from karpenter_provider_aws_tpu_torch.solver import Solver
+    t = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, "-m", "karpenter_provider_aws_tpu_torch.bench",
+         "--smoke"], cwd=HERE, capture_output=True, text=True,
+        timeout=BENCH_SMOKE_SECONDS)
+    smoke_s = time.perf_counter() - t
+    lines = child.stdout.strip().splitlines()
+    if child.returncode != 0 or not lines:
+        raise AssertionError(f"bench --smoke: rc {child.returncode}\n"
+                             f"{child.stdout[-2000:]}\n{child.stderr[-3000:]}")
+    smoke = json.loads(lines[-1])
+    name = torch.cuda.get_device_name(0)
+    if smoke.get("metric") != "e2e_p50_latency_cfg1_100pods_parity" \
+            or smoke["detail"]["device"].get("name") != name:
+        raise AssertionError(f"bench --smoke: last line {lines[-1]}")
+    print(f"bench --smoke: {smoke_s:.1f} s, cfg1 e2e p50 {smoke['value']} ms, "
+          f"device {smoke['detail']['device']}", flush=True)
+
+    solver = Solver(lattice)
+    oa.LAUNCHES = 0
+    t = time.perf_counter()
+    _, row = bench.run_config("cfg5_50k_full_lattice",
+                              workloads.config5_full_scale, lattice, solver,
+                              also_uncapped=True, iters=BENCH_ITERS)
+    row_launches = oa.LAUNCHES
+    row["kernel_parity"] = bench.kernel_parity_check(lattice, solver.device)
+    row_s = time.perf_counter() - t
+    launches = oa.LAUNCHES
+    parity_launches = launches - row_launches
+    solves = BENCH_ITERS + 1   # the cold solve and the timed ones
+    print(f"bench cfg5 row: {row_s:.1f} s; {json.dumps(row)}", flush=True)
+    want = {"new_nodes": len(cpu_plan.new_nodes),
+            "plan_cost_per_hour": round(cpu_plan.new_node_cost, 2),
+            "unschedulable": 0, "referee": "native",
+            "uncapped_referee": "native"}
+    got = {k: row.get(k) for k in want}
+    if got != want or (want["new_nodes"], want["plan_cost_per_hour"]) \
+            != (1840, 2938.00):
+        raise AssertionError(f"bench cfg5 row: {got}, want {want}")
+    if not row["cost_vs_ffd_oracle"] <= 1.02:
+        raise AssertionError(f"bench cfg5 row: cost_vs_ffd_oracle "
+                             f"{row['cost_vs_ffd_oracle']}")
+    kp = row["kernel_parity"]
+    if not (kp.get("checked") and kp.get("prices_identical")
+            and kp.get("choices_identical")):
+        raise AssertionError(f"bench cfg5 row: kernel parity {kp}")
+    if row["device"].get("name") != name:
+        raise AssertionError(f"bench cfg5 row: device {row['device']}")
+    # the row counts its own launches; the parity check's are the rest
+    if row["kernel_launches"] != row_launches or row_launches != solves \
+            or parity_launches != 1:
+        raise AssertionError(
+            f"bench cfg5 row: {row['kernel_launches']} launches counted by "
+            f"the row, {row_launches} by the phase, for {solves} solves; "
+            f"{parity_launches} by the parity check, want 1")
+    print(f"bench cfg5 row: {launches} kernel launches ({row_launches} over "
+          f"{solves} solves + {parity_launches} parity check)", flush=True)
+    return {"smoke_seconds": smoke_s, "smoke_row": smoke, "cfg5_row": row,
+            "cfg5_row_seconds": row_s, "launches": launches,
+            "row_launches": row_launches, "parity_launches": parity_launches,
+            "solves": solves}, launches
+
+
 def _device_lost():
-    """Phase 18: the sticky-error child (``_child_device_lost``)."""
+    """Phase 19: the sticky-error child (``_child_device_lost``)."""
     from karpenter_provider_aws_tpu_torch import cli
     rc, res, tail = _child_result("--device-lost")
     print(f"device lost: child exit code {rc}; {res}", flush=True)
@@ -3558,11 +3642,16 @@ def _run(torch) -> int:
     _phase("native: the C++ FFD referee on cfg5 against the Python oracle")
     native = _native(problem)
 
-    # ---- 18. a sticky device error in a child process
+    # ---- 18. the port's bench: its --smoke child and the cfg5 row
+    _phase("bench: the bench's --smoke child and its cfg5 row with kernel parity")
+    bench_phase, launches["bench_cfg5_row"] = _bench(torch, lattice, oa, cpu_plan)
+    _check_solvers(torch, "bench")
+
+    # ---- 19. a sticky device error in a child process
     _phase("device lost: a device-side assert in an Operator's pass")
     device_lost = _device_lost()
 
-    # ---- 19. kernel times: the main paths' own inputs, the dense largest
+    # ---- 20. kernel times: the main paths' own inputs, the dense largest
     # bucket, the launch floor
     _phase("kernel timing")
     solver = Solver(lattice)
@@ -3644,6 +3733,12 @@ def _run(torch) -> int:
                 warm_start["warm-first-solve"]["warmup_buckets"], 1)},
         "cfg5_profiled": {"launches": launches["cfg5_profiled"],
                           "launches_per_solve": profiling["launches_per_solve"]},
+        "bench_cfg5_row": {"launches": launches["bench_cfg5_row"],
+                           "launches_per_solve": bench_phase["row_launches"]
+                           / bench_phase["solves"],
+                           "solves": bench_phase["solves"],
+                           "parity_check_launches":
+                               bench_phase["parity_launches"]},
         "dense": timed["dense"],
     }], "cfg5": cfg5, "cfg10": {k: v for k, v in steady.items()
                                 if k != "launches_per_pass"},
@@ -3652,6 +3747,7 @@ def _run(torch) -> int:
         "mesh": mesh, "remote": {k: v for k, v in remote.items()
                                  if k != "max_abs_err"},
         "warm_start": warm_start, "profiling": profiling, "native": native,
+        "bench": bench_phase,
         "device_lost": device_lost,
         "provisioner": {"cfg5_wave": prov["cfg5_wave"],
                         "cfg10_first_wave": prov["cfg10_first_wave"],

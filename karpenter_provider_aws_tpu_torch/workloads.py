@@ -1,11 +1,12 @@
 """The benchmark workloads, for this package.
 
-Copies of the repository's ``bench.py`` generators ``config1``–``config5``
-and ``config10`` with the same seeds, written against this package's own
-API objects, so ``chip_smoke.py`` and the tests can build them without the
-JAX package. ``config1``–``config5`` return ``(pods, node_pools,
-existing_bins)``; the same seed gives the same pods, pools and bins as
-``bench.py``.
+Copies of the repository's ``bench.py`` generators ``config1``–``config7``,
+``config9``–``config11`` and ``build_bench_problem`` with the same seeds,
+written against this package's own API objects, so ``chip_smoke.py``, the
+port's bench (``bench.py`` in this package) and the tests can build them
+without the JAX package. ``config1``–``config7`` return ``(pods,
+node_pools, existing_bins)``; the same seed gives the same pods, pools and
+bins as ``bench.py``.
 
 ``config5_full_scale`` is the north-star wave: 50k pending pods over the
 real 759-type catalog (``real_lattice``) and three NodePools.
@@ -194,6 +195,31 @@ def config5_full_scale():
     return pods, pools, []
 
 
+def config6_ffd_beat():
+    """The beat wave (``bench.config6_ffd_beat``): 20,000 tiny pods (50m,
+    96Mi: bound by the pods axis), 2,000 mid-size pods and 400 one-GPU
+    pods, one default NodePool. Its bench row referees the uncapped
+    problem (``narrow=False``), the one the reference's scheduler packs."""
+    from .apis import Pod
+    pods = [Pod(name=f"w{i}", requests={"cpu": "50m", "memory": "96Mi"})
+            for i in range(20000)]
+    pods += [Pod(name=f"m{i}", requests={"cpu": "1", "memory": "2Gi"})
+             for i in range(2000)]
+    pods += [Pod(name=f"g{i}", requests={"cpu": "2", "memory": "8Gi",
+                                         "nvidia.com/gpu": 1})
+             for i in range(400)]
+    return pods, _pools_default(), []
+
+
+def build_bench_problem():
+    """``bench.build_bench_problem``: the cfg5 problem over the synthetic
+    catalog. Returns ``(lattice, problem, pod_count)``."""
+    from .lattice import build_lattice
+    from .solver.problem import build_problem
+    pods, pools, existing = config5_full_scale()
+    lattice = build_lattice()
+    return lattice, build_problem(pods, pools, lattice, existing=existing), len(pods)
+
 
 def config7_highG_wave_split():
     """The adversarial-diversity wave (``bench.config7_highG_wave_split``):
@@ -303,15 +329,19 @@ class SteadyStateChurn:
     """cfg10's existing nodes and churn, as ``bench.run_microloop_config``
     makes them from one generator (seed 14): first 120 existing nodes at
     20 % usage over the 4 cheapest non-accelerator types with at least 8
-    vCPUs, then, per pass, ``churn``.
+    vCPUs, then, per pass, ``churn``. ``bench.run_steady_state_config``
+    draws the same from seed 11 with every pass churned
+    (``nochurn_every=0``).
 
     ``pods`` and ``existing`` are the current cluster; ``churn`` changes
     them in place and returns what a cluster journal would report."""
 
-    def __init__(self, lattice, pods, shapes, seed: int = 14):
+    def __init__(self, lattice, pods, shapes, seed: int = 14,
+                 nochurn_every: int = STEADY_NOCHURN_EVERY):
         from .apis.resources import RESOURCE_AXES
         from .solver.problem import ExistingBin
         self._rng = rng = np.random.default_rng(seed)
+        self.nochurn_every = nochurn_every
         self.pods = list(pods)
         self.shapes = shapes
         self._serial = 0
@@ -333,13 +363,15 @@ class SteadyStateChurn:
                 capacity_type="on-demand", used=used))
 
     def churn(self, pass_i: int):
-        """Pass ``pass_i``: unless it is a no-churn pass, about 1.5 % of
-        the pods leave, as many arrive (drawn from ``shapes``) and two
-        existing nodes gain 0.25 of their first resource. Returns
-        ``(touched, nochurn)``: ``touched`` maps each churned pod name to
-        ``("gone", None)`` or ``("pending", pod)``."""
+        """Pass ``pass_i``: unless it is a no-churn pass (every
+        ``nochurn_every``-th; none when it is 0), about 1.5 % of the pods
+        leave, as many arrive (drawn from ``shapes``) and two existing
+        nodes gain 0.25 of their first resource. Returns ``(touched,
+        nochurn)``: ``touched`` maps each churned pod name to ``("gone",
+        None)`` or ``("pending", pod)``."""
         from .apis import Pod
-        nochurn = (pass_i % STEADY_NOCHURN_EVERY) == STEADY_NOCHURN_EVERY - 1
+        every = self.nochurn_every
+        nochurn = bool(every) and pass_i % every == every - 1
         if nochurn:
             return {}, True
         rng = self._rng

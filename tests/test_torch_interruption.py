@@ -4,11 +4,14 @@ the JAX package's, on the CPU.
 Every test of the JAX package's ``tests/test_interruption.py`` (the four
 message schemas and the parser, spot interruption, rebalance, scheduled
 change, the message and core metric series, the cloud-provider
-decoration, the Prometheus rendering) is replayed on both packages by
-``test_torch_replay``: the test's own checks run on each, and the two
-must make the same claims, events, cloud calls, queue contents and
-metric series (tolerances in ``test_torch_replay``; everything else
-exact). The one exception is named in ``NOT_REPLAYED``.
+decoration, the Prometheus rendering, the throughput harness) is replayed
+on both packages by ``test_torch_replay``: the test's own checks run on
+each, and the two must make the same claims, events, cloud calls, queue
+contents and metric series (tolerances in ``test_torch_replay``;
+everything else exact). The throughput harness imports the repository's
+``tools/bench_interruption.py``; on the port side ``SHIMS`` point it at the
+port's copy (``karpenter_provider_aws_tpu_torch/tools``) with its
+Operator on the CPU. No test is left out (``NOT_REPLAYED`` is empty).
 """
 
 import pytest
@@ -16,17 +19,18 @@ import pytest
 import test_torch_replay as replay
 
 FILE = "test_interruption.py"
-NOT_REPLAYED = {
-    # imports tools/bench_interruption.py, which builds the JAX package's
-    # Operator; a port copy of the tools comes with them
-    "test_interruption.py::TestThroughputHarness::test_drain_2000_messages":
-        "A12 (tools)",
-}
+NOT_REPLAYED = {}
+SHIMS = (
+    ("from tools.bench_interruption import build_env, drain, seed_messages",
+     "from karpenter_provider_aws_tpu_torch.tools.bench_interruption "
+     "import build_env, drain, seed_messages"),
+    ("env = build_env(lattice)", "env = build_env(lattice, device='cpu')"),
+)
 
 
 @pytest.mark.parametrize("test_id", replay.replayed(FILE, NOT_REPLAYED))
 def test_interruption_equal_to_jax(test_id, tmp_path):
-    replay.replay(FILE, test_id, tmp_path)
+    replay.replay(FILE, test_id, tmp_path, shims=SHIMS)
 
 
 def test_interruption_replays_cover_the_jax_tests():

@@ -121,6 +121,23 @@ def test_guard_covers_the_native_referee_and_every_jax_module():
                                    "native_ffd_pack"}
 
 
+def test_guard_covers_the_bench_and_its_tools():
+    """The import guards above check the port's bench and its host-side
+    benches, and no file of the port, nor chip_smoke.py, imports the
+    repository's ``bench.py`` or ``tools/`` (both import the JAX
+    package)."""
+    mods = {_module_name(p) for p in PORT_FILES}
+    port = "karpenter_provider_aws_tpu_torch"
+    for name in ("bench", "tools", "tools.bench_interruption",
+                 "tools.bench_explain", "tools.bench_headroom",
+                 "tools.churn", "tools.overhead_order", "tools.profile_run"):
+        assert f"{port}.{name}" in mods, name
+    bad = {str(p.relative_to(REPO)): n for p in CHECKED_FILES
+           for n in _imported_names(p)
+           if n in ("bench", "tools") or n.startswith("tools.")}
+    assert not bad, bad
+
+
 def test_every_module_imports_without_jax():
     """Every port module imports in a fresh process where importing jax,
     the JAX package, jsonschema or grpc fails."""
