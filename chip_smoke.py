@@ -130,13 +130,15 @@ Phases, in order; any failure exits non-zero and prints no result line:
    replay its timeline byte for byte. It prints the pass wall p50 split
    by controller, the rung each provisioning pass took and the fleet's
    $/hr before and after;
-12. api: the API stratum on the card. (a) The cfg5 wave in API mode: a
+12. api: the API stratum on the card. (a) The cfg5 wave in API mode, every
+   ``API_POD_STRIDE``-th pod (12,500 of its 50,000; cut so that the
+   whole script keeps to its time with the tools phase): a
    ``FakeAPIServer`` with its indexes and admission, served over HTTP
    with a bearer token (``kube.httpserver.serve``), and an
    ``Operator(api_server=...)`` with no device, so on ``cuda``, over a
    fresh real catalog and ``workloads.wave_cloud``. The three NodePools
    and the first ``API_REST_PODS`` pods are POSTed over REST, the other
-   49,000 enter through ``KubeClient.create_pods`` (the bulk verb), and a
+   11,500 enter through ``KubeClient.create_pods`` (the bulk verb), and a
    watch on ``GET /apis/pods?watch=1`` runs over HTTP in a thread. The
    informers sync, one forced ``run_once`` plans, and registration
    passes (sync, lifecycle, sync) bind. The phase fails unless every pod
@@ -262,7 +264,31 @@ Phases, in order; any failure exits non-zero and prints no result line:
    right after that pass, with no pass after the error (or, were the
    context to recover, go on planning and exit 0); it prints whether a
    one-element op still runs;
-20. kernel timing: the kernel and its plain version at cfg5's and cfg10's
+20. tools: the operator's tools and entry points of the port. (a) The
+   entry module (``entry.py``, the counterpart of ``__graft_entry__``):
+   ``entry()``'s pack on the card must launch the kernel exactly once and
+   equal the same call on the CPU field for field; ``dryrun_multichip(8)``
+   on the card must plan every mesh size, the overflow retry and the
+   probe batch as on the CPU. (b) The port's CLI as a child process on
+   the card (``--api-port``, the async runtime; the child counts the
+   kernel launches of every provisioning pass and prints them), driven
+   by ``python -m karpenter_provider_aws_tpu_torch.tools.kpctl``:
+   ``apply -f examples/general-purpose.yaml``, ``apply`` of
+   ``TOOLS_CLI_PODS`` of cfg10's pods on that pool, every pod bound,
+   ``get nodeclaims/nodes/pods -o json`` equal to the CPU plan of the
+   same pods under the pools as admitted (node by node), ``top --once``
+   with the card in its SOLVER row, and ``explain pod`` on one pod; every
+   provisioning pass with pending pods must launch the kernel. (c) The
+   soak (``python -m karpenter_provider_aws_tpu_torch.tools.soak
+   --minutes 1.5 --weather squall --fault-schedule`` with one
+   ``device-error`` and a ``clear``) on the card: its weather artifact
+   must show no pending pod, no leaked instance, no orphaned lease, a
+   cost burn of at most 1.0, the ladder engaged and a timeline
+   byte-identical to its replay; the soak's exit code and each of its
+   gates are printed, and a failed gate other than a latency gate
+   (``SOAK_LATENCY_GATES``, which this host's speed alone can fail) fails
+   the phase;
+21. kernel timing: the kernel and its plain version at cfg5's and cfg10's
    own inputs (captured in a solve of each), at the first consolidation
    pass's probe dispatch (K x B rows in one call), at cfg7's last wave, at
    cfg11's shard pack (D·B rows) and merge, at cfg2's Solve RPC in a
@@ -302,7 +328,7 @@ LADDER_PASSES = 4          # cfg10 steady passes of the mid-microloop fault
 LADDER_FAULT_PASS = 1      # the pass the fault lands on
 WEATHER_RECOVERY = 40      # recovery passes after the squall
 API_WATCH_QUEUE_BOUND = 1 << 18  # per-watcher queue: the wave's 100k events
-API_POD_STRIDE = 1         # the api phase's cut of the cfg5 wave (1 = whole)
+API_POD_STRIDE = 4         # the api phase's cut of the cfg5 wave (1 = whole)
 API_REST_PODS = 1000       # of them POSTed one by one over REST
 API_CLI_PODS = 2000        # cfg10's pods POSTed to the CLI over REST
 API_CLI_STOP_SECONDS = 30  # main must return this soon after its stop event
@@ -323,6 +349,16 @@ CHILD_SECONDS = 600        # a child process of phases 15 and 19 must end in thi
 PROFILED_SOLVES = 2        # cfg5 solves inside the profiling session
 BENCH_ITERS = 3            # timed solves of the bench phase's cfg5 row
 BENCH_SMOKE_SECONDS = 300  # the bench's --smoke child must end in this
+TOOLS_CLI_PODS = 2000      # cfg10's pods applied to the CLI child with kpctl
+TOOLS_CLI_SECONDS = 300    # the CLI child must serve, bind and stop in this
+# 1.5 minutes: the squall's evidence gate (more than 100 real interruption
+# messages handled) needs that much churn; one minute handled 88 to 100-odd
+TOOLS_SOAK_ARGS = ("--minutes", "1.5", "--weather", "squall",
+                   "--fault-schedule", "10:device-error,40:clear")
+TOOLS_SOAK_SECONDS = 600   # the soak child must end in this
+# the soak's gates that only this host's speed can fail: the SLO latency
+# burn over the run (a pass slower than the 200 ms budget for long enough)
+SOAK_LATENCY_GATES = ("soak: sustained latency burn",)
 DEVICE_LOST_SECONDS = 120  # the sticky-error child's run_passes deadline
 # the failover steps, each on a fresh pool over the two sidecars after one
 # warm cfg2 solve: step -> (fault on the sidecars, problem of the solve)
@@ -2965,7 +3001,7 @@ def _failover_steps(make_pool, sidecars, problems, deadlines, deadline,
 # the sticky device error (their child processes run this file with a mode)
 
 _CHILD_MODES = ("--cold-first-solve", "--warm-first-solve",
-                "--cold-profiled-solve", "--device-lost")
+                "--cold-profiled-solve", "--device-lost", "--tools-cli")
 
 
 def _child_result(mode: str, timeout: float = CHILD_SECONDS):
@@ -3389,6 +3425,323 @@ def _bench(torch, lattice, oa, cpu_plan):
             "solves": solves}, launches
 
 
+def _child_tools_cli(argv) -> int:
+    """The ``--tools-cli`` child of phase 20: the port's CLI (``cli.main``
+    with ``argv``), with the kernel launches of every provisioning pass
+    counted on the pass's own thread. Ends on SIGTERM; prints one JSON
+    line: each pass's pending pods, launches and pods scheduled, the
+    launches of the whole run and ``main``'s exit code."""
+    import threading
+    from karpenter_provider_aws_tpu_torch import cli
+    from karpenter_provider_aws_tpu_torch.controllers import provisioning
+    from karpenter_provider_aws_tpu_torch.ops import binpack
+    from karpenter_provider_aws_tpu_torch.ops import offering_argmin as oa
+    mine = threading.local()
+    passes = []
+    launch = binpack.cheapest_offering
+
+    def counted_launch(*a, **k):
+        before = oa.LAUNCHES
+        try:
+            return launch(*a, **k)
+        finally:
+            mine.launches = getattr(mine, "launches", 0) + oa.LAUNCHES - before
+
+    provision_once = provisioning.Provisioner.provision_once
+
+    def counted_pass(self):
+        mine.launches = 0
+        pending = len(self.cluster.pending_pods())
+        result = provision_once(self)
+        passes.append({"pending": pending, "launches": mine.launches,
+                       "scheduled": result.pods_scheduled})
+        return result
+
+    binpack.cheapest_offering = counted_launch
+    provisioning.Provisioner.provision_once = counted_pass
+    oa.LAUNCHES = 0
+    rc = cli.main(argv)
+    print(json.dumps({"tools_cli": {"passes": passes, "launches": oa.LAUNCHES,
+                                    "rc": rc}}), flush=True)
+    return 0 if rc == 0 else 1
+
+
+def _kpctl(base, *args, timeout=120):
+    """``python -m karpenter_provider_aws_tpu_torch.tools.kpctl --server
+    base *args`` from the checkout; returns its exit code and output."""
+    import subprocess
+    r = subprocess.run(
+        [sys.executable, "-m", "karpenter_provider_aws_tpu_torch.tools.kpctl",
+         "--server", base, *args], cwd=HERE, capture_output=True, text=True,
+        timeout=timeout)
+    return r.returncode, r.stdout, r.stderr
+
+
+def _tools(torch, workloads, oa):
+    """Phase 20: the entry module on the card against the CPU, the CLI as
+    a child process driven by kpctl, and the soak. Returns the phase's
+    record and its launches."""
+    import gzip
+    import signal
+    import subprocess
+    import tempfile
+    from karpenter_provider_aws_tpu_torch import entry
+    from karpenter_provider_aws_tpu_torch.apis import serde
+    from karpenter_provider_aws_tpu_torch.apis import wellknown as wk
+    from karpenter_provider_aws_tpu_torch.operator import Operator, Options
+    from karpenter_provider_aws_tpu_torch.utils.clock import FakeClock
+    out, launches = {}, {}
+    card = torch.cuda.get_device_name(0)
+
+    # (a) the entry module: one pack on the card against the CPU
+    t = time.perf_counter()
+    fn, args = entry.entry()
+    if args[0].device.type != "cuda":
+        raise AssertionError(f"tools entry: args on {args[0].device}")
+    oa.LAUNCHES = 0
+    res = fn(*args)
+    torch.cuda.synchronize()
+    launches["entry"] = oa.LAUNCHES
+    cpu_fn, cpu_args = entry.entry(device="cpu")
+    cpu_res = cpu_fn(*cpu_args)
+    fields = [(k, getattr(res, k), getattr(cpu_res, k))
+              for k in res._fields if k != "state"]
+    fields += [(f"state.{k}", getattr(res.state, k), getattr(cpu_res.state, k))
+               for k in res.state._fields]
+    differ = [k for k, a, b in fields if not torch.equal(a.cpu(), b)]
+    if differ or launches["entry"] != 1:
+        raise AssertionError(f"tools entry: {launches['entry']} launches, "
+                             f"fields differing from the CPU: {differ}")
+    oa.LAUNCHES = 0
+    dry = entry.dryrun_multichip(8)
+    torch.cuda.synchronize()
+    launches["entry_dryrun_multichip"] = oa.LAUNCHES
+    dry_cpu = entry.dryrun_multichip(8, device="cpu")
+    plans = [(f"mesh {k}", dry["mesh_plans"][k], dry_cpu["mesh_plans"][k])
+             for k in sorted(dry_cpu["mesh_plans"])]
+    plans.append(("overflow", dry["overflow_plan"], dry_cpu["overflow_plan"]))
+    differ = [n for n, a, b in plans if serde.plan_semantic_dict(a)
+              != serde.plan_semantic_dict(b)]
+    probe = [[(r.feasible, r.n_new, r.new_cost, r.new_cap_type, r.flex)
+              for r in d["probes"]] for d in (dry, dry_cpu)]
+    if differ or probe[0] != probe[1] or len(plans) != 4 \
+            or launches["entry_dryrun_multichip"] < 1:
+        raise AssertionError(f"tools dryrun_multichip: plans differing from "
+                             f"the CPU {differ}, probes {probe}, "
+                             f"{launches['entry_dryrun_multichip']} launches")
+    out["entry"] = {"pack_launches": launches["entry"],
+                    "dryrun_launches": launches["entry_dryrun_multichip"],
+                    "plans_equal": [n for n, _, _ in plans],
+                    "seconds": time.perf_counter() - t}
+    print(f"tools entry: the pack on the card == the CPU's, field for field, "
+          f"{launches['entry']} launch; dryrun_multichip(8): "
+          f"{[n for n, _, _ in plans]} plans and {len(probe[0])} probes == "
+          f"the CPU's, {launches['entry_dryrun_multichip']} launches",
+          flush=True)
+
+    # (b) the CLI as a child process on the card, driven by kpctl
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-tools-")
+    api_port, metrics_port = _free_port(), _free_port()
+    base = f"http://127.0.0.1:{api_port}"
+    log_path = os.path.join(tmp, "cli.log")
+    ms = {}
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        child = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--tools-cli",
+             f"--api-port={api_port}", f"--metrics-port={metrics_port}",
+             "--async-runtime", "--step", "0.5", "--log-level", "WARNING",
+             "--cluster-name", "my-cluster",   # the example's cluster
+             "--batch-idle-duration", "2", "--batch-max-duration", "120"],
+            cwd=HERE, stdout=log, stderr=subprocess.STDOUT)
+    try:
+        while True:
+            try:
+                _http("GET", f"{base}/apis/nodepools")
+                break
+            except OSError:
+                if child.poll() is not None \
+                        or time.perf_counter() - t0 > TOOLS_CLI_SECONDS:
+                    raise AssertionError(
+                        f"tools cli: the REST surface never came up (rc "
+                        f"{child.poll()})\n{open(log_path).read()[-3000:]}")
+                time.sleep(0.2)
+        ms["rest_up"] = (time.perf_counter() - t0) * 1e3
+        rc, so, se = _kpctl(base, "apply", "-f",
+                            os.path.join(HERE, "examples", "general-purpose.yaml"))
+        if rc != 0 or "nodepools/general-purpose created" not in so:
+            raise AssertionError(f"tools kpctl apply example: rc {rc}\n{so}\n{se}")
+        cfg10, _, _ = workloads.config10_steady_state()
+        pods = cfg10[:TOOLS_CLI_PODS]
+        docs = []
+        for p in pods:
+            d = serde.pod_to_dict(p)
+            d["nodeSelector"] = {**d["nodeSelector"],
+                                 wk.LABEL_NODEPOOL: "general-purpose"}
+            docs.append({"kind": "pods", "spec": d})
+        pods_path = os.path.join(tmp, "pods.json")
+        with open(pods_path, "w") as f:
+            json.dump(docs, f)
+        t = time.perf_counter()
+        rc, so, se = _kpctl(base, "apply", "-f", pods_path, timeout=600)
+        ms["kpctl_apply_pods"] = (time.perf_counter() - t) * 1e3
+        if rc != 0 or so.count(" created") != len(pods):
+            raise AssertionError(f"tools kpctl apply pods: rc {rc}, "
+                                 f"{so.count(' created')} created\n{se[-2000:]}")
+        t = time.perf_counter()
+        while True:
+            items = _http("GET", f"{base}/apis/pods")["items"]
+            bound = sum(1 for o in items if o["spec"].get("nodeName"))
+            if bound == len(pods):
+                break
+            if child.poll() is not None or time.perf_counter() - t > TOOLS_CLI_SECONDS:
+                raise AssertionError(f"tools cli: {bound} of {len(pods)} pods "
+                                     f"bound (rc {child.poll()})")
+            time.sleep(0.25)
+        ms["bind_all"] = (time.perf_counter() - t) * 1e3
+        got = {}
+        for kind in ("nodeclaims", "nodes", "pods", "nodepools", "nodeclasses"):
+            rc, so, se = _kpctl(base, "get", kind, "-o", "json")
+            if rc != 0:
+                raise AssertionError(f"tools kpctl get {kind}: rc {rc}\n{se}")
+            got[kind] = json.loads(so)
+        node_of = {o["metadata"]["name"]: o["spec"]["nodeClaim"]
+                   for o in got["nodes"]}
+        pods_of = {}
+        for o in got["pods"]:
+            pods_of.setdefault(node_of.get(o["spec"].get("nodeName")),
+                               []).append(o["metadata"]["name"])
+        claim_rows = sorted(
+            (o["spec"]["nodePool"], o["spec"]["instanceType"],
+             o["spec"]["zone"], o["spec"]["capacityType"],
+             sorted(pods_of.get(o["metadata"]["name"], [])))
+            for o in got["nodeclaims"])
+        admitted = [serde.nodepool_from_dict(o["spec"])
+                    for o in got["nodepools"]]
+        classes = {o["spec"]["name"]: serde.nodeclass_from_dict(o["spec"])
+                   for o in got["nodeclasses"]}
+        # the CPU plan of the same pods: one provisioning pass of an
+        # Operator on the CPU over the pools and classes as admitted (the
+        # CLI's default lattice, its cluster's subnets)
+        t = time.perf_counter()
+        ref = Operator(options=Options(cluster_name="my-cluster"),
+                       node_pools=admitted, node_classes=classes,
+                       clock=FakeClock(), device="cpu")
+        for d in docs:   # the pods as applied: on the example's pool
+            ref.cluster.add_pod(serde.pod_from_dict(d["spec"]))
+        cpu_plan = ref.provisioner.provision_once().plan
+        ms["cpu_reference"] = (time.perf_counter() - t) * 1e3
+        if claim_rows != sorted(_node_rows(cpu_plan)) or cpu_plan.unschedulable:
+            import collections
+            raise AssertionError(
+                f"tools cli: {len(claim_rows)} claims in the server differ "
+                f"from the CPU plan's {len(cpu_plan.new_nodes)} nodes under "
+                f"the admitted pools {[p.name for p in admitted]}: "
+                f"{collections.Counter(r[:4] + (len(r[4]),) for r in claim_rows)}"
+                f" against {collections.Counter(r[:4] + (len(r[4]),) for r in _node_rows(cpu_plan))}")
+        rc, so, se = _kpctl(base, "top", "--once")
+        solver_row = next((ln for ln in so.splitlines()
+                           if ln.startswith("SOLVER")), "")
+        if rc != 0 or f"device cuda:0 ({card})" not in solver_row:
+            raise AssertionError(f"tools kpctl top: rc {rc}, SOLVER row "
+                                 f"{solver_row!r}\n{se}")
+        name = pods[0].name
+        rc, so, se = _kpctl(base, "explain", "pod", name)
+        if rc != 0 or "Outcome: scheduled" not in so:
+            raise AssertionError(f"tools kpctl explain pod {name}: rc {rc}\n"
+                                 f"{so}\n{se}")
+        explain = so.strip().splitlines()
+    finally:
+        if child.poll() is None:
+            child.send_signal(signal.SIGTERM)
+        try:
+            child.wait(API_CLI_STOP_SECONDS)
+        except subprocess.TimeoutExpired:
+            child.kill()
+            child.wait()
+    tail = open(log_path).read().strip().splitlines()
+    res = json.loads(tail[-1]) if tail and tail[-1].startswith("{") else None
+    if child.returncode != 0 or res is None:
+        raise AssertionError(f"tools cli: the child exited {child.returncode}"
+                             f"\n{chr(10).join(tail[-30:])}")
+    solving = [p for p in res["tools_cli"]["passes"] if p["pending"]]
+    if not solving or any(p["launches"] < 1 for p in solving):
+        raise AssertionError(f"tools cli: passes with pending pods and their "
+                             f"launches {solving}")
+    launches["cli_kpctl"] = res["tools_cli"]["launches"]
+    out["cli"] = {"pods": len(pods), "claims": len(claim_rows),
+                  "passes_with_pending": solving,
+                  "launches": launches["cli_kpctl"], "wall_ms": ms,
+                  "solver_row": solver_row, "explain": explain[:3]}
+    print(f"tools cli: {len(pods)} pods applied with kpctl, bound on "
+          f"{len(claim_rows)} claims == the CPU plan under the admitted pools "
+          f"{[p.name for p in admitted]}, node by node; passes with pending "
+          f"pods (pending, launches): "
+          f"{[(p['pending'], p['launches']) for p in solving]}; "
+          f"{launches['cli_kpctl']} launches in the child; wall ms {ms}",
+          flush=True)
+    print(f"tools kpctl top: {solver_row}", flush=True)
+    print(f"tools kpctl explain pod {name}: {' | '.join(explain[:2])}",
+          flush=True)
+
+    # (c) the soak on the card
+    soak_out = os.path.join(tmp, "SOAK_gpu_timeseries.json.gz")
+    weather_out = os.path.join(tmp, "WEATHER_gpu_squall.json.gz")
+    t = time.perf_counter()
+    soak = subprocess.run(
+        [sys.executable, "-m", "karpenter_provider_aws_tpu_torch.tools.soak",
+         *TOOLS_SOAK_ARGS, "--out", soak_out, "--weather-out", weather_out],
+        cwd=tmp, capture_output=True, text=True, timeout=TOOLS_SOAK_SECONDS,
+        env={**os.environ, "PYTHONPATH": os.pathsep.join(
+            [HERE] + [x for x in [os.environ.get("PYTHONPATH")] if x])})
+    soak_s = time.perf_counter() - t
+    lines = soak.stdout.splitlines()
+    gates_line = [ln for ln in lines if ln.startswith("soak: failed gates ")]
+    if not gates_line or not os.path.exists(weather_out):
+        raise AssertionError(f"tools soak: rc {soak.returncode}, no verdict\n"
+                             f"{soak.stdout[-3000:]}\n{soak.stderr[-3000:]}")
+    failed = json.loads(gates_line[-1][len("soak: failed gates "):])
+    with gzip.open(weather_out, "rt") as f:
+        wdoc = json.load(f)
+    rec = wdoc["soak"]
+    checks = {
+        "pending pods": rec["pending"] == 0,
+        "leaked instances": rec["leaked"] == 0,
+        "orphaned leases": rec["orphan_leases"] == 0,
+        "cost burn <= 1.0": wdoc["slo"]["cost_burn"] <= 1.0,
+        "ladder engaged": bool(wdoc["degraded_counts"]),
+        "timeline == replay": bool(wdoc["replay_match"]),
+        "on the card": rec["device"].startswith("cuda"),
+        "kernel launched": rec["kernel_launches"] >= 1,
+    }
+    latency = [g for g in failed if g.startswith(SOAK_LATENCY_GATES)]
+    other = [g for g in failed if g not in latency]
+    print(f"tools soak: exit code {soak.returncode} after {soak_s:.1f} s; "
+          f"{rec['pods_churned']} pods churned; latency burn "
+          f"{wdoc['slo']['latency_burn']} (p50 "
+          f"{wdoc['slo'].get('latency_p50_ms')} ms), cost burn "
+          f"{wdoc['slo']['cost_burn']}; degraded {wdoc['degraded_counts']}; "
+          f"checks {checks}", flush=True)
+    print(f"tools soak: latency gates failed {latency}; other gates failed "
+          f"{other}", flush=True)
+    if not all(checks.values()) or other \
+            or (soak.returncode != 0 and not latency) \
+            or (soak.returncode == 0 and failed):
+        raise AssertionError(f"tools soak: rc {soak.returncode}, checks "
+                             f"{checks}, failed gates {failed}\n"
+                             f"{soak.stdout[-3000:]}\n{soak.stderr[-2000:]}")
+    # the soak process's own count of kernel launches
+    launches["soak"] = rec["kernel_launches"]
+    if launches["soak"] < 1:
+        raise AssertionError("tools soak: the kernel never launched")
+    out["soak"] = {"exit_code": soak.returncode, "seconds": soak_s,
+                   "launches": launches["soak"],
+                   "pods_churned": rec["pods_churned"], "slo": wdoc["slo"],
+                   "degraded_counts": wdoc["degraded_counts"],
+                   "checks": checks, "latency_gates_failed": latency}
+    return out, launches
+
+
 def _device_lost():
     """Phase 19: the sticky-error child (``_child_device_lost``)."""
     from karpenter_provider_aws_tpu_torch import cli
@@ -3427,6 +3780,8 @@ def main() -> int:
             return _fail(f"unknown mode {sys.argv[1]!r}")
         if sys.argv[1] == "--device-lost":
             return _child_device_lost(torch)
+        if sys.argv[1] == "--tools-cli":
+            return _child_tools_cli(sys.argv[2:])
         return _child_first_solve(torch, sys.argv[1])
     try:
         return _run(torch)
@@ -3651,7 +4006,14 @@ def _run(torch) -> int:
     _phase("device lost: a device-side assert in an Operator's pass")
     device_lost = _device_lost()
 
-    # ---- 20. kernel times: the main paths' own inputs, the dense largest
+    # ---- 20. the operator's tools: the entry module, the CLI with kpctl,
+    # the soak
+    _phase("tools: the entry module, the CLI driven by kpctl, and the soak")
+    tools, tools_launches = _tools(torch, workloads, oa)
+    launches.update(tools_launches)
+    _check_solvers(torch, "tools")
+
+    # ---- 21. kernel times: the main paths' own inputs, the dense largest
     # bucket, the launch floor
     _phase("kernel timing")
     solver = Solver(lattice)
@@ -3739,6 +4101,12 @@ def _run(torch) -> int:
                            "solves": bench_phase["solves"],
                            "parity_check_launches":
                                bench_phase["parity_launches"]},
+        "entry": {"launches": launches["entry"],
+                  "dryrun_multichip_launches":
+                      launches["entry_dryrun_multichip"]},
+        "cli_kpctl": {"launches": launches["cli_kpctl"],
+                      "passes_with_pending": tools["cli"]["passes_with_pending"]},
+        "soak": {"launches": launches["soak"]},
         "dense": timed["dense"],
     }], "cfg5": cfg5, "cfg10": {k: v for k, v in steady.items()
                                 if k != "launches_per_pass"},
@@ -3748,7 +4116,7 @@ def _run(torch) -> int:
                                  if k != "max_abs_err"},
         "warm_start": warm_start, "profiling": profiling, "native": native,
         "bench": bench_phase,
-        "device_lost": device_lost,
+        "device_lost": device_lost, "tools": tools,
         "provisioner": {"cfg5_wave": prov["cfg5_wave"],
                         "cfg10_first_wave": prov["cfg10_first_wave"],
                         "cfg10": {k: v for k, v in prov["cfg10"].items()

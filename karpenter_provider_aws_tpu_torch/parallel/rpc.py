@@ -58,11 +58,11 @@ import socket
 import stat
 import struct
 import threading
-import time
 import zlib
 from collections import deque, namedtuple
 from typing import Dict, List, Optional, Sequence, Tuple
 
+from ..utils.clock import WALL
 from . import hpack_huffman
 
 # grpcio's default limit on a received message, at servers and clients
@@ -569,7 +569,7 @@ class _Connection:
                     if n > 0 or pos == len(view):
                         break
                     wait = None if deadline is None else \
-                        deadline - time.monotonic()
+                        deadline - WALL.monotonic()
                     if wait is not None and wait <= 0:
                         raise TimeoutError
                     self._cv.wait(wait)
@@ -834,7 +834,7 @@ class _Connection:
                    ("user-agent", _USER_AGENT)]
         if deadline is not None:
             headers.append(("grpc-timeout", encode_timeout(
-                max(deadline - time.monotonic(), 0.0))))
+                max(deadline - WALL.monotonic(), 0.0))))
         # stream ids must reach the peer in increasing order: take the id
         # and queue the HEADERS under one lock
         with self._open_lock:
@@ -853,7 +853,7 @@ class _Connection:
             raise RpcError(StatusCode.DEADLINE_EXCEEDED, "Deadline Exceeded")
         except OSError as e:
             raise RpcError(StatusCode.UNAVAILABLE, f"connection lost: {e}")
-        wait = None if deadline is None else deadline - time.monotonic()
+        wait = None if deadline is None else deadline - WALL.monotonic()
         if not stream.done.wait(None if wait is None else max(wait, 0.0)):
             self.reset_stream(stream.id, CANCEL)
             raise RpcError(StatusCode.DEADLINE_EXCEEDED, "Deadline Exceeded")
@@ -1068,10 +1068,10 @@ class Server:
                 except FileNotFoundError:
                     pass
         if grace:
-            end = time.monotonic() + grace
+            end = WALL.monotonic() + grace
             with self._lock:
-                while self._active and time.monotonic() < end:
-                    self._idle.wait(end - time.monotonic())
+                while self._active and WALL.monotonic() < end:
+                    self._idle.wait(end - WALL.monotonic())
         with self._lock:
             conns = list(self._conns)
         for conn in conns:
@@ -1127,7 +1127,7 @@ class Channel:
         def call(request: bytes, timeout: Optional[float] = None,
                  wait_for_ready: Optional[bool] = None):
             deadline = None if timeout is None else \
-                time.monotonic() + timeout
+                WALL.monotonic() + timeout
             return self._call(method, request, deadline, bool(wait_for_ready))
         return call
 
@@ -1157,7 +1157,7 @@ class Channel:
                 conn = self._conn
                 if conn is not None and not conn.closed and not conn.goaway:
                     return conn
-                now = time.monotonic()
+                now = WALL.monotonic()
                 if now >= self._retry_at:
                     limit = max(self._backoff_min,
                                 self._backoff or self._backoff_initial)
@@ -1183,12 +1183,12 @@ class Channel:
                 raise RpcError(StatusCode.UNAVAILABLE,
                                "failed to connect to all addresses; last "
                                f"error: {self._last_error}")
-            now = time.monotonic()
+            now = WALL.monotonic()
             if deadline is not None and retry_at >= deadline:
-                time.sleep(max(deadline - now, 0.0))
+                WALL.sleep(max(deadline - now, 0.0))
                 raise RpcError(StatusCode.DEADLINE_EXCEEDED,
                                "Deadline Exceeded")
-            time.sleep(max(retry_at - now, 0.0))
+            WALL.sleep(max(retry_at - now, 0.0))
 
     @staticmethod
     def _result(stream: _Stream) -> bytes:

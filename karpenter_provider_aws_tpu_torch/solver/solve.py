@@ -386,6 +386,14 @@ class Solver:
         from ..utils.clock import WALL
         self._clock = clock if clock is not None else WALL
         self.device = resolve_device(device)
+        # the device as the introspection surface names it (``kpctl top``'s
+        # SOLVER row): ``cuda:<index> (<card>)``, or ``cpu``
+        self._device_label = str(self.device)
+        if self.device.type == "cuda":
+            index = (torch.cuda.current_device() if self.device.index is None
+                     else self.device.index)
+            self._device_label = (f"cuda:{index} "
+                                  f"({torch.cuda.get_device_name(index)})")
         # the device mesh every solve runs over (parallel/mesh.py
         # plan_mesh resolves --mesh/SOLVER_MESH at boot; None = the
         # single-device path). A per-call ``mesh=`` still overrides
@@ -536,6 +544,7 @@ class Solver:
         solve lock, so it never queues behind an in-flight solve)."""
         out: Dict[str, object] = {
             "pipeline": bool(self.pipeline),
+            "device": self._device_label,
             "est_cache_entries": len(self._est_cache),
             "b_hint_entries": len(self._b_hint),
             "faults_injected": self.faults is not None,

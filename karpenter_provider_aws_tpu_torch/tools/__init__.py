@@ -1,9 +1,17 @@
-"""Host-side benches of this package, counterparts of the repository's
-``tools/bench_*.py`` and ``tools/profile_run.py``: each drives an
-Operator, and with it a Solver on ``--device`` (default ``cuda``), and
-writes its JSON under a name of its own (``*_gpu_r01*.json``), never over
-the JAX rounds' artifacts.
+"""The operator's tools of this package, counterparts of the repository's
+``tools/``. Each imports this package only (never the JAX package, never
+the repository's ``tools/``), and each that drives an Operator puts its
+Solver on ``--device`` (default ``cuda``) and writes its JSON under a name
+of its own (``*_gpu_*``), never over the JAX rounds' artifacts.
 
+    python -m karpenter_provider_aws_tpu_torch.tools.kpctl --server URL VERB
+    python -m karpenter_provider_aws_tpu_torch.tools.soak
+    python -m karpenter_provider_aws_tpu_torch.tools.gen_crds [--check]
+    python -m karpenter_provider_aws_tpu_torch.tools.gen_docs
+    python -m karpenter_provider_aws_tpu_torch.tools.allocatable_diff
+    python -m karpenter_provider_aws_tpu_torch.tools.import_reference_data
+    python -m karpenter_provider_aws_tpu_torch.tools.kompat
+    python -m karpenter_provider_aws_tpu_torch.tools.lint.run --check
     python -m karpenter_provider_aws_tpu_torch.tools.bench_interruption
     python -m karpenter_provider_aws_tpu_torch.tools.bench_explain
     python -m karpenter_provider_aws_tpu_torch.tools.bench_headroom

@@ -11,7 +11,7 @@ test's own checks run on each, and the two must make the same Operators
 (claims, nodes, bindings, events) and leave the same objects, with the
 same resourceVersions and counters, in the apiserver (tolerances in
 ``test_torch_replay``; everything else exact). The test that renders
-events with ``kpctl`` in process is named in ``NOT_REPLAYED``.
+events with ``kpctl`` in process runs the port's kpctl on the port side.
 """
 
 import pytest
@@ -20,17 +20,15 @@ import test_torch_replay as replay
 from test_torch_replay import one_torch_thread  # noqa: F401 (autouse)
 
 FILE = "test_apiserver_e2e.py"
-_KPCTL = "A12 (tools/kpctl.py, which renders the JAX package's surfaces)"
-NOT_REPLAYED = {
-    "test_apiserver_e2e.py::TestEventsThroughAPI::test_kpctl_renders_events_table":
-        _KPCTL,
-}
+NOT_REPLAYED = {}
+SHIMS = (replay.KPCTL_SHIM,)
 THREADED = set()
 
 
 @pytest.mark.parametrize("test_id", replay.replayed(FILE, NOT_REPLAYED))
 def test_apiserver_e2e_equal_to_jax(test_id, tmp_path):
-    replay.replay(FILE, test_id, tmp_path, threaded=test_id in THREADED)
+    replay.replay(FILE, test_id, tmp_path, shims=SHIMS,
+                  threaded=test_id in THREADED)
 
 
 def test_apiserver_e2e_replays_cover_the_jax_tests():

@@ -13,8 +13,8 @@ test's own checks run on each, and the two must make the same Operators
 (their Solvers' ``degraded_counts`` included), fault injectors, cloud
 calls and metric series (tolerances in ``test_torch_replay``; everything
 else exact), and so does the event sink's retention of external events
-in the apiserver. The tests that need ``tools/kpctl.py`` or
-``tools/soak.py`` are named in ``NOT_REPLAYED``.
+in the apiserver. The tests of ``tools/kpctl.py`` and ``tools/soak.py``
+run the port's copies on the port side.
 """
 
 import pytest
@@ -23,21 +23,13 @@ import test_torch_replay as replay
 from test_torch_replay import one_torch_thread  # noqa: F401 (autouse)
 
 FILE = "test_degradation.py"
-_KPCTL = "A12 (tools/kpctl.py, which renders the JAX package's surfaces)"
-NOT_REPLAYED = {
-    "test_degradation.py::TestSatellites::test_kpctl_unit_normalization": _KPCTL,
-    "test_degradation.py::TestSatellites::test_kpctl_age_anchors_to_server_clock":
-        _KPCTL,
-    "test_degradation.py::TestSatellites::test_kpctl_single_get_adopts_server_clock":
-        _KPCTL,
-    "test_degradation.py::TestSatellites::test_soak_fault_schedule_parser":
-        "A12 (tools/soak.py drives the JAX package's Solver)",
-}
+NOT_REPLAYED = {}
+SHIMS = (replay.KPCTL_SHIM, replay.SOAK_SHIM)
 
 
 @pytest.mark.parametrize("test_id", replay.replayed(FILE, NOT_REPLAYED))
 def test_degradation_equal_to_jax(test_id, tmp_path):
-    replay.replay(FILE, test_id, tmp_path)
+    replay.replay(FILE, test_id, tmp_path, shims=SHIMS)
 
 
 def test_degradation_replays_cover_the_jax_tests():

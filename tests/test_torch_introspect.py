@@ -13,42 +13,35 @@ and gzip on both HTTP surfaces, ``debug.Monitor``'s summary) are
 replayed on both packages by ``test_torch_replay``: the test's own
 checks run on each, and the two must make the same Operator state,
 metric series and apiserver objects (tolerances in
-``test_torch_replay``; everything else exact). The tests that need
-``tools/kpctl.py`` in process or an XLA executable are named in
-``NOT_REPLAYED``: with the roadmap item that brings kpctl, and as
-``XLA`` for what no torch pack has.
+``test_torch_replay``; everything else exact). The tests of
+``tools/kpctl.py`` run the port's kpctl on the port side; the tests that
+read an XLA executable are named in ``NOT_REPLAYED`` as ``XLA``, for
+what no torch pack has.
 """
 
 import pytest
 
 import test_torch_replay as replay
 
-_KPCTL = "A12 (tools/kpctl.py, which renders the JAX package's surfaces)"
 _XLA = ("XLA (record_compiled and capture_cost_model read an XLA "
         "executable's analysis, which a torch pack does not have)")
 FILES = {
-    "test_introspect.py": {
-        "test_introspect.py::TestHttpSurfaces::test_kpctl_top_tolerates_errored_provider": _KPCTL,
-        "test_introspect.py::TestHttpSurfaces::test_kpctl_top_once_renders": _KPCTL,
-    },
+    "test_introspect.py": {},
     "test_headroom.py": {},
     "test_profiler.py": {
         "test_profiler.py::TestDeviceCostModel::test_record_compiled_handles_both_jax_shapes": _XLA,
         "test_profiler.py::TestDeviceCostModel::test_analysis_failure_is_contained": _XLA,
         "test_profiler.py::TestDeviceCostModel::test_solver_lowering_capture_fills_model": _XLA,
-        "test_profiler.py::TestKpctlSurfaces::test_top_renders_contention_device_profiler_rows": _KPCTL,
-        "test_profiler.py::TestKpctlSurfaces::test_profile_top_and_capture_live": _KPCTL,
-        "test_profiler.py::TestKpctlSurfaces::test_profile_capture_reports_disabled": _KPCTL,
-        "test_profiler.py::TestKpctlSurfaces::test_profile_diff": _KPCTL,
-        "test_profiler.py::TestKpctlSurfaces::test_soak_summary_prints_peak_lock_wait": _KPCTL,
     },
 }
+SHIMS = {"test_introspect.py": (replay.KPCTL_SHIM,), "test_headroom.py": (),
+         "test_profiler.py": (replay.KPCTL_SHIM,)}
 CASES = [(f, t) for f, nr in FILES.items() for t in replay.replayed(f, nr)]
 
 
 @pytest.mark.parametrize("filename,test_id", CASES, ids=[t for _, t in CASES])
 def test_introspection_equal_to_jax(filename, test_id, tmp_path):
-    replay.replay(filename, test_id, tmp_path)
+    replay.replay(filename, test_id, tmp_path, shims=SHIMS[filename])
 
 
 @pytest.mark.parametrize("filename,count", [

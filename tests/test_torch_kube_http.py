@@ -11,9 +11,9 @@ and ``tools/kpctl.py`` as a separate process closing its pipe early) is
 replayed on both packages by ``test_torch_replay``: the test's own
 checks run on each, and the two must leave the same objects, with the
 same resourceVersions and counters, in every apiserver they made
-(tolerances in ``test_torch_replay``; everything else exact). The tests
-that run ``kpctl`` in process (it renders the JAX package's surfaces
-and reads ``capsys``) are named in ``NOT_REPLAYED``. The tests whose
+(tolerances in ``test_torch_replay``; everything else exact). On the
+port side kpctl is the port's, in process and as the subprocess
+(``python -m karpenter_provider_aws_tpu_torch.tools.kpctl``). The tests whose
 watch streams subscribe and unsubscribe on the server's handler threads,
 on the wall clock, are named in ``THREADED``.
 """
@@ -24,16 +24,12 @@ import test_torch_replay as replay
 from test_torch_replay import one_torch_thread  # noqa: F401 (autouse)
 
 FILE = "test_kube_http.py"
-_KPCTL = "A12 (tools/kpctl.py, which renders the JAX package's surfaces)"
-NOT_REPLAYED = {
-    "test_kube_http.py::TestKpctlDescribe::test_describe_without_events_shows_none":
-        _KPCTL,
-    "test_kube_http.py::TestKpctlDescribe::test_describe_matches_kind_not_just_name":
-        _KPCTL,
-    "test_kube_http.py::TestKpctlYamlOutput::test_get_o_yaml_round_trips":
-        _KPCTL,
-    "test_kube_http.py::TestDiscovery::test_kpctl_api_resources": _KPCTL,
-}
+NOT_REPLAYED = {}
+SHIMS = (replay.KPCTL_SHIM,
+         ("[_sys.executable, str(kpctl), \"--server\", base,",
+          "[_sys.executable, \"-m\", "
+          "\"karpenter_provider_aws_tpu_torch.tools.kpctl\", "
+          "\"--server\", base,"))
 THREADED = {
     "test_kube_http.py::TestWatchStream::test_watch_delivers_events_as_json_lines",
     "test_kube_http.py::TestWatchReconnectOver410::test_reflector_relists_after_410_over_http",
@@ -43,7 +39,8 @@ THREADED = {
 
 @pytest.mark.parametrize("test_id", replay.replayed(FILE, NOT_REPLAYED))
 def test_kube_http_equal_to_jax(test_id, tmp_path):
-    replay.replay(FILE, test_id, tmp_path, threaded=test_id in THREADED)
+    replay.replay(FILE, test_id, tmp_path, shims=SHIMS,
+                  threaded=test_id in THREADED)
 
 
 def test_kube_http_replays_cover_the_jax_tests():

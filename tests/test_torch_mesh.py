@@ -13,7 +13,7 @@ package's virtual CPU mesh of as many devices.
   ``test_torch_replay``, with every solve's plan and every sharded and
   seeded pack compared (buffers byte for byte), the sidecar's health
   document and a remote solver reporting the sidecar's mesh included. The
-  ``kpctl`` case is named in ``NOT_REPLAYED``.
+  ``kpctl`` case runs the port's kpctl on the port side.
 - Every rung of the degradation ladder over an 8-shard mesh (the wave
   split under a group ceiling, a retried device error, the host FFD after
   two, and after bin-table exhaustion) gives the JAX package's plans,
@@ -38,10 +38,8 @@ import test_torch_replay as replay
 from test_torch_replay import one_torch_thread  # noqa: F401 (autouse)
 
 FILE = "test_mesh.py"
-NOT_REPLAYED = {
-    "test_mesh.py::TestMeshSurfaces::test_kpctl_solver_row_renders_mesh":
-        "A12 (tools/kpctl.py, which renders the JAX package's surfaces)",
-}
+NOT_REPLAYED = {}
+SHIMS = {FILE: (replay.KPCTL_SHIM,)}
 MICRO_FILE = "test_microloop.py"
 MICRO_MESH = ["test_microloop.py::TestMicroloopOnMesh::test_mesh_micro_parity_and_merge_reuse",
               "test_microloop.py::TestMicroloopOnMesh::test_mesh_shape_change_resets_micro_state",
@@ -60,7 +58,7 @@ def _params(filename, tests):
     + _params(MICRO_FILE, MICRO_MESH))
 def test_mesh_equal_to_jax(filename, test_id, params, tmp_path):
     replay.replay(filename, test_id, tmp_path, plans=True, buffers=True,
-                  params=params)
+                  params=params, shims=SHIMS.get(filename, ()))
 
 
 def test_mesh_replays_cover_the_jax_tests():

@@ -351,3 +351,50 @@ def test_convert_keeps_dtypes_and_shapes():
         assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
     with pytest.raises(TypeError):
         convert.fused_buffer(np.zeros(4, np.int32), "cpu")
+
+
+# the repository's tool modules, which import the JAX package (and put the
+# repository on ``sys.path`` to do it): the port carries its own copies
+REPO_TOOL_MODULES = ("tools", "kpctl", "soak", "gen_crds", "gen_docs",
+                     "allocatable_diff", "import_reference_data", "kompat",
+                     "deflake", "lint", "bench", "__graft_entry__")
+OPERATOR_TOOLS = ("entry", "deploy", "tools.kpctl", "tools.soak",
+                  "tools.gen_crds", "tools.gen_docs", "tools.allocatable_diff",
+                  "tools.import_reference_data", "tools.kompat",
+                  "tools.lint", "tools.lint.rules", "tools.lint.baseline",
+                  "tools.lint.run")
+
+
+def test_guard_covers_the_operator_tools_and_entry():
+    """The import guards above check the port's kpctl, soak, generators,
+    lint runner, entry module and deployment renderer; no file of the
+    port, nor chip_smoke.py, imports one of the repository's tool modules
+    or edits ``sys.path`` to reach them, and each new module imports in a
+    process where jax, the JAX package and the repository's tools cannot
+    load."""
+    mods = {_module_name(p) for p in PORT_FILES}
+    port = "karpenter_provider_aws_tpu_torch"
+    for name in OPERATOR_TOOLS:
+        assert f"{port}.{name}" in mods, name
+    assert (PORT / "tools" / "lint" / "baseline.json").is_file()
+    assert (PORT / "deploy" / "deployment.yaml").is_file()
+    bad = {str(p.relative_to(REPO)): n for p in CHECKED_FILES
+           for n in _imported_names(p)
+           if n.split(".")[0] in REPO_TOOL_MODULES}
+    assert not bad, bad
+    touching = [str(p.relative_to(REPO)) for p in PORT_FILES
+                if "sys.path" in p.read_text()]
+    assert not touching, touching
+    code = "\n".join(
+        ["import sys"]
+        + [f"sys.modules[{m!r}] = None"
+           for m in ("jax", "jsonschema", "grpc", JAX_PKG)
+           + REPO_TOOL_MODULES]
+        + ["import importlib",
+           f"for m in {[f'{port}.{n}' for n in OPERATOR_TOOLS]!r}:",
+           "    importlib.import_module(m)",
+           "print('imported')"])
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "imported" in out.stdout

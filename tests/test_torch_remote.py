@@ -15,8 +15,8 @@ of sidecars, over the port's own gRPC wire (``parallel/rpc.py``).
   compared. Their ``import grpc`` names the port's ``parallel.rpc`` on the
   port side. The test whose 0.5 s solve deadline races each package's
   first solve (a JAX compile, a cold torch solve) compares kinds and
-  counts only (``THREADED``); the ``kpctl`` case is named in
-  ``NOT_REPLAYED``.
+  counts only (``THREADED``); the ``kpctl`` and ``soak`` cases load the
+  port's copies of those tools on the port side.
 - ``tests/test_crossprocess_e2e.py`` (``slow``, as there) runs with the
   port's control plane and the port's sidecar as subprocesses on the CPU.
 - Across packages: a JAX Operator whose ``solver_address`` names a port
@@ -44,12 +44,16 @@ from test_torch_replay import one_torch_thread  # noqa: F401 (autouse)
 
 _GRPC = [("import grpc",
           "from karpenter_provider_aws_tpu_torch.parallel import rpc as grpc")]
-_KPCTL = "A12 (tools/kpctl.py, which renders the JAX package's surfaces)"
+_TOOLS = [('kpctl = importlib.import_module("kpctl")',
+           'kpctl = importlib.import_module('
+           '"karpenter_provider_aws_tpu_torch.tools.kpctl")'),
+          ('soak = importlib.import_module("soak")',
+           'soak = importlib.import_module('
+           '"karpenter_provider_aws_tpu_torch.tools.soak")')]
 
 FILES = {
     "test_sidecar.py": ({}, [], 7),
-    "test_pool.py": ({"test_pool.py::TestPoolObservation::test_kpctl_top_pool_row":
-                      _KPCTL}, _GRPC, 37),
+    "test_pool.py": ({}, _GRPC + _TOOLS, 37),
 }
 THREADED = {
     "test_pool.py::TestHang::test_hung_sidecar_bounded_by_deadline_plus_one_failover",

@@ -18,7 +18,11 @@ they were made:
   Solver's ``degraded_counts``, and the names of the introspection
   providers;
 - FakeCloud: every call it served (launches, tags, terminations, in
-  order) and its instances with their tags;
+  order) and its instances with their tags. The garbage collector's
+  existence checks fan out over a thread pool in both packages, so the
+  order within a run of consecutive ``FANOUT_CALLS`` follows the threads:
+  each such run is compared as a sorted list (the same calls, in any
+  order), every other call in order;
 - each domain provider: the contents of its TTL cache; the pricing
   provider: the lattice's prices and price version;
 - each metrics registry: its families (name, kind, labels), the value of
@@ -71,7 +75,9 @@ runtime, an HTTP server, leader election) is named in its file's
 ``THREADED``: there the test's own checks run on both packages, and of
 what both made only the kinds and counts are compared.
 
-On the port side the CLI's ``--device`` also defaults to the CPU.
+On the port side the CLI's ``--device`` also defaults to the CPU
+(``cpu_cli=False`` keeps its own default, ``cuda``, for a test that
+renders the parser's defaults).
 """
 
 import ast
@@ -115,6 +121,15 @@ WALL_EPOCH = 1e9
 WALL_TIME_ANNOTATIONS = ("karpenter.sh/solver-stage-ms",)
 
 _PKG_RE = re.compile(r"\bkarpenter_provider_aws_tpu\b")
+
+# shims for the repository's tools that a replayed test imports as modules
+# of ``tools/`` on ``sys.path``: on the port side, the port's copies
+KPCTL_SHIM = ("        import kpctl\n",
+              "        from karpenter_provider_aws_tpu_torch.tools "
+              "import kpctl\n")
+SOAK_SHIM = ("        import soak\n",
+             "        from karpenter_provider_aws_tpu_torch.tools "
+             "import soak\n")
 
 
 def jax_tests(filename):
@@ -288,6 +303,8 @@ class _Fixtures:
             value = self.tmp_path
         elif name == "tmp_path_factory":
             value = _TmpPathFactory(self.tmp_path)
+        elif name == "request":
+            value = _NoRequest()
         else:
             obj = getattr(type(self.instance), name, None)
             bound = hasattr(obj, "_fixture_function_marker")
@@ -345,6 +362,14 @@ class _Capsys:
         sys.stdout, sys.stderr = self._saved
 
 
+class _NoRequest:
+    """pytest's ``request`` for a test that takes it and never reads it:
+    any use fails the replay."""
+
+    def __getattr__(self, name):
+        raise LookupError(f"fixture 'request' is not replayable ({name})")
+
+
 class _TmpPathFactory:
     """pytest's ``tmp_path_factory``, as far as ``mktemp`` goes."""
 
@@ -389,9 +414,31 @@ def observe_operator(op):
     }
 
 
+# cloud verbs a controller issues from a thread pool: the garbage
+# collector's existence checks (``cloud_provider.get`` on 100 workers of
+# ``utils.fanout.LazyPool``), whose order within one reconcile follows the
+# workers' threads
+FANOUT_CALLS = ("describe_instances",)
+
+
+def cloud_calls(calls):
+    """FakeCloud's calls as compared: each maximal run of consecutive
+    ``FANOUT_CALLS`` of one verb sorted, every other call in order."""
+    out, run = [], []
+    for verb, args in calls:
+        if run and verb != run[0][0]:
+            out.extend(sorted(run))
+            run = []
+        if verb in FANOUT_CALLS:
+            run.append((verb, repr(args)))
+        else:
+            out.append((verb, repr(args)))
+    return out + sorted(run)
+
+
 def observe_cloud(cloud):
     return {
-        "calls": [(verb, repr(args)) for verb, args in cloud.calls],
+        "calls": cloud_calls(cloud.calls),
         "instances": sorted((i.id, i.instance_type, i.zone, i.capacity_type,
                              i.state, _tuple_items(i.tags), i.image_id,
                              i.subnet_id, tuple(i.security_group_ids),
@@ -580,12 +627,14 @@ def _wrap_seeded(orig, made):
 
 
 @contextlib.contextmanager
-def recording(pkg, plans=False, buffers=False, module=None):
+def recording(pkg, plans=False, buffers=False, module=None, cpu_cli=True):
     """Record every object of a RECORDED kind made while this is open
     (with ``plans``, every plan a Solver's entry points return; with
     ``buffers``, every sharded and seeded pack, the test ``module``'s own
     calls included); on the port side default ``Operator`` and ``Solver``
-    to the CPU."""
+    to the CPU, and with ``cpu_cli`` the CLI's ``--device`` too (off
+    where a test renders the parser's defaults, as the docs generator
+    does)."""
     made = []
     with pytest.MonkeyPatch.context() as mp:
         if buffers:
@@ -645,7 +694,7 @@ def recording(pkg, plans=False, buffers=False, module=None):
                 _call(self, event)
 
         mp.setattr(sink_cls, "__call__", sink)
-        if pkg == cases.TORCH_PKG:
+        if pkg == cases.TORCH_PKG and cpu_cli:
             cli = cases.mod(pkg, "cli")
             build_parser = cli.build_parser
 
@@ -676,7 +725,7 @@ def _observations(made):
 
 
 def run_test(module, test_id, tmp_path, plans=False, params=None,
-             buffers=False):
+             buffers=False, cpu_cli=True):
     """Run one test of ``module`` (``file::Class::test``, or
     ``file::test`` for a module-level one, with ``params`` for its
     parametrized arguments); returns the observations of what it made,
@@ -694,8 +743,16 @@ def run_test(module, test_id, tmp_path, plans=False, params=None,
     fx = _Fixtures(module, tmp_path, instance)
     fx.values.update(params or {})
     try:
+        # the autouse fixtures of the test's class and module, as pytest
+        # would set them up first
+        for owner in ((type(instance),) if instance is not None else ()) \
+                + (module,):
+            for name, obj in list(vars(owner).items()):
+                marker = getattr(obj, "_fixture_function_marker", None)
+                if marker is not None and marker.autouse:
+                    fx.get(name)
         with recording(module._replay_pkg, plans=plans, buffers=buffers,
-                       module=module) as made:
+                       module=module, cpu_cli=cpu_cli) as made:
             fn(**{p: fx.get(p) for p in inspect.signature(fn).parameters})
             return _observations(made)
     finally:
@@ -717,7 +774,7 @@ def _same(j, t, where):
 
 
 def replay(filename, test_id, tmp_path, stubs=(), shims=(), threaded=False,
-           plans=False, params=None, buffers=False):
+           plans=False, params=None, buffers=False, cpu_cli=True):
     """Run ``test_id`` on the JAX package and on the port, and require the
     same observations of everything both made (``threaded``: only the
     kinds and counts of what both made; ``plans``: the plans of every
@@ -729,7 +786,8 @@ def replay(filename, test_id, tmp_path, stubs=(), shims=(), threaded=False,
         # 107 bytes
         sub = "jax" if pkg == cases.JAX_PKG else "port"
         obs[pkg] = run_test(module, test_id, tmp_path / sub, plans=plans,
-                            params=params, buffers=buffers)
+                            params=params, buffers=buffers,
+                            cpu_cli=cpu_cli)
     j, t = obs[cases.JAX_PKG], obs[cases.TORCH_PKG]
     assert {k[1]: len(v) for k, v in t.items()} \
         == {k[1]: len(v) for k, v in j.items()}

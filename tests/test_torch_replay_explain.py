@@ -7,8 +7,8 @@ routes) and the Prometheus exposition linter (its rules and a live
 Operator's scrape) run through ``test_torch_replay`` with ``plans=True``:
 the test's own checks run on each package, and the two must make the same
 Operators, metric series and plans (tolerances in ``test_torch_replay``;
-everything else exact). The tests of ``tools/kpctl.py`` are named in
-``NOT_REPLAYED`` with the roadmap item that brings it.
+everything else exact). The tests of ``tools/kpctl.py`` run the port's
+kpctl on the port side.
 """
 
 import pytest
@@ -16,19 +16,11 @@ import pytest
 import test_torch_replay as replay
 from test_torch_replay import one_torch_thread  # noqa: F401 (autouse)
 
-_KPCTL = "A12c (tools/kpctl.py, which renders the JAX package's surfaces)"
 FILES = {
-    "test_explain.py": {
-        f"test_explain.py::TestKpctl::{name}": _KPCTL for name in (
-            "test_explain_pod_renders_waterfall",
-            "test_explain_nodeclaim_renders_rationale",
-            "test_explain_missing_pod_exits_1",
-            "test_top_renders_explain_row",
-            "test_top_without_explain_provider_has_no_row",
-            "test_describe_pod_reasons_block",
-            "test_describe_pod_reasons_quiet_on_missing")},
+    "test_explain.py": {},
     "test_metrics_lint.py": {},
 }
+SHIMS = {"test_explain.py": (replay.KPCTL_SHIM,)}
 CASES = [(f, t, p) for f, nr in FILES.items()
          for t, p in replay.parametrized(f, replay.replayed(f, nr))]
 
@@ -36,7 +28,8 @@ CASES = [(f, t, p) for f, nr in FILES.items()
 @pytest.mark.parametrize("filename,test_id,params", CASES,
                          ids=[replay.case_id(t, p) for _, t, p in CASES])
 def test_explain_and_lint_equal_to_jax(filename, test_id, params, tmp_path):
-    replay.replay(filename, test_id, tmp_path, plans=True, params=params)
+    replay.replay(filename, test_id, tmp_path, plans=True, params=params,
+                  shims=SHIMS.get(filename, ()))
 
 
 @pytest.mark.parametrize("filename,count", [("test_explain.py", 39),

@@ -53,3 +53,60 @@ def test_incremental_and_scale_replays_cover_the_jax_tests(filename, count):
     assert "test_incremental.py::TestSloWarmupWindow::" \
         "test_solver_warmup_on_done_fires" in \
         replay.replayed("test_incremental.py", FILES["test_incremental.py"])
+
+
+def test_gc_fanout_calls_compare_as_a_set_within_their_run():
+    """The garbage collector checks every claim's instance on a thread pool
+    (``describe_instances`` from 100 workers, in both packages), so the
+    order of those calls within one reconcile follows the threads: the
+    node-dense scale-up replay once differed at index 2805 only in which
+    of two instances the pool described first. ``cloud_calls`` sorts each
+    run of consecutive fan-out calls and keeps every other call, and the
+    runs' boundaries, in order."""
+    gc = [("describe_instances", (f"i-{n:08x}",)) for n in (0x131, 0x130)]
+    before = [("create_fleet", ("a",)), ("create_tags", ("i-1", ()))]
+    after = [("list_instances", ()), ("terminate_instances", (("i-2",),))]
+    a = replay.cloud_calls(before + gc + after)
+    b = replay.cloud_calls(before + gc[::-1] + after)
+    assert a == b
+    assert [v for v, _ in a] == ["create_fleet", "create_tags",
+                                 "describe_instances", "describe_instances",
+                                 "list_instances", "terminate_instances"]
+    # any other call still compares in order, and a fan-out call that
+    # moves across another call moves the run's boundary
+    assert replay.cloud_calls(before[::-1] + gc + after) != a
+    assert replay.cloud_calls(before + gc[:1] + after[:1] + gc[1:]
+                              + after[1:]) != a
+
+
+def test_gc_reconcile_describes_every_claim_once_on_both_packages():
+    """One garbage-collection reconcile over 64 launched claims on either
+    package: the fan-out describes each claim's instance exactly once, so
+    the sorted run is the same on both packages whatever the threads did."""
+    import test_torch_cases as cases
+    runs = {}
+    for pkg in (cases.JAX_PKG, cases.TORCH_PKG):
+        clock = cases.mod(pkg, "utils.clock").FakeClock()
+        fake = cases.mod(pkg, "cloud.fake")
+        cloud = fake.FakeCloud(clock)
+        cluster = cases.mod(pkg, "state.cluster").ClusterState(clock)
+        objects = cases.mod(pkg, "apis.objects")
+        lat = cases.family_lattice(pkg, ("m5",))
+        cp = cases.mod(pkg, "cloudprovider").CloudProvider(
+            lat, cloud, cases.mod(pkg, "cache").UnavailableOfferings(clock),
+            clock=clock)
+        for i in range(64):
+            inst = cloud.create_fleet([fake.LaunchOverride(
+                "m5.large", "us-west-2a", "on-demand", 0.096)]).instance
+            cluster.add_claim(objects.NodeClaim(
+                name=f"c-{i}", node_pool="default",
+                provider_id=inst.provider_id))
+        gc_mod = cases.mod(pkg, "controllers.garbagecollection")
+        n0 = len(cloud.calls)
+        gc_mod.GarbageCollectionController(cluster, cp, clock=clock) \
+            .reconcile()
+        runs[pkg] = replay.cloud_calls(list(cloud.calls)[n0:])
+    jax_run, port_run = runs[cases.JAX_PKG], runs[cases.TORCH_PKG]
+    described = [a for v, a in port_run if v == "describe_instances"]
+    assert len(described) == len(set(described)) == 64
+    assert port_run == jax_run

@@ -10,8 +10,10 @@ must leave the same objects in every apiserver they made (tolerances in
 ``test_torch_replay``; everything else exact). The port validates with
 its own Draft 2020-12 validator, not ``jsonschema``;
 ``test_torch_schema_validator.py`` holds it to ``jsonschema`` on
-generated specs. The test that regenerates the checked-in CRDs runs
-``tools/gen_crds.py`` and is named in ``NOT_REPLAYED``.
+generated specs. The test that regenerates the checked-in CRDs runs the
+port's generator on the port side (``python -m
+karpenter_provider_aws_tpu_torch.tools.gen_crds --check``), which renders
+``deploy/crds/`` byte for byte from the port's schema.
 """
 
 import pytest
@@ -20,16 +22,18 @@ import test_torch_replay as replay
 from test_torch_replay import one_torch_thread  # noqa: F401 (autouse)
 
 FILE = "test_schema.py"
-NOT_REPLAYED = {
-    "test_schema.py::TestArtifacts::test_checked_in_crds_are_current":
-        "A12 (tools/gen_crds.py renders the JAX package's schema)",
-}
+NOT_REPLAYED = {}
+SHIMS = (('[sys.executable, str(REPO / "tools" / "gen_crds.py"), "--check"],',
+          '[sys.executable, "-m", '
+          '"karpenter_provider_aws_tpu_torch.tools.gen_crds", "--check"], '
+          'cwd=str(REPO),'),)
 THREADED = set()
 
 
 @pytest.mark.parametrize("test_id", replay.replayed(FILE, NOT_REPLAYED))
 def test_schema_equal_to_jax(test_id, tmp_path):
-    replay.replay(FILE, test_id, tmp_path, threaded=test_id in THREADED)
+    replay.replay(FILE, test_id, tmp_path, shims=SHIMS,
+                  threaded=test_id in THREADED)
 
 
 def test_schema_replays_cover_the_jax_tests():

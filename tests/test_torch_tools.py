@@ -10,7 +10,13 @@ repository's tool's ``run_loop`` on the same sizes. ``profile_run``:
 its three runs (deterministic profiled, deterministic control, threaded)
 through ``main`` at a few hundred pods, written to ``tmp_path``.
 ``overhead_order``: the three tools' pairs twice each, ON, OFF, OFF, ON,
-at small sizes. Every tool defaults to ``cuda`` and raises without it.
+at small sizes. Every tool defaults to ``cuda`` and raises without it,
+and so do ``soak`` and the entry module's ``entry`` and
+``dryrun_multichip``. The soak refuses ``--compile-cache-dir`` and names
+its artifacts ``SOAK_gpu_*`` / ``WEATHER_gpu_*``; ``kpctl top``'s SOLVER
+row names the Solver's device; the port's deployment template renders
+with ``--device=cuda``, ``--warm-start``, one ``nvidia.com/gpu`` and no
+``COMPILE_CACHE_DIR``.
 """
 
 import json
@@ -20,11 +26,13 @@ import pathlib
 import pytest
 import torch
 
+from karpenter_provider_aws_tpu_torch import deploy, entry
 from karpenter_provider_aws_tpu_torch.tools import (bench_explain,
                                                     bench_headroom,
                                                     bench_interruption,
+                                                    kpctl,
                                                     overhead_order,
-                                                    profile_run)
+                                                    profile_run, soak)
 
 from test_torch_replay import one_torch_thread  # noqa: F401 (autouse)
 
@@ -150,15 +158,87 @@ def test_overhead_order_runs_each_pair_twice(tmp_path, monkeypatch):
     assert doc["profile_run"]["pending_at_end"] == [0, 0, 0, 0]
 
 
-@pytest.mark.parametrize("tool", [bench_explain, bench_headroom,
-                                  bench_interruption, overhead_order,
-                                  profile_run],
-                         ids=lambda m: m.__name__.rsplit(".", 1)[1])
+# each entry point's call with its defaults (None: the tool's ``main``
+# with a size argument)
+CUDA_DEFAULT_CALLS = {
+    "bench_explain": lambda: bench_explain.main(["--pods", "10"]),
+    "bench_headroom": lambda: bench_headroom.main(["--pods", "10"]),
+    "bench_interruption": lambda: bench_interruption.main(["10"]),
+    "overhead_order": lambda: overhead_order.main(["--pods", "10"]),
+    "profile_run": lambda: profile_run.main(["--pods", "10"]),
+    "soak": lambda: soak.main(["--minutes", "0.01"]),
+    "entry": lambda: entry.entry(),
+    "dryrun_multichip": lambda: entry.dryrun_multichip(8),
+}
+
+
+@pytest.mark.parametrize("tool", list(CUDA_DEFAULT_CALLS))
 def test_tools_default_to_cuda_and_raise_without_it(tool, tmp_path,
                                                     monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.chdir(tmp_path)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        tool.main(["--pods", "10"] if tool is not bench_interruption
-                  else ["10"])
+        CUDA_DEFAULT_CALLS[tool]()
     assert not list(tmp_path.iterdir())
+
+
+def test_soak_refuses_the_compile_cache_and_names_its_artifacts(
+        tmp_path, monkeypatch):
+    """The port compiles nothing at run time: ``--compile-cache-dir``
+    exits before anything is built; the artifacts' default names are the
+    port's own, never the JAX rounds'."""
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(SystemExit, match="compiles nothing"):
+        soak.main(["--device", "cpu", "--compile-cache-dir", "x"])
+    assert not list(tmp_path.iterdir())
+    assert soak.DEFAULT_OUT == "SOAK_gpu_timeseries.json.gz"
+    src = pathlib.Path(soak.__file__).read_text()
+    assert 'f"WEATHER_gpu_{' in src and '"WEATHER_{' not in src
+
+
+def test_kpctl_top_solver_row_names_the_device():
+    """The Solver's stats carry its device, and ``kpctl top`` renders it
+    at the end of the SOLVER row (absent from a document without it)."""
+    from karpenter_provider_aws_tpu_torch.lattice import (build_catalog,
+                                                          build_lattice)
+    from karpenter_provider_aws_tpu_torch.solver import Solver
+    lat = build_lattice([s for s in build_catalog() if s.family == "m5"])
+    stats = Solver(lat, device="cpu").stats()
+    assert stats["device"] == "cpu"
+    lines = kpctl._render_top({"providers": {"solver": stats}}, "t")
+    row = next(ln for ln in lines if ln.startswith("SOLVER"))
+    assert row.endswith("   device cpu")
+    lines = kpctl._render_top({"providers": {}}, "t")
+    row = next(ln for ln in lines if ln.startswith("SOLVER"))
+    assert "device" not in row
+
+
+def test_deployment_template_runs_the_port_controller_on_the_card():
+    import yaml
+    doc = yaml.safe_load(deploy.render(deploy.load_values()))
+    spec = doc["spec"]["template"]["spec"]
+    (c,) = spec["containers"]
+    assert c["command"] == ["karpenter-tpu-controller-torch"]
+    assert "--device=cuda" in c["args"] and "--warm-start" in c["args"]
+    assert c["resources"]["limits"]["nvidia.com/gpu"] == 1
+    assert c["resources"]["requests"]["nvidia.com/gpu"] == 1
+    assert "google.com/tpu" not in c["resources"]["limits"]
+    env = {e["name"] for e in c["env"]}
+    assert "COMPILE_CACHE_DIR" not in env and "CLUSTER_NAME" in env
+    assert all("xla" not in v["name"] for v in spec["volumes"])
+    assert doc["metadata"]["name"] == "karpenter-tpu"
+    assert "${" not in yaml.safe_dump(doc)
+
+
+def test_deploy_render_writes_every_template(tmp_path):
+    """``python -m karpenter_provider_aws_tpu_torch.deploy`` renders every
+    template of ``deploy/templates/``, the port's deployment in place of
+    the reference's, and the CRDs."""
+    import yaml
+    assert deploy.main(["--out-dir", str(tmp_path)]) == 0
+    names = {p.name for p in tmp_path.iterdir()}
+    assert {p.name for p in deploy.TEMPLATES.glob("*.yaml")} <= names
+    dep = yaml.safe_load((tmp_path / "deployment.yaml").read_text())
+    (c,) = dep["spec"]["template"]["spec"]["containers"]
+    assert c["command"] == ["karpenter-tpu-controller-torch"]
+    assert "karpenter.tpu_nodepools.yaml" in names

@@ -11,8 +11,8 @@ and the message parser) is replayed on both packages by
 ``test_torch_replay``: the test's own checks run on each, and the two
 must make the same Operators, cloud calls, prices, queue contents, metric
 series and fault injectors (tolerances in ``test_torch_replay``;
-everything else exact). The tests that need ``tools/kpctl.py`` or
-``tools/soak.py`` are named in ``NOT_REPLAYED``. One more test holds the
+everything else exact). The tests of ``tools/kpctl.py`` and
+``tools/soak.py`` run the port's copies on the port side. One more test holds the
 timelines of every named scenario byte for byte.
 """
 
@@ -25,20 +25,16 @@ import test_torch_replay as replay
 from test_torch_replay import one_torch_thread  # noqa: F401 (autouse)
 
 FILE = "test_weather.py"
-_TOOLS = "A12 (tools/kpctl.py and tools/soak.py drive the JAX package)"
-NOT_REPLAYED = {
-    "test_weather.py::TestSoakCompose::test_clear_fully_restores_unfaulted_solver":
-        _TOOLS,
-    "test_weather.py::TestIntrospectionSurface::test_kpctl_weather_and_interrupt_rows":
-        _TOOLS,
-    "test_weather.py::TestIntrospectionSurface::test_rows_absent_without_providers":
-        _TOOLS,
-}
+NOT_REPLAYED = {}
+SHIMS = (replay.KPCTL_SHIM,
+         ("        from soak import apply_fault, parse_fault_schedule\n",
+          "        from karpenter_provider_aws_tpu_torch.tools.soak import "
+          "apply_fault, parse_fault_schedule\n"))
 
 
 @pytest.mark.parametrize("test_id", replay.replayed(FILE, NOT_REPLAYED))
 def test_weather_equal_to_jax(test_id, tmp_path):
-    replay.replay(FILE, test_id, tmp_path)
+    replay.replay(FILE, test_id, tmp_path, shims=SHIMS)
 
 
 def test_weather_replays_cover_the_jax_tests():
