@@ -187,7 +187,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
    ``/metrics`` carrying ``karpenter_solver_mesh_devices 8.0`` and linting
    clean. The shard pack's D·B kernel rows and the merge's rows of (a)'s
    pipelined cold solve are held exactly against the plain version and
-   timed in phase 20;
+   timed in phase 22;
 14. remote: the remote solver over the port's own gRPC wire
    (``parallel/rpc.py``). (a) ``python -m
    karpenter_provider_aws_tpu_torch.parallel.sidecar`` as its own process
@@ -212,7 +212,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
    (b) Two in-process ``ChaosSidecar``s on the card, each with its own
    resident Solver: one cfg2 Solve RPC must launch the kernel exactly
    once; its inputs, captured, are held exactly against the plain version
-   and timed in phase 20. (c) ``SolverPool``s over the two, one fresh pool
+   and timed in phase 22. (c) ``SolverPool``s over the two, one fresh pool
    a step after a warm solve: one endpoint killed, hung (against a
    ``REMOTE_HANG_DEADLINE`` solve deadline), answering junk, both killed,
    and cfg3 (10,000 pods, 5.1 MB, over the 4 MiB message limit): each
@@ -288,7 +288,17 @@ Phases, in order; any failure exits non-zero and prints no result line:
    gates are printed, and a failed gate other than a latency gate
    (``SOAK_LATENCY_GATES``, which this host's speed alone can fail) fails
    the phase;
-21. kernel timing: the kernel and its plain version at cfg5's and cfg10's
+21. ci gates: the port's CI on the card. The drift checks (``python -m
+   karpenter_provider_aws_tpu_torch.tools.gen_crds --check`` and
+   ``gen_docs --check``) and the lint (``tools.lint.run --check``) once,
+   then each of the twelve CI gates (``tools/smoke_*.py`` of the port,
+   ``tools.gate.GATES``) as a child process with ``--device cuda``,
+   ``CI_GATES_AT_ONCE`` at a time, each of these processes killed with
+   its children at ``CI_SECONDS``: each gate must exit 0 with its
+   summary line, its device line must name ``cuda:0``, and each gate that solved must have
+   launched the kernel (its own count); the phase prints each gate's
+   seconds and launches;
+22. kernel timing: the kernel and its plain version at cfg5's and cfg10's
    own inputs (captured in a solve of each), at the first consolidation
    pass's probe dispatch (K x B rows in one call), at cfg7's last wave, at
    cfg11's shard pack (D·B rows) and merge, at cfg2's Solve RPC in a
@@ -360,6 +370,10 @@ TOOLS_SOAK_SECONDS = 600   # the soak child must end in this
 # burn over the run (a pass slower than the 200 ms budget for long enough)
 SOAK_LATENCY_GATES = ("soak: sustained latency burn",)
 DEVICE_LOST_SECONDS = 120  # the sticky-error child's run_passes deadline
+# phase 21: the CI gates (karpenter_provider_aws_tpu_torch/tools/smoke_*.py,
+# tools.gate.GATES)
+CI_GATES_AT_ONCE = 2       # gate processes at once (each mostly host-bound)
+CI_SECONDS = 300           # each drift, lint and gate process must end in this
 # the failover steps, each on a fresh pool over the two sidecars after one
 # warm cfg2 solve: step -> (fault on the sidecars, problem of the solve)
 REMOTE_FAILOVER_STEPS = {"kill": ("kill", "cfg2"), "hang": ("hang", "cfg2"),
@@ -3742,6 +3756,92 @@ def _tools(torch, workloads, oa):
     return out, launches
 
 
+def _run_group(cmd, timeout):
+    """``cmd`` from the checkout in a process group of its own, the whole
+    group killed at ``timeout`` or when it ends (a gate's children too);
+    (exit code or None when killed, stdout, stderr, seconds)."""
+    import signal
+    import subprocess
+    t = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=HERE, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+        rc = proc.returncode
+    except subprocess.TimeoutExpired:
+        rc = None
+    finally:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+    if rc is None:
+        out, err = proc.communicate()
+    return rc, out, err, time.perf_counter() - t
+
+
+def _ci_gates():
+    """Phase 21: the port's CI. The drift and lint checks once, then each
+    CI gate (``python -m karpenter_provider_aws_tpu_torch.tools.smoke_<name>
+    --device cuda``) as a child process, ``CI_GATES_AT_ONCE`` at a time,
+    each killed at ``CI_SECONDS``. Returns the phase's record and the
+    kernel launches of each gate's processes."""
+    import re
+    from concurrent.futures import ThreadPoolExecutor
+    from karpenter_provider_aws_tpu_torch.tools.gate import GATES
+    mod = "karpenter_provider_aws_tpu_torch.tools"
+    out = {"checks": {}, "gates": {}}
+    for name, args in (("drift crds", (f"{mod}.gen_crds", "--check")),
+                       ("drift docs", (f"{mod}.gen_docs", "--check")),
+                       ("lint", (f"{mod}.lint.run", "--check"))):
+        rc, so, se, secs = _run_group([sys.executable, "-m", *args],
+                                      CI_SECONDS)
+        last = (so.strip().splitlines() or [""])[-1]
+        print(f"ci {name}: exit code {rc} in {secs:.1f} s: {last}",
+              flush=True)
+        if rc != 0:
+            raise AssertionError(f"ci {name}: exit code {rc}\n"
+                                 f"{so[-3000:]}\n{se[-3000:]}")
+        out["checks"][name] = {"seconds": secs, "last_line": last}
+
+    def gate(name):
+        return name, _run_group(
+            [sys.executable, "-m", f"{mod}.smoke_{name}", "--device", "cuda"],
+            CI_SECONDS)
+
+    launches, failed = {}, []
+    with ThreadPoolExecutor(CI_GATES_AT_ONCE) as ex:
+        for name, (rc, so, se, secs) in ex.map(gate, GATES):
+            lines = so.strip().splitlines()
+            summary = lines[-1] if lines else ""
+            try:
+                dev = json.loads(lines[-2])
+            except (IndexError, ValueError):
+                dev = {}
+            ok = (rc == 0 and dev.get("gate") == name
+                  and str(dev.get("device", "")).startswith("cuda:0")
+                  and re.search(r"smoke(: |_\w+: )OK \(", summary)
+                  and (dev.get("kernel_launches", 0) >= 1
+                       or not dev.get("solved", True)))
+            print(f"ci gate {name}: exit code {rc} in {secs:.1f} s; "
+                  f"{dev}; {summary}", flush=True)
+            if not ok:
+                failed.append(name)
+                print(f"ci gate {name} output tail:\n"
+                      + "\n".join((so + se).splitlines()[-30:]),
+                      flush=True)
+            launches[name] = dev.get("kernel_launches", 0)
+            out["gates"][name] = {"exit_code": rc, "seconds": secs,
+                                  "device": dev.get("device"),
+                                  "solved": dev.get("solved"),
+                                  "launches": launches[name],
+                                  "summary": summary}
+    if failed:
+        raise AssertionError(f"ci gates failed on the card: {failed}")
+    return out, launches
+
+
 def _device_lost():
     """Phase 19: the sticky-error child (``_child_device_lost``)."""
     from karpenter_provider_aws_tpu_torch import cli
@@ -4013,7 +4113,11 @@ def _run(torch) -> int:
     launches.update(tools_launches)
     _check_solvers(torch, "tools")
 
-    # ---- 21. kernel times: the main paths' own inputs, the dense largest
+    # ---- 21. the port's CI: drift, lint and the twelve gates on the card
+    _phase("ci gates: drift, lint and the twelve smoke gates on the card")
+    ci_gates, ci_launches = _ci_gates()
+
+    # ---- 22. kernel times: the main paths' own inputs, the dense largest
     # bucket, the launch floor
     _phase("kernel timing")
     solver = Solver(lattice)
@@ -4107,6 +4211,8 @@ def _run(torch) -> int:
         "cli_kpctl": {"launches": launches["cli_kpctl"],
                       "passes_with_pending": tools["cli"]["passes_with_pending"]},
         "soak": {"launches": launches["soak"]},
+        "ci_gates": {"launches": sum(ci_launches.values()),
+                     "launches_by_gate": ci_launches},
         "dense": timed["dense"],
     }], "cfg5": cfg5, "cfg10": {k: v for k, v in steady.items()
                                 if k != "launches_per_pass"},
@@ -4116,7 +4222,7 @@ def _run(torch) -> int:
                                  if k != "max_abs_err"},
         "warm_start": warm_start, "profiling": profiling, "native": native,
         "bench": bench_phase,
-        "device_lost": device_lost, "tools": tools,
+        "device_lost": device_lost, "tools": tools, "ci_gates": ci_gates,
         "provisioner": {"cfg5_wave": prov["cfg5_wave"],
                         "cfg10_first_wave": prov["cfg10_first_wave"],
                         "cfg10": {k: v for k, v in prov["cfg10"].items()

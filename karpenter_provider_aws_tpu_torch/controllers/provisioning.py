@@ -398,18 +398,20 @@ class Provisioner:
             # the rolling latency window behind
             # karpenter_slo_latency_budget_burn; the cost referee is
             # cadence-gated inside the tracker (a host FFD re-pack of
-            # the SAME inputs, never on every pass)
+            # the SAME inputs, never on every pass). The same inputs are
+            # the pass's memoized snapshots: other controllers change the
+            # cluster while this pass solves, and a re-read after the
+            # solve (as the JAX package does) can see capacity the solve
+            # never saw, which reads as a costlier plan than FFD's
             self.slo.record_latency(plan.solve_seconds)
 
             def _referee_problem():
                 from ..solver.problem import build_problem
                 return build_problem(
                     list(pending), list(self.node_pools.values()), lattice,
-                    existing=self.cluster.existing_bins(lattice),
-                    daemonset_pods=self.cluster.daemonset_pods(),
-                    bound_pods=self.cluster.bound_pods(),
-                    pvcs=pvcs, storage_classes=storage_classes,
-                    pool_headroom=self._pool_headroom(pass_usage))
+                    existing=_existing(), daemonset_pods=_ds(),
+                    bound_pods=_bound(), pvcs=pvcs,
+                    storage_classes=storage_classes, pool_headroom=headroom)
             self.slo.maybe_cost_referee(plan, _referee_problem)
         result = ProvisionResult(plan=plan)
         self._observe_solver_health(plan, result)

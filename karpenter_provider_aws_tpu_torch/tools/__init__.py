@@ -16,6 +16,17 @@ of its own (``*_gpu_*``), never over the JAX rounds' artifacts.
     python -m karpenter_provider_aws_tpu_torch.tools.bench_explain
     python -m karpenter_provider_aws_tpu_torch.tools.bench_headroom
     python -m karpenter_provider_aws_tpu_torch.tools.profile_run
+    python -m karpenter_provider_aws_tpu_torch.tools.smoke_<name> [--device cuda]
+    bash karpenter_provider_aws_tpu_torch/tools/ci.sh [--fast]
+
+The twelve CI gates ``smoke_{introspect,delta,writepath,weather,explain,
+headroom,profile,consolidation,pool,sharded,microloop,handoff}`` are the
+counterparts of the repository's ``tools/smoke_*.py``, with the same
+assertions, sizes, seeds and bounds; ``gate`` holds what they share (the
+``--device`` flag, the device line each prints with its kernel launches).
+``ci.sh`` runs the repository gate's sixteen steps on this package's
+modules, ``DEVICE`` (default ``cuda``) passed as ``--device`` to every
+gate and to the bench.
 
 ``churn`` holds the operator churn loop that ``bench_explain`` and
 ``bench_headroom`` share; ``overhead_order`` runs the three overhead

@@ -4,14 +4,18 @@ The counterpart of the repository's ``tools/gen_docs.py``: the same pages
 rendered from this package's lattice, metrics registry and CLI. The pages
 differ from the checked-in ``docs/reference/`` only where the port's CLI
 does (``settings.md``: the ``--device`` flag and the flags whose help
-names the device or the compile cache), each line pinned by
-``tests/test_torch_tools_replay.py``.
+names the device or the compile cache), each line pinned with its reason
+by ``SETTINGS_SEAMS`` below. ``--check`` is the drift gate of the port's
+``ci.sh``: it renders every page into a scratch directory and compares
+each with the checked-in page as the port renders it (``seamed``),
+printing a unified diff and a ``STALE`` line for each page that differs.
 
 The reference generates its website reference pages from code
 (hack/docs/instancetypes_gen_docs.go, metrics_gen_docs.go,
 configuration_gen_docs.go); this does the same for docs/reference/:
 
   python -m karpenter_provider_aws_tpu_torch.tools.gen_docs [--out-dir docs/reference]
+  python -m karpenter_provider_aws_tpu_torch.tools.gen_docs --check
 
 - instance-types.md — every lattice instance type with its labels,
   capacity, and allocatable (reference website
@@ -267,18 +271,129 @@ def gen_compatibility(out: Path) -> int:
     return len(rows)
 
 
-def main(argv=None) -> int:
-    p = argparse.ArgumentParser(description=__doc__)
-    p.add_argument("--out-dir", default="docs/reference")
-    args = p.parse_args(argv)
-    out = Path(args.out_dir)
+# flag -> (reason, the port's row of settings.md); "--device" is the one
+# row the port adds (first of the flag table), the others replace the
+# checked-in page's row of the same flag
+SETTINGS_SEAMS = {
+    '--device': (
+        "the port's one extra flag: the device of the Solver's tensors (default cuda, raising without a card)",
+        "| `--device` | - | cuda | Device of the solver's tensors: "
+        "'cuda' (default; raises without CUDA) or 'cpu' (the plain "
+        'PyTorch path). |'),
+    '--warm-start': (
+        'the boot ladder runs each shape on the device; nothing is compiled (no XLA, no AOT)',
+        "| `--warm-start` | - |  | Run the Solver's boot (G, B) bucket "
+        'ladder on the --device on a background thread at start (the '
+        'SLO warmup window stays open until it ends), so the first real '
+        'pass does not pay the cold cost. |'),
+    '--compile-cache-dir': (
+        'no compile cache to persist: the flag is refused at start',
+        '| `--compile-cache-dir` | COMPILE_CACHE_DIR |  | Not carried '
+        '(env COMPILE_CACHE_DIR): nothing is compiled at run time; '
+        'fails at start when set. |'),
+    '--profile-dir': (
+        "the trace is torch.profiler's (CPU and CUDA activity), not xprof's",
+        '| `--profile-dir` | - |  | Profile every solve with '
+        'torch.profiler (CPU and CUDA activity, a named span per pack '
+        'call) and write the Chrome trace under this directory on exit. '
+        '|'),
+    '--mesh': (
+        "the mesh batches its shards on the one --device; 'auto' stays single-device until one shard per card lands",
+        '| `--mesh` | SOLVER_MESH |  | Device mesh for the sharded '
+        'solver (env SOLVER_MESH): an integer N splits every solve '
+        '(full, wave-split and the steady-state delta) into N pod '
+        'shards packed as one batched pass on the --device, then merges '
+        "their tail bins; 'auto' (default) plans the single-device path "
+        'however many cards are visible, since the shards would share '
+        'the --device and a mesh batched on one card is slower than the '
+        "single-device solve; 'off' or 1 pins the single-device path. |"),
+    '--solver-address': (
+        "the sidecar module is this package's, and the local rung runs on --device",
+        '| `--solver-address` | SOLVER_ADDRESSES (or SOLVER_ADDRESS) |  '
+        '| Delegate provisioning solves to a POOL of solver sidecar '
+        'processes: a comma-separated list of gRPC addresses (python -m '
+        'karpenter_provider_aws_tpu_torch.parallel.sidecar; env '
+        'SOLVER_ADDRESSES, singular SOLVER_ADDRESS still works). Each '
+        'endpoint gets a circuit breaker with health-checked half-open '
+        'probation; solves fail over to the least-loaded healthy '
+        'endpoint, and the local solver (on --device) is the final rung '
+        'only when the whole pool is dark '
+        '(docs/reference/solver-pool.md). |'),
+}
+
+
+def row_flag(line):
+    """The flag of a row of ``settings.md``'s flag table, else None."""
+    return line.split("`")[1] if line.startswith("| `--") else None
+
+
+def seamed(page, text):
+    """The checked-in ``page`` as the port renders it: ``settings.md``
+    with ``SETTINGS_SEAMS`` applied, every other page as it is."""
+    if page != "settings.md":
+        return text
+    out, added = [], False
+    for line in text.split("\n"):
+        flag = row_flag(line)
+        if flag in SETTINGS_SEAMS:
+            line = SETTINGS_SEAMS[flag][1]
+        out.append(line)
+        if line == "|---|---|---|---|" and not added:
+            # the flag table's head: the port's first row is --device
+            out.append(SETTINGS_SEAMS["--device"][1])
+            added = True
+    return "\n".join(out)
+
+
+PAGES = ("instance-types.md", "metrics.md", "settings.md",
+         "compatibility.md")
+
+
+def render_all(out: Path) -> str:
+    """Write every page into ``out``; the summary line."""
     out.mkdir(parents=True, exist_ok=True)
     n_types = gen_instance_types(out)
     n_metrics = gen_metrics(out)
     n_flags = gen_settings(out)
     n_compat = gen_compatibility(out)
-    print(f"docs: {n_types} instance types, {n_metrics} metrics, "
-          f"{n_flags} flags, {n_compat} compatibility rows -> {out}")
+    return (f"docs: {n_types} instance types, {n_metrics} metrics, "
+            f"{n_flags} flags, {n_compat} compatibility rows -> {out}")
+
+
+def check(against: Path) -> list:
+    """The pages of ``against`` that differ from what this package renders
+    (``settings.md`` compared under ``SETTINGS_SEAMS``); each one's
+    unified diff is printed, then a ``STALE`` line."""
+    import difflib
+    import tempfile
+    stale = []
+    with tempfile.TemporaryDirectory() as tmp:
+        render_all(Path(tmp))
+        for page in PAGES:
+            path = against / page
+            want = seamed(page, path.read_text()) if path.exists() else ""
+            got = (Path(tmp) / page).read_text()
+            if want != got:
+                print("".join(difflib.unified_diff(
+                    want.splitlines(True), got.splitlines(True),
+                    str(path), f"(rendered) {page}")), end="")
+                print(f"STALE {path} — run: python -m "
+                      "karpenter_provider_aws_tpu_torch.tools.gen_docs "
+                      "--out-dir <dir> and compare")
+                stale.append(page)
+    return stale
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--out-dir", default="docs/reference")
+    p.add_argument("--check", action="store_true",
+                   help="render into a scratch directory and compare with "
+                        "docs/reference instead of writing; exit 1 on drift")
+    args = p.parse_args(argv)
+    if args.check:
+        return 1 if check(Path("docs/reference")) else 0
+    print(render_all(Path(args.out_dir)))
     return 0
 
 

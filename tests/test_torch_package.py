@@ -11,6 +11,7 @@ CPU.
 import ast
 import hashlib
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -362,12 +363,18 @@ OPERATOR_TOOLS = ("entry", "deploy", "tools.kpctl", "tools.soak",
                   "tools.gen_crds", "tools.gen_docs", "tools.allocatable_diff",
                   "tools.import_reference_data", "tools.kompat",
                   "tools.lint", "tools.lint.rules", "tools.lint.baseline",
-                  "tools.lint.run")
+                  "tools.lint.run", "tools.gate")
+# the CI gates, counterparts of the repository's tools/smoke_*.py, in the
+# order of the repository's tools/ci.sh
+SMOKE_GATES = tuple(re.findall(r"^\$PY tools/smoke_(\w+)\.py",
+                               (REPO / "tools" / "ci.sh").read_text(),
+                               re.MULTILINE))
+OPERATOR_TOOLS += tuple(f"tools.smoke_{g}" for g in SMOKE_GATES)
 
 
 def test_guard_covers_the_operator_tools_and_entry():
     """The import guards above check the port's kpctl, soak, generators,
-    lint runner, entry module and deployment renderer; no file of the
+    lint runner, CI gates, entry module and deployment renderer; no file of the
     port, nor chip_smoke.py, imports one of the repository's tool modules
     or edits ``sys.path`` to reach them, and each new module imports in a
     process where jax, the JAX package and the repository's tools cannot
@@ -398,3 +405,37 @@ def test_guard_covers_the_operator_tools_and_entry():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "imported" in out.stdout
+
+
+def test_port_ci_script_runs_the_ports_modules_only():
+    """The port's ``tools/ci.sh`` runs, in the repository gate's order,
+    the port's drift check (``gen_crds`` and ``gen_docs --check``), its
+    lint, each of the twelve CI gates with ``--device "$DEVICE"``, the
+    port's tests and its bench; it names no module of the repository's
+    ``tools/`` and nothing of the JAX package."""
+    text = (PORT / "tools" / "ci.sh").read_text()
+    code = "\n".join(ln for ln in text.splitlines()
+                     if not ln.lstrip().startswith("#"))
+    pkg = "$PKG"
+    assert "PKG=karpenter_provider_aws_tpu_torch" in code
+    steps = [f"{pkg}.tools.gen_crds --check",
+             f"{pkg}.tools.gen_docs --check",
+             f"{pkg}.tools.lint.run --check"]
+    steps += [f'{pkg}.tools.smoke_{g} --device "$DEVICE"'
+              for g in SMOKE_GATES]
+    steps += ["pytest tests/test_torch_*.py", "-m 'not slow'",
+              f'{pkg}.bench --device "$DEVICE" --smoke']
+    at = [code.find(s) for s in steps]
+    assert -1 not in at, [s for s, a in zip(steps, at) if a == -1]
+    assert at == sorted(at)
+    assert len(SMOKE_GATES) == 12
+    assert sorted(SMOKE_GATES) == sorted(
+        re.findall(r"\.tools\.smoke_(\w+) ", code)) == sorted(
+        p.stem[len("smoke_"):] for p in (PORT / "tools").glob("smoke_*.py"))
+    assert "DEVICE=${DEVICE:-cuda}" in code and "--fast" in code
+    assert code.count("=== ci [") == 17          # 16 steps, 16 skipped
+    # the port's own path is the one mention of a tools/ directory
+    rest = text.replace("karpenter_provider_aws_tpu_torch/tools/ci.sh", "")
+    assert not re.search(r"(^|[^\w.])tools/", rest), rest
+    assert not re.search(r"karpenter_provider_aws_tpu[./]", text)
+    assert "JAX_PLATFORMS" not in code and "bench.py" not in text

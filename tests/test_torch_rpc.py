@@ -241,7 +241,10 @@ def _raw_frames(path, frames, until_close=False):
     """Send HTTP/2 ``frames`` after the preface and a SETTINGS frame on a
     raw connection to the unix socket ``path``; (type, flags, stream,
     payload) of every frame read back until the peer closes, or, unless
-    ``until_close``, until stream 1 ends or is reset."""
+    ``until_close``, until stream 1 ends or is reset: as soon as any frame
+    read so far ends stream 1 or resets it, not only the last one (a peer
+    may send a WINDOW_UPDATE or a PING in the same write after its
+    answer, and then stay open)."""
     sock = socket.socket(socket.AF_UNIX)
     sock.connect(str(path))
     sock.sendall(rpc.PREFACE + rpc._Connection._frame(rpc.SETTINGS, 0, 0)
@@ -262,9 +265,10 @@ def _raw_frames(path, frames, until_close=False):
                 out.append((length_type & 0xFF, flags, sid,
                             data[9:9 + length]))
                 data = data[9 + length:]
-            last = out[-1] if out else None
-            if not until_close and last is not None and last[2] == 1 and (
-                    last[0] == rpc.RST_STREAM or last[1] & rpc.FLAG_END_STREAM):
+            if not until_close and any(
+                    sid == 1 and (ftype == rpc.RST_STREAM
+                                  or flags & rpc.FLAG_END_STREAM)
+                    for ftype, flags, sid, _ in out):
                 break
     finally:
         sock.close()
@@ -287,6 +291,53 @@ def _answer(frames):
                 break             # a reset after the answer (NO_ERROR)
             return f"reset {struct.unpack('>I', payload)[0]}", None
     return fields.get("grpc-status"), body[5:] if body else None
+
+
+@pytest.mark.parametrize("end, after", [
+    # grpcio's trailers-only answer, then a WINDOW_UPDATE and a PING in
+    # the same write (the frames read when the reader timed out)
+    ((rpc.HEADERS, rpc.FLAG_END_HEADERS | rpc.FLAG_END_STREAM,
+      rpc.encode_headers([(":status", "200"), ("grpc-status", "12")])),
+     (rpc.PING, 0, b"\0" * 8)),
+    ((rpc.RST_STREAM, 0, struct.pack(">I", rpc.CANCEL)),
+     (rpc.WINDOW_UPDATE, 0, struct.pack(">I", 1 << 16))),
+], ids=["headers-end-stream-then-ping", "rst-stream-then-window-update"])
+def test_raw_frames_stops_at_any_frame_that_ends_stream_1(tmp_path, end,
+                                                          after):
+    """The raw reader returns as soon as any frame read so far ends or
+    resets stream 1, though a connection frame follows it in the same
+    write and the peer stays open: within a second, far inside its 5 s
+    socket timeout, with the ending frame in its list."""
+    frame = rpc._Connection._frame
+    path = tmp_path / "peer.sock"
+    listener = socket.socket(socket.AF_UNIX)
+    listener.bind(str(path))
+    listener.listen(1)
+    done = threading.Event()
+
+    def peer():
+        conn, _ = listener.accept()
+        try:
+            conn.recv(65536)                   # the preface and SETTINGS
+            conn.sendall(frame(end[0], end[1], 1, end[2])
+                         + frame(after[0], after[1], 0, after[2]))
+            done.wait(10)                      # and stay open
+        finally:
+            conn.close()
+
+    thread = threading.Thread(target=peer, daemon=True)
+    thread.start()
+    try:
+        t = time.monotonic()
+        frames = _raw_frames(path, [])
+        took = time.monotonic() - t
+    finally:
+        done.set()
+        thread.join(10)
+        listener.close()
+    assert took < 1.0, took
+    assert (end[0], end[1], 1, end[2]) in frames
+    assert frames[-1][0] == after[0]
 
 
 def test_peer_sending_huffman_gets_goaway_compression_error(tmp_path):
@@ -392,19 +443,16 @@ def transport(request):
 @pytest.fixture
 def pairs(transport, tmp_path):
     """Each cross pair, and grpcio against grpcio as the reference."""
-    out = {name: _Pair(s, c, transport, tmp_path / name)
-           for name, (s, c) in DIRECTIONS.items()}
-    out["grpcio"] = _Pair(grpc, grpc, transport, tmp_path / "grpcio")
+    out = {}
+    for i, (name, (s, c)) in enumerate(
+            list(DIRECTIONS.items()) + [("grpcio", (grpc, grpc))]):
+        # a short directory name per pair: a unix socket's path holds at
+        # most 107 bytes, and pytest's tmp_path grows with its run count
+        (tmp_path / str(i)).mkdir()
+        out[name] = _Pair(s, c, transport, tmp_path / str(i))
     yield out
     for p in out.values():
         p.close()
-
-
-@pytest.fixture(autouse=True)
-def _dirs(tmp_path):
-    """A directory for each pair's socket (autouse: made before ``pairs``)."""
-    for name in list(DIRECTIONS) + ["grpcio"]:
-        (tmp_path / name).mkdir(exist_ok=True)
 
 
 def test_sizes_each_way_match_grpcio(pairs):
@@ -653,7 +701,8 @@ def test_raw_huffman_headers_get_the_same_answers(tmp_path):
 
 
 def _dir(tmp_path, mod, role):
-    path = tmp_path / f"{role}-{mod.__name__.rsplit('.', 1)[-1]}"
+    """A directory for a socket, its name short (as ``pairs``' are)."""
+    path = tmp_path / f"{role[:2]}{'p' if mod is rpc else 'g'}"
     path.mkdir()
     return path
 
