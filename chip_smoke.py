@@ -160,7 +160,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    ``/metrics`` lint clean, no controller tick raised, and ``main`` must
    return 0 within ``API_CLI_STOP_SECONDS`` of its stop event;
 13. mesh: the sharded solve, ``MESH_SHARDS`` (8) pod shards batched on
-   the card (``plan_mesh("8")``, as ``--mesh 8`` plans it). (a) cfg11
+   the card (``plan_mesh("8", ranks=1)``, as ``--mesh 8`` plans it on one
+   card). (a) cfg11
    (``workloads.config11_200k_sharded``: 200,000 pods in 32 shapes with
    selectors, the real catalog, seed 12; not cut) on a mesh-native
    ``Solver(lattice, mesh=...)``, sequential and pipelined, and on the
@@ -185,9 +186,22 @@ Phases, in order; any failure exits non-zero and prints no result line:
    on the card through one forced pass of the cfg9 wave: its plan on 8
    shards, equal to (b)'s mesh plan node by node, the kernel launched, and
    ``/metrics`` carrying ``karpenter_solver_mesh_devices 8.0`` and linting
-   clean. The shard pack's D·B kernel rows and the merge's rows of (a)'s
-   pipelined cold solve are held exactly against the plain version and
-   timed in phase 22;
+   clean. (e) One shard per card: cfg11 through the rank program
+   (parallel/ranks.py) over NCCL on every visible card, 8 shards on
+   min(8, cards) ranks (on one card a group of one rank, forced with
+   ``solver_mesh(8, ranks=1, group=True)``, since ``plan_mesh`` plans the
+   batched pack there): its plan equal to the batched pack's, its
+   stacked shard buffer and float32 total byte-identical to the batched
+   pack's, at least one launch on every rank, their sum counted at rank
+   0, the e2e p50 against the batched mesh and the single-device solve in
+   turns (``MESH_RANK_SOLVES`` each), the workers' spawn time, cfg10's
+   steady passes through the microloop on the ranks (the resident buffer
+   sent as its delta; each plan equal to a sequential batched-mesh solve,
+   legs within phase (c)'s bound), and no worker alive after the ranks
+   close; the step must end within
+   ``MESH_RANK_SECONDS``. The shard pack's D·B kernel rows and the
+   merge's rows of (a)'s pipelined cold solve, and rank 0's shard rows of
+   (e), are held exactly against the plain version and timed in phase 22;
 14. remote: the remote solver over the port's own gRPC wire
    (``parallel/rpc.py``). (a) ``python -m
    karpenter_provider_aws_tpu_torch.parallel.sidecar`` as its own process
@@ -347,6 +361,8 @@ MESH_SHARDS = 8            # the mesh phase's shards (--mesh 8)
 MESH_SOLVES = 3            # cfg11 solves per path, the three paths in turns
 MESH_LEGS = 2              # link legs of a steady pass on the mesh, and of
 MESH_LEGS_MERGE = 4        # one that re-ran the tail-bin merge (+2 a regrow)
+MESH_RANK_SOLVES = 3       # cfg11 solves per path of the rank step, in turns
+MESH_RANK_SECONDS = 60     # the rank step must end within this
 SIDECAR_START_SECONDS = 180  # the sidecar process must serve within this
 REMOTE_SOLVE_DEADLINE = 30.0  # the pools' solve deadline (s), the hang's apart
 REMOTE_HANG_DEADLINE = 3.0  # the solve deadline of the hang step (s)
@@ -2251,10 +2267,12 @@ def _mesh(torch, workloads, lattice, oa):
     def canon(plan):
         return json.dumps(serde.plan_semantic_dict(plan), sort_keys=True)
 
-    plan8 = plan_mesh(str(MESH_SHARDS))
+    # the batched pack: one card's plan of --mesh 8 (on several cards
+    # plan_mesh puts the shards on ranks, step (e))
+    plan8 = plan_mesh(str(MESH_SHARDS), ranks=1)
     mesh = plan8.mesh
-    if (plan8.devices, plan8.source, mesh.shards) != (MESH_SHARDS, "forced",
-                                                       MESH_SHARDS):
+    if (plan8.devices, plan8.source, mesh.shards, mesh.ranks) != (
+            MESH_SHARDS, "forced", MESH_SHARDS, 1):
         raise AssertionError(f"mesh: plan_mesh planned {plan8}")
     out, launches = {}, {}
 
@@ -2563,7 +2581,208 @@ def _mesh(torch, workloads, lattice, oa):
                              f"{problems[:3]}")
     out["operator_cfg9"] = {"wall_ms": op_ms, "claims": len(results[0].created_claims),
                             "launches": launches["operator_cfg9_mesh"]}
-    return out, launches, shard_rows[-1], merge_rows[-1]
+
+    # (e) one shard per card: cfg11 through the rank program
+    out["cfg11_ranks"], rank_launches, rank0_rows = _mesh_ranks(
+        torch, oa, lattice, pods, pools, existing, problem,
+        paths["cfg11_mesh_pipelined"], paths["cfg11_single"], canon)
+    launches.update(rank_launches)
+    return out, launches, shard_rows[-1], merge_rows[-1], rank0_rows
+
+
+def _gone(pid: int) -> bool:
+    """Whether process ``pid`` has exited (a zombie awaiting its reaper
+    too)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rpartition(")")[2].split()[0] == "Z"
+    except FileNotFoundError:
+        return True
+
+
+def _mesh_ranks(torch, oa, lattice, pods, pools, existing, problem, batched,
+                single, canon):
+    """Phase 13, step (e): cfg11 through the rank program over NCCL on
+    every visible card, against the batched pack (``batched``, a Solver on
+    the 8-shard batched mesh) and the single-device solve. Returns its
+    numbers, its launches and rank 0's shard-pack kernel inputs."""
+    import numpy as np
+
+    from karpenter_provider_aws_tpu_torch.ops import binpack
+    from karpenter_provider_aws_tpu_torch.parallel import (plan_mesh, ranks,
+                                                           sharded,
+                                                           solver_mesh)
+    from karpenter_provider_aws_tpu_torch.solver import Solver
+    from karpenter_provider_aws_tpu_torch.solver.problem import build_problem
+
+    t_step = time.perf_counter()
+    cards = torch.cuda.device_count()
+    W = min(MESH_SHARDS, cards)
+    planned = plan_mesh(str(MESH_SHARDS))
+    if planned.ranks != W:
+        raise AssertionError(f"mesh ranks: plan_mesh put {MESH_SHARDS} shards "
+                             f"on {planned.ranks} ranks with {cards} card(s)")
+    # on one card plan_mesh plans the batched pack, with no group: force
+    # the rank program there with a group of one rank
+    mesh = planned.mesh if W > 1 else solver_mesh(MESH_SHARDS, ranks=1,
+                                                  group=True)
+    t = time.perf_counter()
+    rs = ranks.acquire(mesh, torch.device("cuda"))
+    acquire_ms = (time.perf_counter() - t) * 1e3
+    solver = Solver(lattice, mesh=mesh)
+    if solver.device.type != "cuda" or solver.mesh_ranks != W:
+        raise AssertionError(f"mesh ranks: Solver on {solver.device}, "
+                             f"{solver.mesh_ranks} rank(s)")
+    print(f"mesh ranks: {MESH_SHARDS} shards on {W} rank(s) over NCCL "
+          f"({[str(d) for d in rs.devices]}), blocks {mesh.blocks()}; "
+          f"workers spawned and joined in {rs.spawn_ms:.1f} ms", flush=True)
+
+    packs = []
+    orig_pack, orig_offering = sharded.sharded_pack, binpack.cheapest_offering
+
+    def recorded(*a, **kw):
+        before = oa.LAUNCHES
+        sp = orig_pack(*a, **kw)
+        packs.append((sp.packed.cpu().numpy().tobytes(),
+                      np.float32(float(sp.total_cost)).tobytes(),
+                      int(sp.total_nodes), int(sp.total_leftover),
+                      tuple(sp.packed.shape), oa.LAUNCHES - before))
+        return sp
+
+    captured = []
+
+    def capture(tm, zc, pr):
+        captured.append((tm.clone(), zc.clone(), pr.clone()))
+        return orig_offering(tm, zc, pr)
+
+    sharded.sharded_pack = recorded
+    try:
+        oa.LAUNCHES = 0
+        binpack.cheapest_offering = capture
+        t = time.perf_counter()
+        try:
+            plan = solver.solve(problem)
+            torch.cuda.synchronize()
+        finally:
+            binpack.cheapest_offering = orig_offering
+        cold_ms = (time.perf_counter() - t) * 1e3
+        launched = oa.LAUNCHES
+        ranked, per_rank, last = packs[:], list(rs.last["launches"]), dict(rs.last)
+        packs.clear()
+        ref = batched.solve(problem)
+        torch.cuda.synchronize()
+        reference = packs[:]
+    finally:
+        sharded.sharded_pack = orig_pack
+    same_plan = canon(plan) == canon(ref)
+    same_bytes = [p[:5] for p in ranked] == [p[:5] for p in reference]
+    print(f"mesh ranks cfg11: {len(plan.new_nodes)} nodes, "
+          f"${plan.new_node_cost:.2f}/hr, plan == batched pack's {same_plan}; "
+          f"{len(ranked)} sharded pack(s), stacked {ranked[0][4]} buffer and "
+          f"float32 total byte-identical {same_bytes}; launches per rank "
+          f"{per_rank} (sum {sum(per_rank)}, counted at rank 0 around the "
+          f"pack {ranked[-1][5]}), {launched} in the solve; broadcast "
+          f"{last['bcast_bytes']} B, gathered {last['gather_bytes']} B a pack; "
+          f"cold solve {cold_ms:.1f} ms", flush=True)
+    if not same_plan or plan.mesh_devices != MESH_SHARDS or plan.degraded:
+        raise AssertionError("mesh ranks: the plan differs from the batched "
+                             "pack's")
+    if not same_bytes:
+        raise AssertionError("mesh ranks: the stacked shard buffer or the "
+                             "float32 total differs from the batched pack's")
+    if len(per_rank) != W or min(per_rank) < 1 or sum(per_rank) != ranked[-1][5]:
+        raise AssertionError(f"mesh ranks: launches per rank {per_rank}, "
+                             f"{ranked[-1][5]} counted at rank 0")
+    rows0 = mesh.blocks()[0][1] - mesh.blocks()[0][0]
+    if len(captured) < 2 or captured[0][0].shape[0] % rows0:
+        raise AssertionError(f"mesh ranks: rank 0 made {len(captured)} kernel "
+                             f"call(s), the first of "
+                             f"{captured[0][0].shape[0] if captured else 0} rows "
+                             f"for {rows0} shard(s)")
+
+    paths = {"cfg11_ranks": solver, "cfg11_batched": batched,
+             "cfg11_single": single}
+    cold = {"cfg11_ranks": plan, "cfg11_batched": ref}
+    e2e = {name: [] for name in paths}
+    stages = {name: {} for name in paths}
+    order = list(paths)
+    for i in range(MESH_RANK_SOLVES):
+        for name in (order[i % 3:] + order[:i % 3]):
+            t = time.perf_counter()
+            p = paths[name].solve(build_problem(pods, pools, lattice,
+                                                existing=existing))
+            torch.cuda.synchronize()
+            e2e[name].append((time.perf_counter() - t) * 1e3)
+            for k, v in p.stage_ms.items():
+                stages[name].setdefault(k, []).append(v)
+            if name in cold and not _same_plan(p, cold[name]):
+                raise AssertionError(f"{name}: a repeated solve changed the plan")
+    out = {"cards": cards, "ranks": W, "devices": [str(d) for d in rs.devices],
+           "blocks": mesh.blocks(), "spawn_ms": rs.spawn_ms,
+           "acquire_ms": acquire_ms, "cold_ms": cold_ms,
+           "launches_per_rank": per_rank, "launches_in_solve": launched,
+           "bcast_bytes": last["bcast_bytes"],
+           "gather_bytes": last["gather_bytes"],
+           "plan_equal": same_plan, "bytes_equal": same_bytes,
+           "rank0_rows": int(captured[0][0].shape[0])}
+    for name in paths:
+        ms = e2e[name]
+        out[name] = {"e2e_p50_ms": statistics.median(ms), "e2e_ms": ms,
+                     "stage_p50_ms": {k: statistics.median(v)
+                                      for k, v in stages[name].items()}}
+        print(f"{name}: e2e p50 {statistics.median(ms):.3f} ms over "
+              f"{MESH_RANK_SOLVES} solves (min {min(ms):.3f}, max {max(ms):.3f}); "
+              f"stage p50 ms { {k: round(v, 3) for k, v in out[name]['stage_p50_ms'].items()} }",
+              flush=True)
+    # cfg10's steady passes on the ranks: the microloop's resident buffer
+    # reaches them as its delta; each plan equal to a sequential solve of
+    # the same problem on the batched mesh
+    from karpenter_provider_aws_tpu_torch import workloads
+    solver10, _churn, _pools10, passes = workloads.delta_on_mesh_passes(
+        lattice, mesh)
+    referee = Solver(lattice, pipeline=False, mesh=batched.mesh)
+    rows, pre = [], None
+    for pass_i, res, plan_p, ms, legs in passes:
+        torch.cuda.synchronize()
+        if canon(plan_p) != canon(referee.solve(res.problem)):
+            raise AssertionError(f"mesh ranks cfg10 pass {pass_i}: the plan "
+                                 f"differs from the batched mesh's")
+        st = dict(solver10.pipeline_stats)
+        if pass_i >= 0:
+            merged = st["micro_merge_solves"] > pre["micro_merge_solves"]
+            regrows = st["micro_merge_regrows"] - pre["micro_merge_regrows"]
+            bound = (MESH_LEGS_MERGE if merged else MESH_LEGS) + 2 * regrows
+            rows.append({"pass": pass_i, "ms": ms, "legs": legs,
+                         "resident": solver10._ranks.last.get("resident"),
+                         "micro": st["micro_solves"] - pre["micro_solves"]})
+            if not (res.incremental and rows[-1]["micro"] == 1) or legs > bound:
+                raise AssertionError(f"mesh ranks cfg10 pass {pass_i}: "
+                                     f"{rows[-1]}, bound {bound}")
+        pre = st
+    out["cfg10_delta"] = {
+        "passes": len(rows), "pass_p50_ms": statistics.median(
+            r["ms"] for r in rows),
+        "legs_per_pass": [r["legs"] for r in rows],
+        "resident": [r["resident"] for r in rows]}
+    print(f"mesh ranks cfg10: {len(rows)} delta passes on the ranks, each "
+          f"plan == the batched mesh's; pass p50 "
+          f"{out['cfg10_delta']['pass_p50_ms']:.3f} ms, legs "
+          f"{out['cfg10_delta']['legs_per_pass']}, the resident buffer sent "
+          f"as {out['cfg10_delta']['resident']}", flush=True)
+    pids = rs.pids()
+    ranks.shutdown_all()
+    left = ranks.live_workers() + [p for p in pids if not _gone(p)]
+    step_s = time.perf_counter() - t_step
+    out["step_s"] = step_s
+    print(f"mesh ranks: closed; workers left {left}; the step took "
+          f"{step_s:.1f} s", flush=True)
+    if left:
+        raise AssertionError(f"mesh ranks: workers still alive {left}")
+    if step_s > MESH_RANK_SECONDS:
+        raise AssertionError(f"mesh ranks: the step took {step_s:.1f} s, "
+                             f"over {MESH_RANK_SECONDS} s")
+    return out, {"cfg11_ranks": launched,
+                 "cfg11_ranks_per_rank": per_rank}, captured[0]
 
 
 def _remote(torch, workloads, lattice, oa):
@@ -4069,9 +4288,10 @@ def _run(torch) -> int:
     _check_solvers(torch, "api")
 
     # ---- 13. the sharded solve: 8 shards batched on the card
-    _phase("mesh: cfg11 (200k pods), cfg9, delta and the Operator on 8 shards")
-    mesh, mesh_launches, mesh_shard_inputs, mesh_merge_inputs = _mesh(
-        torch, workloads, lattice, oa)
+    _phase("mesh: cfg11 (200k pods), cfg9, delta and the Operator on 8 shards, "
+           "and cfg11 one shard per card")
+    mesh, mesh_launches, mesh_shard_inputs, mesh_merge_inputs, \
+        rank0_inputs = _mesh(torch, workloads, lattice, oa)
     launches.update(mesh_launches)
     _check_solvers(torch, "mesh")
 
@@ -4131,6 +4351,7 @@ def _run(torch) -> int:
             ("cfg4_probe", probe_inputs), ("cfg7_last_wave", cfg7_inputs),
             ("cfg11_mesh_shards", mesh_shard_inputs),
             ("cfg11_mesh_merge", mesh_merge_inputs),
+            ("cfg11_rank0_shards", rank0_inputs),
             ("sidecar_cfg2", sidecar_inputs),
             ("dense", measure.on_device(offering_cases.dense_case(), dev))):
         max_err = max(max_err, measure.check_exact(
@@ -4188,6 +4409,11 @@ def _run(torch) -> int:
         "cfg11_mesh_merge": {**timed["cfg11_mesh_merge"], "library_ms": None,
                              "launches": launches["cfg11_mesh_merge"],
                              "launches_per_solve": launches["cfg11_mesh_merge"]},
+        "cfg11_rank0_shards": {**timed["cfg11_rank0_shards"], "library_ms": None,
+                               "launches": launches["cfg11_ranks"],
+                               "launches_per_rank":
+                                   launches["cfg11_ranks_per_rank"],
+                               "ranks": mesh["cfg11_ranks"]["ranks"]},
         "cfg10_delta_on_mesh": {"launches": launches["cfg10_delta_on_mesh"]},
         "sidecar_cfg2": {**timed["sidecar_cfg2"], "library_ms": None,
                          "launches": launches["sidecar_cfg2"],

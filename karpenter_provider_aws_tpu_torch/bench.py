@@ -120,7 +120,8 @@ def _placed(plan) -> int:
 def run_sharded_config(make, lattice, solver, iters=5):
     """The cfg9 sharded-scale row: ``Solver.solve(mesh=...)`` end to end.
 
-    Shards over every visible device of the Solver's type (capped at 8);
+    Shards over every visible device of the Solver's type (capped at 8),
+    one shard per card (parallel/ranks.py);
     ``mesh_devices`` is recorded so a one-card run reads as such. A mesh
     of one shard is the Solver's single-device passthrough, not the
     sharded pack: ``sharded_pack_ran`` says which ran, from the Solver's
@@ -256,8 +257,9 @@ def run_sharded_artifact(catalog="real", devices=8, out=SHARDED_OUT,
     """``--sharded``: the 200k-pod mesh row, the mesh-vs-single-device
     byte-parity row and the delta-on-mesh steady-state row (cfg10's
     harness on a mesh-native Solver), written as one artifact. The mesh
-    is ``plan_mesh(str(devices), device=device)``: ``devices`` shards
-    batched on the Solver's device. ``"backend"`` names that device."""
+    is ``plan_mesh(str(devices), device=device)``: ``devices`` shards on
+    min(devices, cards) ranks, one card each (batched on the Solver's
+    device on one card). ``"backend"`` names that device."""
     from .parallel import plan_mesh
     from .solver import Solver
 
@@ -894,7 +896,8 @@ def run_device_delta_artifact(catalog="real", out=DEVICE_DELTA_OUT,
                               device=None):
     """``--device-delta``: the microloop's steady-state row on a single
     device AND on an 8-shard mesh (``plan_mesh("8", device=device)``,
-    batched on the same device), written as one artifact. ``"backend"``
+    batched on the same device on one card, one shard per card on
+    several), written as one artifact. ``"backend"``
     names the device."""
     from .parallel import plan_mesh
     from .solver import Solver
@@ -1085,7 +1088,7 @@ def main(argv=None):
                          "8-shard row refereed against the FFD referee, "
                          "the mesh-vs-single-device byte-parity row and "
                          "the delta-on-mesh steady-state row, 8 shards "
-                         "batched on --device")
+                         "on min(8, cards) ranks of --device's type")
     ap.add_argument("--sharded-out", default=SHARDED_OUT,
                     help="artifact path for --sharded")
     ap.add_argument("--device-delta", action="store_true",

@@ -25,8 +25,9 @@ PyTorch path. No environment variable replaces it.
 is compiled at run time to cache. ``--warm-start`` runs the Solver's boot
 bucket ladder on the card on a background thread while the SLO warmup
 window is open, and ``--profile-dir`` writes a ``torch.profiler`` trace
-of the run there on the way out. ``--mesh N`` runs N pod shards batched
-on the ``--device``.
+of the run there on the way out. ``--mesh N`` runs N pod shards on
+min(N, visible cards) ranks, one card each (parallel/ranks.py); on one
+card, or the CPU, batched on the ``--device``.
 ``--sidecar-address`` also serves the Operator's Solver as a solver
 sidecar, and ``--solver-address`` (``SOLVER_ADDRESSES``) delegates the
 provisioning solves to a pool of sidecars (parallel/sidecar.py, pool.py).
@@ -171,14 +172,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Device mesh for the sharded solver (env "
                         "SOLVER_MESH): an integer N splits every solve "
                         "(full, wave-split and the steady-state delta) "
-                        "into N pod shards packed as one batched pass on "
-                        "the --device, then merges their tail bins; "
-                        "'auto' (default) plans the single-device path "
-                        "however many cards are visible, since the "
-                        "shards would share the --device and a mesh "
-                        "batched on one card is slower than the "
-                        "single-device solve; 'off' or 1 pins the "
-                        "single-device path.")
+                        "into N pod shards on min(N, visible cards) "
+                        "ranks, a process per card in one NCCL group (on "
+                        "one card, or the CPU, one batched pass on the "
+                        "--device), then merges their tail bins; 'auto' "
+                        "(default) plans the single-device path however "
+                        "many cards are visible, since the mesh is slower "
+                        "than one device even with a card per shard; "
+                        "'off' or 1 pins the single-device path.")
     p.add_argument("--solver-address", default=None,
                    help="Delegate provisioning solves to a POOL of solver "
                         "sidecar processes: a comma-separated list of "

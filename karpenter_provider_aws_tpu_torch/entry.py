@@ -8,7 +8,8 @@
   device (None = ``cuda``, raising without a card).
 - ``dryrun_multichip(n, device=None)``: the FULL solve step over an
   ``n``-shard mesh (``parallel/sharded.py sharded_pack``, the shards
-  batched on the one device until one shard per card lands), with the
+  on min(size, visible cards) ranks, one card each; on one card, or
+  the CPU, batched on the one device), with the
   same checks as the reference's: every pod placed at mesh sizes 2/4/8
   within 1.02 of the FFD oracle, existing bins with a forced overflow
   retry, and a consolidation probe batch. Returns the plans and probe
@@ -83,7 +84,8 @@ def dryrun_multichip(n_devices: int, device=None) -> dict:
     for k in (2, 4, 8):
         if k > n_devices:
             continue
-        mesh = solver_mesh(k)
+        # over the visible cards: min(k, cards) ranks, one card each
+        mesh = solver_mesh(k, device=solver.device)
         assert mesh.devices.size == k
         plan = solver.solve(problem, mesh=mesh)
         placed = sum(len(n.pods) for n in plan.new_nodes) + \
@@ -100,7 +102,7 @@ def dryrun_multichip(n_devices: int, device=None) -> dict:
               f"${plan.new_node_cost:.3f}/hr (FFD oracle "
               f"${oracle_cost:.3f}/hr, ratio {ratio:.3f})")
 
-    mesh = solver_mesh(min(8, n_devices))
+    mesh = solver_mesh(min(8, n_devices), device=solver.device)
 
     # ---- 2) existing bins + a forced overflow retry on the mesh ------
     # Existing capacity rides the same sharded step; zeroing the bin

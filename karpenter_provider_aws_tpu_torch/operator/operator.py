@@ -15,7 +15,8 @@ write through the apiserver client and informers feed the mirror.
 Beyond the JAX Operator's arguments it takes ``device``, where the
 Solver's tensors live: None means ``cuda`` and raises without CUDA, and
 tests pass ``"cpu"``. A solver mesh (``Options.mesh``) runs its shards
-batched on that device. ``Options.solver_address`` delegates the
+on min(shards, cards) ranks, rank 0 that device (parallel/ranks.py), or
+batched on that device where it is the only card. ``Options.solver_address`` delegates the
 provisioning solves to a pool of solver sidecars (parallel/pool.py)
 whose local rung runs on that device. The persistent XLA compile cache
 (``Options.compile_cache_dir``) has nothing to cache here, so a value
@@ -246,13 +247,15 @@ class Operator:
         # auto is the single-device passthrough, --mesh/SOLVER_MESH forces
         # a shape. The Solver then
         # runs every solve (full, wave-split and the steady-state delta)
-        # over this mesh, its shards batched on the Solver's device
+        # over this mesh, its shards on min(shards, cards) ranks, one card
+        # each (batched on the Solver's device where that is one)
         from ..parallel.mesh import plan_mesh
         self.mesh_plan = plan_mesh(self.options.mesh or "auto",
                                    device=self.device)
         if self.mesh_plan.devices > 1:
             self.log.info("solver mesh planned",
                           devices=self.mesh_plan.devices,
+                          ranks=self.mesh_plan.ranks,
                           axis=self.mesh_plan.axis,
                           source=self.mesh_plan.source)
         if self.options.solver_address:

@@ -88,9 +88,9 @@ class Options:
     solver_health_deadline: float = 1.0
     # device mesh for the sharded solver (parallel/mesh.py plan_mesh).
     # "" or "auto" plans the single-device path, however many cards are
-    # visible (the shards would share the Solver's one card, which is
-    # slower than one device), "off" pins it, an integer forces an N-way
-    # mesh, its shards batched on the Solver's device.
+    # visible (the mesh is slower than one device even with a card per
+    # shard), "off" pins it, an integer forces an N-way mesh, its shards
+    # on min(N, cards) ranks (batched on the Solver's device on one card).
     mesh: str = ""
     # directory for the JAX package's persistent XLA compilation cache.
     # Parsed so the same settings load, but the port compiles nothing at

@@ -18,7 +18,9 @@ Returns ``(best_v [B] f32, best_i [B] i32)`` with the flat index
 allowed offering gets ``(+inf, 0)``.
 
 ``cheapest_offering`` launches the kernel for CUDA tensors and takes the
-plain version only for CPU tensors. ``LAUNCHES`` counts kernel launches.
+plain version only for CPU tensors. ``LAUNCHES`` counts kernel launches:
+this process's, and those its mesh's worker ranks made on their cards
+(parallel/ranks.py reports them with ``note_rank_launches``).
 """
 
 from __future__ import annotations
@@ -46,6 +48,14 @@ def cheapest_offering_ref(tmask: torch.Tensor, zcmask: torch.Tensor,
     flat = cost.reshape(B, -1)
     best = torch.argmin(flat, dim=1)       # first minimum, as jnp.argmin
     return flat.gather(1, best[:, None])[:, 0], best.to(torch.int32)
+
+
+def note_rank_launches(n: int) -> None:
+    """Add launches that worker ranks of this process's mesh made, each
+    counted by the rank's own wrapper where it launched (parallel/ranks.py
+    gathers them with the rank's result)."""
+    global LAUNCHES
+    LAUNCHES += int(n)
 
 
 def _launcher():

@@ -1,6 +1,7 @@
 """Device-mesh planning and the pod-axis sharded solve (``mesh.plan_mesh``,
 ``sharded.sharded_pack``: D pod shards packed as one batched pass on the
-Solver's device), and the remote solver: the sidecar that serves a
+Solver's device, or on ranks, one card each: ``ranks``), and the remote
+solver: the sidecar that serves a
 resident Solver (``sidecar``), the failover pool of sidecars (``pool``),
 over this package's own unary gRPC wire (``rpc``)."""
 

@@ -1,10 +1,13 @@
-"""Pod-axis sharded solve: D pod shards as one batched pack on one device.
+"""Pod-axis sharded solve: D pod shards as one batched pack on a device.
 
 The port of the JAX package's ``parallel/sharded.py``. The reference
 shards the pod dimension of every group over a device mesh: each device
 packs its slice of every group against the replicated lattice, and
 ``psum`` reduces the totals. Here the D shards are one batched pass on
-the Solver's device:
+the Solver's device (``local_pack``), or, on a mesh of W > 1 ranks, one
+such pass on each rank's card over its contiguous block of shards, the
+results gathered to rank 0 in shard order (parallel/ranks.py; the same
+bytes and float32 cost):
 
 1. **Shard pods, share the lattice.** ``split_counts`` gives each shard
    an equal slice of every group's pod count; groups whose pods must
@@ -68,8 +71,9 @@ PARTITION_SPECS = {
 def replicated_sharding(mesh) -> tuple:
     """The shared placement over ``mesh``: the token the resident input
     cache accepts for a buffer every shard reads (solver/pipeline.py
-    ``ResidentInputCache.upload(sharding=)``). All shards live on the
-    Solver's device, so the buffer is stored once."""
+    ``ResidentInputCache.upload(sharding=)``). The Solver's device
+    stores it once; a mesh's other ranks keep their own copies
+    (parallel/ranks.py)."""
     return ("replicated", int(mesh.shards), mesh.axis)
 
 
@@ -191,36 +195,29 @@ def _xla_sum_f32(x: torch.Tensor, window: int = 32) -> torch.Tensor:
     return _seq_sum(x)
 
 
-def sharded_pack(mesh, alloc: torch.Tensor, avail: torch.Tensor,
-                 price: torch.Tensor, gbuf: torch.Tensor,
-                 init_buf: Optional[torch.Tensor], n_existing: int,
-                 count_split, B: int, G: int, T: int, Z: int, C: int,
-                 NP: int, A: int) -> ShardedPack:
-    """Run the pod-sharded pack of ``mesh``'s D shards in one batched pass
-    on the device of ``alloc``.
-
-    ``gbuf``/``init_buf`` are the fused group+pool / existing-bin uploads
-    (solver/solve.py ``_fused_inputs_np`` / ``_fused_init_np``; init_buf
-    None = no existing capacity), device tensors or resident cache
-    entries; ``count_split`` is the [D,G] split (``split_counts`` on the
-    host, or ``device_split_counts`` on the device). Shard 0 alone holds
-    the ``n_existing`` existing bins.
-    """
-    D = int(mesh.shards)
+def local_pack(alloc: torch.Tensor, avail: torch.Tensor, price: torch.Tensor,
+               gbuf: torch.Tensor, init_buf: Optional[torch.Tensor],
+               n_existing: int, counts: torch.Tensor, B: int, G: int,
+               T: int, Z: int, C: int, NP: int, A: int):
+    """Pack the shards of ``counts`` ([n,G] int32 on the device of
+    ``alloc``) as one batched pass: a vmapped ``_scan`` and one
+    ``_finalize`` over their n·B bins. The first of them alone holds the
+    ``n_existing`` existing bins of ``init_buf`` (None: no existing
+    capacity): shard 0, or 0 bins for a block without it. Returns
+    the stacked decode buffers [n, B+n_trailer, W] u8, each shard's
+    float32 cost [n] (``_xla_sum_f32``), and the live new bins and
+    leftover pods of these shards (0-d int32)."""
     dev = alloc.device
     R_ = alloc.shape[1]
-    counts = torch.as_tensor(count_split, dtype=_I32).to(dev)
-    if tuple(counts.shape) != (D, G):
-        raise ValueError(f"count_split is {tuple(counts.shape)}, the mesh "
-                         f"needs ({D}, {G})")
+    n = int(counts.shape[0])
     groups, pools = binpack._unpack_inputs(gbuf, G, T, Z, C, NP, A, R_)
     if init_buf is None:
         init = binpack.BinState(*(
-            x.expand((D,) + tuple(x.shape)) for x in
+            x.expand((n,) + tuple(x.shape)) for x in
             binpack.empty_state(B, T, Z, C, R_, A, device=dev)))
     else:
         # E on shard 0, 0 elsewhere, made on the device
-        n_e = torch.where(torch.arange(D, device=dev) == 0,
+        n_e = torch.where(torch.arange(n, device=dev) == 0,
                           torch.full((), int(n_existing), dtype=_I32,
                                      device=dev),
                           torch.zeros((), dtype=_I32, device=dev))
@@ -241,12 +238,48 @@ def sharded_pack(mesh, alloc: torch.Tensor, avail: torch.Tensor,
             state=binpack.BinState(*(f[d] for f in state)),
             chosen_t=chosen_t[d], chosen_z=chosen_z[d], chosen_c=chosen_c[d],
             chosen_price=chosen_price[d]))
-        for d in range(D)])
-    live = state.open & ~state.fixed & (state.npods > 0)              # [D,B]
+        for d in range(n)])
+    live = state.open & ~state.fixed & (state.npods > 0)              # [n,B]
     local_cost = _xla_sum_f32(torch.where(
-        live, chosen_price, torch.zeros((), dtype=_F32, device=dev)))  # [D]
-    return ShardedPack(
-        packed=packed,
-        total_cost=_seq_sum(local_cost),
-        total_nodes=live.sum().to(_I32),
-        total_leftover=leftover.sum().to(_I32))
+        live, chosen_price, torch.zeros((), dtype=_F32, device=dev)))  # [n]
+    return (packed, local_cost, live.sum().to(_I32),
+            leftover.sum().to(_I32))
+
+
+def sharded_pack(mesh, alloc: torch.Tensor, avail: torch.Tensor,
+                 price: torch.Tensor, gbuf: torch.Tensor,
+                 init_buf: Optional[torch.Tensor], n_existing: int,
+                 count_split, B: int, G: int, T: int, Z: int, C: int,
+                 NP: int, A: int, resident=None, ranks=None) -> ShardedPack:
+    """Run the pod-sharded pack of ``mesh``'s D shards on the device of
+    ``alloc``: one batched pass there, or, for a mesh that runs the rank
+    program (``mesh.group``), each rank's block of shards on its own card
+    (parallel/ranks.py), gathered back here in shard order.
+
+    ``gbuf``/``init_buf`` are the fused group+pool / existing-bin uploads
+    (solver/solve.py ``_fused_inputs_np`` / ``_fused_init_np``; init_buf
+    None = no existing capacity), device tensors or resident cache
+    entries; ``count_split`` is the [D,G] split (``split_counts`` on the
+    host, or ``device_split_counts`` on the device). Shard 0 alone holds
+    the ``n_existing`` existing bins. ``resident`` (the microloop's
+    resident combined buffer, ``ranks.Resident``) lets the ranks keep that
+    buffer and take only its delta; ``ranks`` is the rank set to run on
+    (None: the process's shared set for the mesh).
+    """
+    D = int(mesh.shards)
+    dev = alloc.device
+    counts = torch.as_tensor(count_split, dtype=_I32).to(dev)
+    if tuple(counts.shape) != (D, G):
+        raise ValueError(f"count_split is {tuple(counts.shape)}, the mesh "
+                         f"needs ({D}, {G})")
+    if getattr(mesh, "group", False):
+        from . import ranks as _ranks
+        rs = ranks if ranks is not None else _ranks.acquire(mesh, dev)
+        return rs.pack(mesh, alloc, avail, price, gbuf, init_buf,
+                       n_existing, counts, B, G, T, Z, C, NP, A,
+                       resident=resident)
+    packed, local_cost, nodes, leftover = local_pack(
+        alloc, avail, price, gbuf, init_buf, n_existing, counts, B, G, T,
+        Z, C, NP, A)
+    return ShardedPack(packed=packed, total_cost=_seq_sum(local_cost),
+                       total_nodes=nodes, total_leftover=leftover)

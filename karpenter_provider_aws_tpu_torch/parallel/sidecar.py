@@ -598,7 +598,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                    help="device mesh for the sharded solve (env "
                         "SOLVER_MESH; parallel/mesh.py plan_mesh): "
                         "'auto' (default), an integer shard count (the "
-                        "shards batched on --device), or 'off' — the "
+                        "shards on min(N, cards) ranks, one card each), "
+                        "or 'off' — the "
                         "sidecar is the accelerator-resident process, so "
                         "this is where the mesh actually lives in a "
                         "--solver-address deployment")
@@ -632,7 +633,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                    admission_window=not args.no_admission_window)
     print(f"solver sidecar serving on {args.address} "
           f"(T={lattice.T} Z={lattice.Z} C={lattice.C} "
-          f"mesh={mesh_plan.devices} device={device})", flush=True)
+          f"mesh={mesh_plan.devices} ranks={mesh_plan.ranks} "
+          f"device={device})", flush=True)
     stop = threading.Event()
     try:
         signal.signal(signal.SIGINT, lambda *_: stop.set())

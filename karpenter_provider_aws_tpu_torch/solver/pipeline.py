@@ -198,6 +198,15 @@ class ResidentInputCache:
         # crosses to the device (a delta upload with no changed block
         # calls nothing)
         self.account: Optional[Callable[[str, int], None]] = None
+        # what the last upload changed, for a copy of an entry kept
+        # elsewhere (a mesh's worker ranks, parallel/ranks.py): (key,
+        # serial the change applies to (None: a whole upload), serial of
+        # the content now, the delta's device payload of rows and their
+        # int32 index, or None). Serials count uploads that changed an
+        # entry's content
+        self.last_change: Optional[Tuple] = None
+        self._serials: Dict[Tuple, int] = {}
+        self._serial = 0
 
     def _ship(self, nbytes: int) -> None:
         self.bytes_shipped += int(nbytes)
@@ -242,6 +251,7 @@ class ResidentInputCache:
             dev2d = self._store(key, padded)
             self.misses += 1
             self._ship(padded.size)
+            self._changed(key, None)
             return dev2d.reshape(-1)[:total]
         prev, dev2d = ent
         changed = np.nonzero((padded != prev).any(axis=1))[0]
@@ -249,7 +259,9 @@ class ResidentInputCache:
             dev2d = self._store(key, padded)
             self.misses += 1
             self._ship(padded.size)
+            self._changed(key, None)
             return dev2d.reshape(-1)[:total]
+        before = self._serials.get(key)
         if changed.size:
             k = _pow2(int(changed.size))
             idx = np.empty((k,), np.int32)
@@ -275,9 +287,23 @@ class ResidentInputCache:
             self.blocks_shipped += int(changed.size)
             self._ship(payload.nbytes)
             self._entries[key] = (padded, dev2d)
+            self._changed(key, pay, before)
+        else:
+            self.last_change = (key, before, before, None)
         self.hits += 1
         self.blocks_resident += nblk - int(changed.size)
         return dev2d.reshape(-1)[:total]
+
+    def _changed(self, key: Tuple, payload: Optional[torch.Tensor],
+                 before: Optional[int] = None) -> None:
+        self._serial += 1
+        self._serials[key] = self._serial
+        self.last_change = (key, before, self._serial, payload)
+
+    @property
+    def block(self) -> int:
+        """Bytes of a delta row."""
+        return self._block
 
     def _store(self, key: Tuple, padded: np.ndarray) -> torch.Tensor:
         # always a copy: on the CPU a shared buffer would let an in-place

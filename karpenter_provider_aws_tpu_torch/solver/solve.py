@@ -62,7 +62,9 @@ A mesh (parallel/mesh.py ``plan_mesh``, the Solver's ``mesh`` or a
 per-call ``mesh=``) shards the pod axis into D shards that pack as ONE
 batched pass on the Solver's device (parallel/sharded.py
 ``sharded_pack``: a vmapped scan and one cheapest-offering launch over
-the D·B bins), then a host-side refinement dissolves under-filled tail
+the D·B bins), or, on a mesh of W > 1 cards, as W such passes, each
+rank's block of shards on its own card (parallel/ranks.py), gathered to
+the Solver's card; then a host-side refinement dissolves under-filled tail
 bins and re-packs them, seeded with the kept bins, in one small merge
 pack (ops/binpack.py ``pack_packed_seeded``). Every path runs over the
 mesh: the full solve, the wave split, the ladder and the microloop,
@@ -75,6 +77,7 @@ from __future__ import annotations
 
 import contextlib
 import hashlib
+import itertools
 import logging
 import os
 import threading
@@ -101,6 +104,8 @@ from .pipeline import (ResidentInputCache, StageTimer, fetch_async,
 from .problem import Problem
 
 _LOG = logging.getLogger(__name__)
+# a Solver's serial: its name for its resident buffers on a mesh's ranks
+_SOLVER_SERIALS = itertools.count()
 
 _G_BUCKETS = (16, 32, 64, 96, 128, 192, 256, 512, 1024, 4096)
 _B_BUCKETS = (32, 128, 512, 1024, 2048, 8192)
@@ -373,9 +378,10 @@ class Solver:
     ``clock`` is the injected clock (the Operator's): the device-retry
     backoff sleeps on it. ``mesh`` is the production mesh every solve runs
     over (parallel/mesh.py; None = the single-device path), its D shards
-    batched on this Solver's device; a mesh planned for another device
-    type raises ValueError. Thread-safe: every public solve entry point
-    serializes on an internal RLock."""
+    batched on this Solver's device or on the mesh's ranks, rank 0 this
+    Solver's card; a mesh planned for another device type, or for more
+    cards than are visible, raises ValueError. Thread-safe: every public
+    solve entry point serializes on an internal RLock."""
 
     # the steady-state delta path (IncrementalProblemBuilder +
     # solve_delta) runs in this process, on this Solver's device
@@ -485,6 +491,13 @@ class Solver:
         # this Solver's lifetime, so it keys on the mesh alone
         self._mesh_consts = None
         self._mesh_alloc = None
+        # the worker ranks a mesh of more than one card runs on
+        # (parallel/ranks.py): bound at first use and kept, so that a set
+        # that lost a rank fails this Solver's later solves (the ladder's
+        # rungs, and on the card a lost device) until set_mesh
+        self._ranks = None
+        # this Solver's name for its resident buffers on those ranks
+        self._serial = next(_SOLVER_SERIALS)
         # the last probe_batch dispatch: its buckets and raw [K,6] summary
         self.last_probe: Optional[Dict[str, object]] = None
         # torch.profiler session (start_profiling): every pack call is a
@@ -516,13 +529,37 @@ class Solver:
 
     def _check_mesh(self, mesh):
         """``mesh`` if this Solver may run it: a mesh planned for a device
-        of another type never moves the solve there (nor off the card)."""
+        of another type never moves the solve there (nor off the card),
+        and a mesh on more cards than this process sees cannot run."""
         dev = getattr(mesh, "device", None)
         if dev is not None and torch.device(dev).type != self.device.type:
             raise ValueError(f"a mesh planned for {dev} cannot run on this "
                              f"Solver's {self.device}: a mesh's shards run "
                              f"on the Solver's device")
+        w = int(getattr(mesh, "ranks", 1))
+        if (w > 1 and self.device.type == "cuda"
+                and w > torch.cuda.device_count()):
+            raise ValueError(f"a mesh on {w} cards cannot run where "
+                             f"{torch.cuda.device_count()} are visible")
         return mesh
+
+    def _mesh_ranks(self, mesh):
+        """The worker ranks ``mesh`` runs on (None: its shards are batched
+        on this Solver's device). The set this Solver first used stays
+        bound, broken or not, while the mesh asks for as many ranks."""
+        if not getattr(mesh, "group", False):
+            return None
+        rs = self._ranks
+        if rs is None or rs.size != int(mesh.ranks):
+            from ..parallel import ranks
+            rs = self._ranks = ranks.acquire(mesh, self.device)
+        return rs
+
+    @property
+    def mesh_ranks(self) -> int:
+        """Cards the production mesh runs on (1: this Solver's own)."""
+        m = self.mesh
+        return int(getattr(m, "ranks", 1)) if m is not None else 1
 
     @property
     def mesh_devices(self) -> int:
@@ -537,6 +574,7 @@ class Solver:
         re-uploads, it never delta-hits state of the old shape."""
         with self._solve_lock:
             self.mesh = self._check_mesh(mesh)
+            self._ranks = None
             self._invalidate_device_state()
 
     def stats(self) -> Dict[str, object]:
@@ -618,6 +656,9 @@ class Solver:
         """Whether the device still runs a one-element op and a
         synchronize: after a sticky error (a device-side assert) the CUDA
         context fails every later call."""
+        if self._ranks is not None and self._ranks.broken is not None:
+            # a mesh whose rank is lost is a lost device for this Solver
+            return False
         try:
             torch.ones(1, device=self.device).add_(1)
             if self.device.type == "cuda":
@@ -1687,7 +1728,8 @@ class Solver:
     # ---- pod-axis sharded solve (the mesh path) ----
     #
     # The pod axis splits into D shards: each packs its slice of every
-    # group (parallel/sharded.py, one batched pass on this device), the
+    # group (parallel/sharded.py, one batched pass on this device or one
+    # on each rank's card, parallel/ranks.py), the
     # totals reduce over shards, and a host-side refinement dissolves
     # under-filled tail bins (at most one per group per shard) back into
     # one small seeded merge pack. The merge's size is O(groups x shards),
@@ -1780,7 +1822,8 @@ class Solver:
                     self._account_link("upload", count_split.nbytes)
                     sp = sharded_pack(mesh, alloc_r, avail, price, gbuf,
                                       init_dev, problem.E, count_split,
-                                      B, G, lat.T, lat.Z, lat.C, NP, A)
+                                      B, G, lat.T, lat.Z, lat.C, NP, A,
+                                      ranks=self._mesh_ranks(mesh))
                     if not pipelined:
                         self._sync()
                 # stream the stacked per-shard result out the moment the
@@ -2320,6 +2363,7 @@ class Solver:
                 if problem.E else fused_np)
         repl = None
         if sharded:
+            from ..parallel.ranks import Resident
             from ..parallel.sharded import (device_split_counts,
                                             replicated_sharding,
                                             sharded_pack)
@@ -2352,12 +2396,23 @@ class Solver:
                     f.offset for f in binpack.group_layout(
                         G, lat.T, lat.Z, lat.C, NP, A, R)[0]
                     if f.name == "count")
+                ranks = self._mesh_ranks(mesh)
+                resident = None
+                if ranks is not None:
+                    # the ranks keep their copy of the combined buffer
+                    # and take only what this pass's upload changed
+                    rkey, before, after, payload = self._resident.last_change
+                    resident = Resident(
+                        key=(self._serial,) + tuple(rkey), combined=comb_dev,
+                        g_size=g_size, before=before, after=after,
+                        payload=payload, block=self._resident.block)
                 with self._trace_span("solver.pack_micro"), \
                         stages.span("compute"):
                     csplit = device_split_counts(gslice, D, count_off, G)
                     sp_res = sharded_pack(
                         mesh, alloc_r, avail, price, gslice, islice,
-                        problem.E, csplit, B, G, lat.T, lat.Z, lat.C, NP, A)
+                        problem.E, csplit, B, G, lat.T, lat.Z, lat.C, NP, A,
+                        resident=resident, ranks=ranks)
                 new_dev = sp_res.packed
             else:
                 avail, price = self._device_avail_price(problem)

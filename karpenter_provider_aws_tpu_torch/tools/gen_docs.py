@@ -298,15 +298,16 @@ SETTINGS_SEAMS = {
         'call) and write the Chrome trace under this directory on exit. '
         '|'),
     '--mesh': (
-        "the mesh batches its shards on the one --device; 'auto' stays single-device until one shard per card lands",
+        "the mesh runs a process per card over NCCL, batched on the one --device where that is one; 'auto' stays single-device, slower with a card per shard too",
         '| `--mesh` | SOLVER_MESH |  | Device mesh for the sharded '
         'solver (env SOLVER_MESH): an integer N splits every solve '
         '(full, wave-split and the steady-state delta) into N pod '
-        'shards packed as one batched pass on the --device, then merges '
-        "their tail bins; 'auto' (default) plans the single-device path "
-        'however many cards are visible, since the shards would share '
-        'the --device and a mesh batched on one card is slower than the '
-        "single-device solve; 'off' or 1 pins the single-device path. |"),
+        'shards on min(N, visible cards) ranks, a process per card in '
+        'one NCCL group (on one card, or the CPU, one batched pass on '
+        "the --device), then merges their tail bins; 'auto' (default) "
+        'plans the single-device path however many cards are visible, '
+        'since the mesh is slower than one device even with a card per '
+        "shard; 'off' or 1 pins the single-device path. |"),
     '--solver-address': (
         "the sidecar module is this package's, and the local rung runs on --device",
         '| `--solver-address` | SOLVER_ADDRESSES (or SOLVER_ADDRESS) |  '

@@ -5,7 +5,8 @@ this package (the counterpart of the repository's ``tools/smoke_sharded.py``).
 
 Boots a real Operator on a FORCED 8-shard mesh (``Options(mesh="8")``:
 ``parallel/mesh.py plan_mesh`` plans ``SolverMesh(shards=8)``, its shards
-packed as one batched pass on the Solver's ``--device``; the reference
+packed as one batched pass on the Solver's ``--device`` on one card, one
+shard per card on several (parallel/ranks.py); the reference
 forces an 8-device virtual CPU mesh instead — ``auto`` stays
 single-device here as there), drives a seed wave plus small-churn
 reconcile passes, and asserts the promotion actually holds end to end:

@@ -10,6 +10,7 @@ CPU.
 
 import ast
 import hashlib
+import os
 import pathlib
 import re
 import subprocess
@@ -439,3 +440,40 @@ def test_port_ci_script_runs_the_ports_modules_only():
     assert not re.search(r"(^|[^\w.])tools/", rest), rest
     assert not re.search(r"karpenter_provider_aws_tpu[./]", text)
     assert "JAX_PLATFORMS" not in code and "bench.py" not in text
+
+
+def test_guard_covers_the_rank_worker(tmp_path):
+    """The worker ranks of a mesh (parallel/ranks.py) are processes of
+    their own: their entry module is a module of the port, which the
+    guards above check, and in a process where importing jax or the JAX
+    package fails, ranks start, and what each worker had imported when
+    it joined its group holds the pack's modules and nothing of either."""
+    mods = {_module_name(p) for p in PORT_FILES}
+    assert "karpenter_provider_aws_tpu_torch.parallel.ranks" in mods
+    from karpenter_provider_aws_tpu_torch.parallel import ranks
+    assert ranks._worker_main.__module__ == \
+        "karpenter_provider_aws_tpu_torch.parallel.ranks"
+    code = "\n".join([
+        "import sys",
+        "sys.modules['jax'] = None",
+        f"sys.modules['{JAX_PKG}'] = None",
+        "import torch",
+        "torch.set_num_threads(1)",
+        "from karpenter_provider_aws_tpu_torch.parallel import ranks, "
+        "solver_mesh",
+        "rs = ranks.acquire(solver_mesh(2, device='cpu', ranks=2), "
+        "torch.device('cpu'))",
+        "mods = rs.worker_modules[0]",
+        "assert 'karpenter_provider_aws_tpu_torch.parallel.sharded' in mods",
+        "bad = [m for m in mods if m == 'jax' or m.startswith('jax.')",
+        f"       or m == '{JAX_PKG}' or m.startswith('{JAX_PKG}.')]",
+        "assert not bad, bad",
+        "rs.close()",
+        "assert not ranks.live_workers()",
+        "print('worker clean', len(mods))",
+    ])
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "worker clean" in out.stdout
