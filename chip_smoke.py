@@ -21,7 +21,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    sequential ``Solver(lattice, pipeline=False)`` and the default,
    pipelined ``Solver(lattice)``. For each, kernel launch counts are
    zeroed just before one solve and read just after; the plan must place
-   every pod, cost within 1.02x of the port's own FFD oracle, and equal
+   every pod, cost within 1.02x of the FFD referee's (``_referee``: the
+   native referee, held to the Python oracle in phase 17), and equal
    the port's CPU plan node by node. Then each path's e2e p50 over 12
    solves, the two paths in turns, and its median stage times;
 5. steady state: cfg10 (20k pods in 24 shapes, 120 partly used existing
@@ -199,7 +200,15 @@ Phases, in order; any failure exits non-zero and prints no result line:
    sent as its delta; each plan equal to a sequential batched-mesh solve,
    legs within phase (c)'s bound), and no worker alive after the ranks
    close; the step must end within
-   ``MESH_RANK_SECONDS``. The shard pack's D·B kernel rows and the
+   ``MESH_RANK_SECONDS``. (f) A lost rank, on ``LOST_RANK_CARDS`` cards
+   or more (on fewer it prints that it needs them and checks nothing): a
+   child process (``--lost-rank``, group timeout ``LOST_RANK_TIMEOUT_S``)
+   runs cfg11 on the ranks of three Solvers in turn; a worker of the
+   first is killed, one of the second stopped, in the middle of a pack:
+   each solve must raise ``DeviceLostError`` from ``RanksLost`` (the kill
+   within the group timeout, the stall at it), the Solver report its
+   device lost and no worker be left; each next Solver must get a fresh
+   set that spawns within the timeout and plans as the first. The shard pack's D·B kernel rows and the
    merge's rows of (a)'s pipelined cold solve, and rank 0's shard rows of
    (e), are held exactly against the plain version and timed in phase 22;
 14. remote: the remote solver over the port's own gRPC wire
@@ -249,14 +258,25 @@ Phases, in order; any failure exits non-zero and prints no result line:
    allocator segments it added and the p50 of ``WARM_LATER_SOLVES``
    later solves; the warm one the ladder's wall and kernel launches. The
    phase fails if the ladder launched no kernel, a first solve launched
-   none or left a pod unplaced, or the three plans differ;
-16. profiling: ``PROFILED_SOLVES`` cfg5 solves between ``start_profiling``
+   none or left a pod unplaced, or the three plans differ. Then the
+   compile cache: two processes started as the CLI starts
+   (``--cache-first-solve``) on one fresh, empty ``COMPILE_CACHE_DIR``,
+   each through the Operator and the CLI's ahead-of-time ``--warm-start``
+   ladder (cut to cfg5's shape) and cfg5's first solve: the first must
+   build both libraries (``nvcc``, ``g++``) into the directory, the second
+   load them with no compile, neither write into ``_build/``, and both
+   plan as the cold process with a launch;
+16. profiling: ``capture_cost_model`` over the boot ladder (its shapes
+   traced on the meta device: every shape captured, no launch), then
+   ``PROFILED_SOLVES`` cfg5 solves between ``start_profiling``
    and ``stop_profiling`` on a warm Solver: the trace file must exist and
    name one ``solver.pack`` span and at least one
    ``cheapest_offering_kernel`` event a solve, and each solve launch the
-   kernel once;
+   kernel once; cfg5's shape in the device cost model must then carry
+   its FLOPs, bytes and peak beside its measured ``last_vs_model``;
 17. native: the C++ FFD referee (``native/``) built from the checkout's
-   ``ffd.cc`` into the port's ``_build/`` (never ``native/libffd.so``),
+   ``ffd.cc`` into the port's ``_build/`` under its keyed name (never
+   ``native/libffd.so``),
    run on cfg5: its node count and cost must equal the Python
    ``ffd_oracle``'s (cost within 1e-5 relative); both are timed;
 18. bench: the port's bench (``karpenter_provider_aws_tpu_torch/bench.py``,
@@ -363,6 +383,9 @@ MESH_LEGS = 2              # link legs of a steady pass on the mesh, and of
 MESH_LEGS_MERGE = 4        # one that re-ran the tail-bin merge (+2 a regrow)
 MESH_RANK_SOLVES = 3       # cfg11 solves per path of the rank step, in turns
 MESH_RANK_SECONDS = 60     # the rank step must end within this
+LOST_RANK_TIMEOUT_S = 20.0  # the lost-rank child's group timeout (s)
+LOST_RANK_SECONDS = 420    # the lost-rank child must end in this
+LOST_RANK_CARDS = 4        # cards the lost-rank step needs
 SIDECAR_START_SECONDS = 180  # the sidecar process must serve within this
 REMOTE_SOLVE_DEADLINE = 30.0  # the pools' solve deadline (s), the hang's apart
 REMOTE_HANG_DEADLINE = 3.0  # the solve deadline of the hang step (s)
@@ -371,6 +394,8 @@ REMOTE_HEALTH_CALLS = 20   # Health RPCs timed
 REMOTE_WINDOW_THREADS = 8  # concurrent Solve RPCs into the solve window
 REMOTE_CHURN = 250         # pods that leave and arrive before the second pass
 WARM_LATER_SOLVES = 5      # cfg5 solves timed after a child's first one
+CACHE_G_BUCKETS = (32,)    # the compile-cache children's boot ladder, cut
+CACHE_B_BUCKETS = (2048,)  # to cfg5's own shape (G=31, B=2048)
 CHILD_SECONDS = 600        # a child process of phases 15 and 19 must end in this
 PROFILED_SOLVES = 2        # cfg5 solves inside the profiling session
 BENCH_ITERS = 3            # timed solves of the bench phase's cfg5 row
@@ -388,7 +413,7 @@ SOAK_LATENCY_GATES = ("soak: sustained latency burn",)
 DEVICE_LOST_SECONDS = 120  # the sticky-error child's run_passes deadline
 # phase 21: the CI gates (karpenter_provider_aws_tpu_torch/tools/smoke_*.py,
 # tools.gate.GATES)
-CI_GATES_AT_ONCE = 2       # gate processes at once (each mostly host-bound)
+CI_GATES_AT_ONCE = 3       # gate processes at once (each mostly host-bound)
 CI_SECONDS = 300           # each drift, lint and gate process must end in this
 # the failover steps, each on a fresh pool over the two sidecars after one
 # warm cfg2 solve: step -> (fault on the sidecars, problem of the solve)
@@ -1374,6 +1399,18 @@ def _check_solvers(torch, name) -> None:
           f"only where allowed", flush=True)
 
 
+def _referee(problem):
+    """The first-fit-decreasing referee's plan of ``problem``: the native
+    referee (C++, ~0.1-0.2 s on cfg5), held to the Python ``ffd_oracle``
+    on cfg5 in phase 17 (node count equal, cost within 1e-5), which takes
+    10-26 s on cfg5, cfg7 and cfg11; the Python oracle for a problem out
+    of the native referee's scope."""
+    from karpenter_provider_aws_tpu_torch.native import native_ffd_pack
+    from karpenter_provider_aws_tpu_torch.solver.oracle import ffd_oracle
+    plan = native_ffd_pack(problem)
+    return plan if plan is not None else ffd_oracle(problem)
+
+
 def _placed(plan) -> int:
     return sum(len(n.pods) for n in plan.new_nodes) + sum(
         len(v) for v in plan.existing_assignments.values())
@@ -1386,7 +1423,6 @@ def _wave_split(torch, workloads, lattice, oa):
     launches and the last wave's kernel inputs."""
     from karpenter_provider_aws_tpu_torch import measure
     from karpenter_provider_aws_tpu_torch.solver import FaultInjector, Solver
-    from karpenter_provider_aws_tpu_torch.solver.oracle import ffd_oracle
     from karpenter_provider_aws_tpu_torch.solver.problem import build_problem
 
     pods, pools, _ = workloads.config7_highG_wave_split()
@@ -1394,11 +1430,11 @@ def _wave_split(torch, workloads, lattice, oa):
     problem = build_problem(pods, pools, lattice)
     build_ms = (time.perf_counter() - t) * 1e3
     t = time.perf_counter()
-    oracle = ffd_oracle(problem)
+    oracle = _referee(problem)
     ceiling = Solver._WAVE_G_TARGET
     waves = -(-problem.G // ceiling)
     print(f"cfg7: {len(pods)} pods, G={problem.G} (build {build_ms:.1f} ms), "
-          f"{waves} waves of <= {ceiling} groups expected; ffd oracle "
+          f"{waves} waves of <= {ceiling} groups expected; ffd referee "
           f"{oracle.num_new_nodes} nodes, ${oracle.new_node_cost:.3f}/hr "
           f"({time.perf_counter() - t:.1f} s)", flush=True)
     solvers = {"cfg7_sequential": Solver(lattice, pipeline=False),
@@ -2251,8 +2287,10 @@ def _mesh(torch, workloads, lattice, oa):
     pipelined, against the single-device solve in turns; (b) cfg9 against
     the single-device plan and the capped full-dissolve problem; (c)
     cfg10's steady passes on the mesh; (d) an Operator booted with
-    ``mesh="8"`` through one forced cfg9 pass. Returns its numbers, its
-    launches and the kernel inputs of the shard pack and the merge."""
+    ``mesh="8"`` through one forced cfg9 pass; (e) cfg11 one shard per
+    card (``_mesh_ranks``); (f) a lost rank on four cards (``_lost_rank``).
+    Returns its numbers, its launches and the kernel inputs of the shard
+    pack and the merge."""
     from karpenter_provider_aws_tpu_torch import measure
     from karpenter_provider_aws_tpu_torch.apis import serde
     from karpenter_provider_aws_tpu_torch.metrics import lint_exposition
@@ -2260,7 +2298,6 @@ def _mesh(torch, workloads, lattice, oa):
     from karpenter_provider_aws_tpu_torch.operator import Operator, Options
     from karpenter_provider_aws_tpu_torch.parallel import plan_mesh
     from karpenter_provider_aws_tpu_torch.solver import Solver
-    from karpenter_provider_aws_tpu_torch.solver.oracle import ffd_oracle
     from karpenter_provider_aws_tpu_torch.solver.problem import build_problem
     from karpenter_provider_aws_tpu_torch.utils.clock import FakeClock
 
@@ -2282,10 +2319,10 @@ def _mesh(torch, workloads, lattice, oa):
     problem = build_problem(pods, pools, lattice, existing=existing)
     build_ms = (time.perf_counter() - t) * 1e3
     t = time.perf_counter()
-    oracle = ffd_oracle(problem)
+    oracle = _referee(problem)
     oracle_s = time.perf_counter() - t
     print(f"cfg11: {len(pods)} pods, {problem.G} groups, build_problem "
-          f"{build_ms:.1f} ms; ffd oracle {oracle.num_new_nodes} nodes, "
+          f"{build_ms:.1f} ms; ffd referee {oracle.num_new_nodes} nodes, "
           f"${oracle.new_node_cost:.2f}/hr ({oracle_s:.1f} s)", flush=True)
     if len(pods) != 200_000:
         raise AssertionError(f"cfg11: {len(pods)} pods, not 200,000")
@@ -2587,6 +2624,9 @@ def _mesh(torch, workloads, lattice, oa):
         torch, oa, lattice, pods, pools, existing, problem,
         paths["cfg11_mesh_pipelined"], paths["cfg11_single"], canon)
     launches.update(rank_launches)
+
+    # (f) a lost rank over NCCL, on four cards
+    out["lost_rank"] = _lost_rank(torch)
     return out, launches, shard_rows[-1], merge_rows[-1], rank0_rows
 
 
@@ -3234,17 +3274,18 @@ def _failover_steps(make_pool, sidecars, problems, deadlines, deadline,
 # the sticky device error (their child processes run this file with a mode)
 
 _CHILD_MODES = ("--cold-first-solve", "--warm-first-solve",
-                "--cold-profiled-solve", "--device-lost", "--tools-cli")
+                "--cold-profiled-solve", "--device-lost", "--tools-cli",
+                "--cache-first-solve", "--lost-rank")
 
 
-def _child_result(mode: str, timeout: float = CHILD_SECONDS):
+def _child_result(mode: str, timeout: float = CHILD_SECONDS, env=None):
     """Run this script as a child process in ``mode`` (a fresh CUDA
-    context), killed at ``timeout``; (exit code, its result dict, output
-    tail)."""
+    context; ``env`` its environment, this one's by default), killed at
+    ``timeout``; (exit code, its result dict, output tail)."""
     import subprocess
     proc = subprocess.run([sys.executable, os.path.abspath(__file__), mode],
                           cwd=HERE, capture_output=True, text=True,
-                          timeout=timeout)
+                          timeout=timeout, env=env)
     result = None
     for line in proc.stdout.splitlines():
         if line.startswith("CHILD "):
@@ -3382,6 +3423,200 @@ def _child_first_solve(torch, mode: str) -> int:
     return 0
 
 
+def _child_cache_first_solve(torch) -> int:
+    """A process started as the CLI starts on ``COMPILE_CACHE_DIR`` (set by
+    the parent): the CLI's options from its parser and the environment,
+    the Operator (which points both builds at the directory before its
+    Solver is built), the CLI's ``--warm-start`` ladder (ahead of time:
+    every kernel source built into the cache first, each shape's analysis
+    recorded), then cfg5's first solve through the Operator's Solver.
+    Prints one ``CHILD`` line: the compiles this process ran, with their
+    seconds, each build's directory and library, the ladder's wall,
+    launches and captured shapes (the ladder cut to ``CACHE_G_BUCKETS`` x
+    ``CACHE_B_BUCKETS``), and the first solve's launches and plan."""
+    from karpenter_provider_aws_tpu_torch import cli, workloads
+    from karpenter_provider_aws_tpu_torch.native import build as native_build
+    from karpenter_provider_aws_tpu_torch.operator import Operator
+    from karpenter_provider_aws_tpu_torch.ops import cuda_build
+    from karpenter_provider_aws_tpu_torch.ops import offering_argmin as oa
+    from karpenter_provider_aws_tpu_torch.solver import costmodel
+
+    from karpenter_provider_aws_tpu_torch.solver import Solver
+
+    out = {"mode": "--cache-first-solve",
+           "cache": os.environ.get("COMPILE_CACHE_DIR", "")}
+    # the ladder's depth, cut to cfg5's shape (the full ladder runs in the
+    # --warm-first-solve child)
+    Solver.BOOT_G_BUCKETS, Solver.BOOT_B_BUCKETS = (CACHE_G_BUCKETS,
+                                                    CACHE_B_BUCKETS)
+    lattice = workloads.real_lattice()
+    pods, pools, existing = workloads.config5_full_scale()
+    args = cli.build_parser().parse_args(["--warm-start"])
+    opts = cli.options_from_args(args)
+    t = time.perf_counter()
+    op = Operator(options=opts, lattice=lattice, node_pools=pools,
+                  device=args.device)
+    out["operator_ms"] = (time.perf_counter() - t) * 1e3
+    out["build_dirs"] = [str(cuda_build.BUILD_DIR), str(native_build.BUILD_DIR)]
+    oa.LAUNCHES = 0
+    t = time.perf_counter()
+    thread = cli.warm_start(op, opts)
+    thread.join(CHILD_SECONDS / 2)
+    if thread.is_alive():
+        raise AssertionError("the warmup ladder did not end")
+    out["warmup_ms"] = (time.perf_counter() - t) * 1e3
+    out["warmup_launches"] = oa.LAUNCHES
+    out["compiled"] = {**{f"nvcc {k}": v
+                          for k, v in cuda_build.BUILD_SECONDS.items()},
+                       **{f"g++ {k}": v
+                          for k, v in native_build.BUILD_SECONDS.items()}}
+    out["build_logs"] = sorted(cuda_build.BUILD_LOGS) + sorted(
+        native_build.BUILD_LOGS)
+    out["libraries"] = [str(cuda_build.library_path(n))
+                        for n in cuda_build.sources()] + [
+        str(native_build.library_path())]
+    shapes = costmodel.model().summary()["shapes"]
+    out["captured"] = sorted(k for k, r in shapes.items()
+                             if r["flops"] > 0 and r["peak_bytes"] > 0)
+    out["models"] = {k: shapes[k] for k in out["captured"]}
+    oa.LAUNCHES = 0
+    t = time.perf_counter()
+    plan = op.solver.solve_relaxed(pods, pools, existing=existing)
+    torch.cuda.synchronize()
+    out["first_solve_ms"] = (time.perf_counter() - t) * 1e3
+    out["first_solve_launches"] = oa.LAUNCHES
+    out["plan"] = {"nodes": len(plan.new_nodes),
+                   "placed": sum(len(n.pods) for n in plan.new_nodes),
+                   "cost": plan.new_node_cost,
+                   "unschedulable": len(plan.unschedulable)}
+    print("CHILD " + json.dumps(out), flush=True)
+    return 0
+
+
+def _child_lost_rank(torch) -> int:
+    """A10b on the cards: cfg11 through the rank program over NCCL, one
+    rank a card, the group timeout cut to ``LOST_RANK_TIMEOUT_S``. Three
+    Solvers in turn, each on a fresh set of workers: the first has a worker
+    killed in the middle of a pack, the second a worker stopped (alive,
+    silent) there; each such solve must raise ``DeviceLostError`` from
+    ``RanksLost``, the Solver must report its device lost and no worker of
+    the set may be left, the kill within the group timeout and the stall
+    at it. Each Solver's first solve, and the third's, must give the same
+    plan. Prints one ``CHILD`` line."""
+    import signal
+
+    from karpenter_provider_aws_tpu_torch import workloads
+    from karpenter_provider_aws_tpu_torch.apis import serde
+    from karpenter_provider_aws_tpu_torch.errors import DeviceLostError
+    from karpenter_provider_aws_tpu_torch.parallel import plan_mesh, ranks
+    from karpenter_provider_aws_tpu_torch.solver import Solver
+    from karpenter_provider_aws_tpu_torch.solver.problem import build_problem
+
+    ranks.GROUP_TIMEOUT_S = LOST_RANK_TIMEOUT_S
+    lattice = workloads.real_lattice()
+    pods, pools, existing = workloads.config11_200k_sharded()
+    problem = build_problem(pods, pools, lattice, existing=existing)
+    mesh = plan_mesh(str(MESH_SHARDS)).mesh
+    out = {"cards": torch.cuda.device_count(), "ranks": int(mesh.ranks),
+           "timeout_s": LOST_RANK_TIMEOUT_S, "steps": []}
+    wait, sets, healthy = ranks.Ranks._wait, [], None
+    for fault in ("kill", "stall", None):
+        solver = Solver(lattice, mesh=mesh)
+        t = time.perf_counter()
+        plan = solver.solve(problem)
+        torch.cuda.synchronize()
+        step = {"fault": fault,
+                "first_solve_s": time.perf_counter() - t}
+        rs = solver._ranks
+        canon = json.dumps(serde.plan_semantic_dict(plan), sort_keys=True)
+        healthy = healthy or canon
+        step.update(plan_equal=canon == healthy,
+                    fresh_set=all(rs is not old for old in sets),
+                    spawn_s=rs.spawn_ms / 1e3, pids=rs.pids())
+        sets.append(rs)
+        out["steps"].append(step)
+        if fault is None:
+            break
+        victim = rs._procs[0 if fault == "kill" else -1]
+        fired = []
+
+        def faulting_wait(self, works, rs=rs, victim=victim, fault=fault):
+            if self is rs and not fired:
+                os.kill(victim.pid, signal.SIGKILL if fault == "kill"
+                        else signal.SIGSTOP)
+                fired.append(time.perf_counter())
+            return wait(self, works)
+
+        ranks.Ranks._wait = faulting_wait
+        raised = None
+        try:
+            solver.solve(problem)
+        except DeviceLostError as e:
+            raised = e
+        finally:
+            ranks.Ranks._wait = wait
+        step["raise_s"] = time.perf_counter() - fired[0] if fired else None
+        chain, e = [], raised
+        while e is not None and len(chain) < 8:
+            chain.append(type(e).__name__)
+            e = e.__cause__ or e.__context__
+        step.update(raised=chain, device_lost=solver.device_lost is not None,
+                    broken=rs.broken,
+                    left=[p for p in rs.pids() if not _gone(p)])
+    ranks.shutdown_all()
+    out["left_at_end"] = ranks.live_workers() + [
+        p for rs in sets for p in rs.pids() if not _gone(p)]
+    print("CHILD " + json.dumps(out), flush=True)
+    return 0
+
+
+def _lost_rank(torch):
+    """Phase 13, step (f): a lost rank over NCCL (``_child_lost_rank`` in a
+    child process, so that no aborted communicator touches this one's
+    cards). It needs ``LOST_RANK_CARDS`` cards: on fewer it prints so and
+    checks nothing. Returns its record (None when skipped)."""
+    cards = torch.cuda.device_count()
+    if cards < LOST_RANK_CARDS:
+        print(f"lost rank: needs {LOST_RANK_CARDS} cards, {cards} visible; "
+              f"not run", flush=True)
+        return None
+    t = time.perf_counter()
+    rc, res, tail = _child_result("--lost-rank", timeout=LOST_RANK_SECONDS)
+    wall_s = time.perf_counter() - t
+    if rc != 0 or res is None:
+        raise AssertionError(f"lost rank: rc {rc}\n{tail}")
+    res["wall_s"] = wall_s
+    timeout = res["timeout_s"]
+    for step in res["steps"]:
+        print(f"lost rank, {step['fault'] or 'fresh'}: "
+              f"{res['ranks']} ranks on {res['cards']} cards, workers "
+              f"spawned in {step['spawn_s']:.2f} s, first cfg11 solve "
+              f"{step['first_solve_s']:.2f} s, plan equal "
+              f"{step['plan_equal']}, fresh set {step['fresh_set']}"
+              + (f"; {step['fault']} mid-pack: raised {step['raised']} "
+                 f"{step['raise_s']:.2f} s later, device lost "
+                 f"{step['device_lost']}, workers left {step['left']}"
+                 if step["fault"] else ""), flush=True)
+        if not (step["plan_equal"] and step["fresh_set"]
+                and step["spawn_s"] < timeout):
+            raise AssertionError(f"lost rank: {step}")
+        if step["fault"] is None:
+            continue
+        on_time = (step["raise_s"] is not None
+                   and (step["raise_s"] < timeout if step["fault"] == "kill"
+                        else timeout <= step["raise_s"] < 2 * timeout))
+        if not (step["raised"][:1] == ["DeviceLostError"]
+                and "RanksLost" in step["raised"] and step["device_lost"]
+                and not step["left"] and on_time):
+            raise AssertionError(f"lost rank: {step}")
+    if res["left_at_end"] or len(res["steps"]) != 3:
+        raise AssertionError(f"lost rank: {res}")
+    from karpenter_provider_aws_tpu_torch import measure
+    print(f"lost rank: the child took {wall_s:.1f} s; nvidia-smi: "
+          f"{measure.card_line()}", flush=True)
+    return res
+
+
 def _child_device_lost(torch) -> int:
     """A real sticky error on the card: an Operator (direct mode, the wall
     clock, a batch window of 0 s) with cfg10's 20,000 pending pods runs
@@ -3491,6 +3726,84 @@ def _warm_start(torch, oa):
           f"warm-started {warm['first_solve_ms']:.1f} ms (warmup "
           f"{warm['warmup_ms']:.1f} ms); later p50 cold {cold['later_p50_ms']:.1f} "
           f"/ warm {warm['later_p50_ms']:.1f} ms", flush=True)
+    out["compile_cache"] = _compile_cache(cold["plan"])
+    return out
+
+
+def _build_listing():
+    """Name and modification time of every file in the package's
+    ``_build/``."""
+    d = os.path.join(HERE, "karpenter_provider_aws_tpu_torch", "_build")
+    if not os.path.isdir(d):
+        return {}
+    return {n: os.stat(os.path.join(d, n)).st_mtime_ns for n in os.listdir(d)}
+
+
+def _compile_cache(cold_plan):
+    """Phase 15, the compile cache: two CLI-started children on one fresh,
+    empty ``COMPILE_CACHE_DIR`` (``_child_cache_first_solve``). The first
+    must build both libraries (nvcc, g++) into it and nothing into
+    ``_build/``; the second must load them with no compile. Both plan cfg5
+    as the cold child did, their first solves launch the kernel, and the
+    ahead-of-time ladder (cut to ``CACHE_G_BUCKETS`` x ``CACHE_B_BUCKETS``)
+    captures each of its shapes."""
+    import shutil
+    import tempfile
+    from karpenter_provider_aws_tpu_torch import measure
+    from karpenter_provider_aws_tpu_torch.solver import costmodel
+    cache = tempfile.mkdtemp(prefix="compile-cache-")
+    shapes = sorted(costmodel.shape_key(G, B) for G in CACHE_G_BUCKETS
+                    for B in CACHE_B_BUCKETS)
+    before = _build_listing()
+    out = {}
+    try:
+        for label in ("cold", "warm"):
+            rc, res, tail = _child_result(
+                "--cache-first-solve",
+                env={**os.environ, "COMPILE_CACHE_DIR": cache})
+            if rc != 0 or res is None:
+                raise AssertionError(f"compile cache, {label}: rc {rc}\n{tail}")
+            out[label] = res
+            print(f"compile cache, {label} child: compiled "
+                  f"{ {k: round(v, 3) for k, v in res['compiled'].items()} } s "
+                  f"(BUILD_LOGS {res['build_logs']}) into "
+                  f"{sorted({os.path.dirname(x) == cache for x in res['libraries']})}"
+                  f" the cache; warmup {res['warmup_ms']:.1f} ms, "
+                  f"{res['warmup_launches']} launches, captured "
+                  f"{res['models']}; first cfg5 solve "
+                  f"{res['first_solve_ms']:.1f} ms ({res['first_solve_launches']} "
+                  f"launches), plan {res['plan']}; nvidia-smi: "
+                  f"{measure.card_line()}", flush=True)
+            if res["build_dirs"] != [cache, cache] or not all(
+                    os.path.dirname(x) == cache and os.path.isfile(x)
+                    for x in res["libraries"]):
+                raise AssertionError(f"compile cache, {label}: built into "
+                                     f"{res['build_dirs']}: {res['libraries']}")
+            if res["plan"] != cold_plan or res["first_solve_launches"] < 1:
+                raise AssertionError(f"compile cache, {label}: plan "
+                                     f"{res['plan']} (cold {cold_plan}), "
+                                     f"{res['first_solve_launches']} launches")
+            if res["captured"] != shapes:
+                raise AssertionError(f"compile cache, {label}: captured "
+                                     f"{res['captured']}")
+        cold, warm = out["cold"], out["warm"]
+        if cold["build_logs"] != ["offering_argmin", "ffd"]:
+            raise AssertionError(f"compile cache: the cold child compiled "
+                                 f"{cold['build_logs']}")
+        if warm["build_logs"] or warm["libraries"] != cold["libraries"]:
+            raise AssertionError(f"compile cache: the warm child compiled "
+                                 f"{warm['build_logs']}, loaded "
+                                 f"{warm['libraries']}")
+        if sorted(os.listdir(cache)) != sorted(
+                os.path.basename(x) for x in cold["libraries"]):
+            raise AssertionError(f"compile cache: {os.listdir(cache)}")
+        if _build_listing() != before:
+            raise AssertionError("compile cache: a child wrote into _build/")
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+    print(f"compile cache: cold child compiled in "
+          f"{sum(out['cold']['compiled'].values()):.3f} s, the warm child "
+          f"compiled nothing; _build/ untouched", flush=True)
     return out
 
 
@@ -3500,8 +3813,25 @@ def _profiling(torch, lattice, oa, pods, pools, existing):
     name the ``solver.pack`` span and the cheapest-offering kernel."""
     import shutil
     import tempfile
-    from karpenter_provider_aws_tpu_torch.solver import Solver
+    from karpenter_provider_aws_tpu_torch.solver import Solver, costmodel
     solver = Solver(lattice)
+    # the device cost model's capture of the boot ladder: a meta-device
+    # trace of each shape, no launch
+    before = oa.LAUNCHES
+    t = time.perf_counter()
+    captured = solver.capture_cost_model(node_pools_count=len(pools),
+                                         g_buckets=Solver.BOOT_G_BUCKETS,
+                                         b_buckets=Solver.BOOT_B_BUCKETS)
+    capture_s = time.perf_counter() - t
+    after = oa.LAUNCHES
+    print(f"profiling: capture_cost_model captured {captured} shapes of "
+          f"{len(Solver.BOOT_G_BUCKETS) * len(Solver.BOOT_B_BUCKETS)} in "
+          f"{capture_s:.2f} s; kernel launches {before} before, {after} after",
+          flush=True)
+    if captured != len(Solver.BOOT_G_BUCKETS) * len(Solver.BOOT_B_BUCKETS) \
+            or after != before:
+        raise AssertionError(f"profiling: captured {captured}, launches "
+                             f"{before} -> {after}")
     solver.solve_relaxed(pods, pools, existing=existing)   # outside the trace
     torch.cuda.synchronize()
     trace_dir = tempfile.mkdtemp(prefix="profile-")
@@ -3539,7 +3869,20 @@ def _profiling(torch, lattice, oa, pods, pools, existing):
         raise AssertionError(f"profiling: {len(packs)} pack spans, "
                              f"{len(kernels)} kernel events, {launches} "
                              f"launches for {PROFILED_SOLVES} solves")
+    key = costmodel.model().last_shape
+    rec = costmodel.model().summary()["shapes"].get(key, {})
+    print(f"profiling: cfg5 solved at {key}: {rec.get('flops', 0):.0f} flops, "
+          f"{rec.get('bytes_accessed', 0):.0f} bytes accessed, peak "
+          f"{rec.get('peak_bytes', 0):.0f} bytes (the pack's analysis); "
+          f"last_vs_model {rec.get('last_vs_model')} over {rec.get('solves')} "
+          f"solves", flush=True)
+    if not (rec.get("flops", 0) > 0 and rec.get("bytes_accessed", 0) > 0
+            and rec.get("peak_bytes", 0) > 0):
+        raise AssertionError(f"profiling: no analysis of cfg5's shape {key}")
     return {"walls_ms": walls, "launches": launches,
+            "capture": {"shapes": captured, "seconds": capture_s,
+                        "launches": after - before, "cfg5_shape": key,
+                        "cfg5_model": rec},
             "launches_per_solve": launches / PROFILED_SOLVES,
             "trace_bytes": size, "pack_spans": len(packs),
             "kernel_events": len(kernels), "kernels": b["kernels"],
@@ -3560,10 +3903,11 @@ def _native(problem):
     build_s = time.perf_counter() - t
     if lib is None:
         raise AssertionError("native: ffd.cc did not build (no g++?)")
-    want = os.path.join(HERE, "karpenter_provider_aws_tpu_torch", "_build",
-                        "libffd.so")
-    if os.path.abspath(str(native_build._LIB)) != want or not os.path.isfile(want):
-        raise AssertionError(f"native: built {native_build._LIB}, not {want}")
+    want = os.path.join(HERE, "karpenter_provider_aws_tpu_torch", "_build")
+    lib_path = native_build.library_path()
+    if os.path.dirname(os.path.abspath(str(lib_path))) != want \
+            or not os.path.isfile(lib_path):
+        raise AssertionError(f"native: built {lib_path}, not in {want}")
     after = os.stat(repo_lib).st_mtime_ns if os.path.exists(repo_lib) else None
     if after != before:
         raise AssertionError("native: the port wrote native/libffd.so")
@@ -4101,6 +4445,10 @@ def main() -> int:
             return _child_device_lost(torch)
         if sys.argv[1] == "--tools-cli":
             return _child_tools_cli(sys.argv[2:])
+        if sys.argv[1] == "--cache-first-solve":
+            return _child_cache_first_solve(torch)
+        if sys.argv[1] == "--lost-rank":
+            return _child_lost_rank(torch)
         return _child_first_solve(torch, sys.argv[1])
     try:
         return _run(torch)
@@ -4115,7 +4463,6 @@ def _run(torch) -> int:
     from karpenter_provider_aws_tpu_torch.ops import cuda_build, offering_cases
     from karpenter_provider_aws_tpu_torch.ops import offering_argmin as oa
     from karpenter_provider_aws_tpu_torch.solver import Solver
-    from karpenter_provider_aws_tpu_torch.solver.oracle import ffd_oracle
     from karpenter_provider_aws_tpu_torch.solver.problem import build_problem
 
     _track_solvers(Solver)
@@ -4157,8 +4504,8 @@ def _run(torch) -> int:
           f"{len(pods)} pods, {len(pools)} pools", flush=True)
     problem = build_problem(pods, pools, lattice, existing=existing)
     t = time.perf_counter()
-    oracle = ffd_oracle(problem)
-    print(f"ffd oracle: {oracle.num_new_nodes} nodes, "
+    oracle = _referee(problem)
+    print(f"ffd referee: {oracle.num_new_nodes} nodes, "
           f"${oracle.new_node_cost:.2f}/hr ({time.perf_counter() - t:.1f} s)",
           flush=True)
     t = time.perf_counter()

@@ -21,11 +21,15 @@ The port of the JAX package's CLI, with one flag of its own: ``--device``
 (default ``cuda``) is where the Solver's tensors live, passed to the
 Operator; without CUDA it raises, and ``--device cpu`` runs the plain
 PyTorch path. No environment variable replaces it.
-``--compile-cache-dir`` fails before anything is served or built: nothing
-is compiled at run time to cache. ``--warm-start`` runs the Solver's boot
-bucket ladder on the card on a background thread while the SLO warmup
-window is open, and ``--profile-dir`` writes a ``torch.profiler`` trace
-of the run there on the way out. ``--mesh N`` runs N pod shards on
+``--compile-cache-dir`` (``COMPILE_CACHE_DIR``) is where the kernel
+libraries and the native referee are built and loaded, so a restarted
+process runs neither ``nvcc`` nor ``g++``. ``--warm-start`` runs the
+Solver's boot bucket ladder on the card on a background thread while the
+SLO warmup window is open (with a cache directory it builds every kernel
+source first and records each shape's analysis), ``--profile`` fills the
+device cost model from the ladder's analyses on a ``costmodel-capture``
+thread, and ``--profile-dir`` writes a ``torch.profiler`` trace of the run
+there on the way out. ``--mesh N`` runs N pod shards on
 min(N, visible cards) ranks, one card each (parallel/ranks.py); on one
 card, or the CPU, batched on the ``--device``.
 ``--sidecar-address`` also serves the Operator's Solver as a solver
@@ -119,10 +123,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Run the Solver's boot (G, B) bucket ladder on the "
                         "--device on a background thread at start (the "
                         "SLO warmup window stays open until it ends), so "
-                        "the first real pass does not pay the cold cost.")
+                        "the first real pass does not pay the cold cost. "
+                        "With --compile-cache-dir set, every kernel source "
+                        "is built into it first and each shape's analysis "
+                        "fills the device cost model.")
     p.add_argument("--compile-cache-dir", default=None,
-                   help="Not carried (env COMPILE_CACHE_DIR): nothing is "
-                        "compiled at run time; fails at start when set.")
+                   help="Directory the CUDA kernel libraries (nvcc) and the "
+                        "native referee (g++) are built into and loaded "
+                        "from (env COMPILE_CACHE_DIR): each library's name "
+                        "carries its source, flags and compiler version, "
+                        "so a restarted process loads them without "
+                        "building and another toolkit's are never served. "
+                        "Empty builds in the package's own _build/.")
     p.add_argument("--profile-dir", default=None,
                    help="Profile every solve with torch.profiler (CPU and "
                         "CUDA activity, a named span per pack call) and "
@@ -480,16 +492,21 @@ def start_server(op: Operator, port: int,
     return server
 
 
-def _check_ported(args: argparse.Namespace, opts: Options):
-    """Fail before anything is served or built when an option (flag or
-    environment) reaches a part this package does not carry; resolve
-    ``--device`` (raising without CUDA). Returns the device."""
-    if opts.compile_cache_dir:
-        raise SystemExit("--compile-cache-dir (COMPILE_CACHE_DIR): this "
-                         "package compiles nothing at run time, so there is "
-                         "no compile cache to persist")
-    from .device import resolve_device
-    return resolve_device(args.device)
+def warm_start(op: Operator, opts: Options):
+    """``--warm-start``: the Solver's boot ladder on a ``solver-warmup``
+    thread inside the SLO warmup window, ahead of time (kernel sources
+    built into the cache, each shape's analysis recorded) when a compile
+    cache directory is set. Returns the thread, started."""
+    # the SLO warmup window opens now and closes when the ladder finishes:
+    # latency recorded while the first shapes load the kernel and fill
+    # the allocator is boot cost, not burn (introspect/slo.py)
+    op.slo.begin_warmup()
+    return op.solver.warmup(node_pools_count=len(op.node_pools),
+                            g_buckets=op.solver.BOOT_G_BUCKETS,
+                            b_buckets=op.solver.BOOT_B_BUCKETS,
+                            probes=True, background=True,
+                            aot=bool(opts.compile_cache_dir),
+                            on_done=op.slo.end_warmup)
 
 
 def device_lost(op: Operator) -> Optional[BaseException]:
@@ -522,7 +539,9 @@ def main(argv: Optional[Sequence[str]] = None,
     from .utils.logging import configure as configure_logging
     configure_logging(args.log_level)
     opts = options_from_args(args)
-    device = _check_ported(args, opts)
+    # before anything is served or built: without CUDA this raises
+    from .device import resolve_device
+    device = resolve_device(args.device)
     if args.trace:
         # before ANY server/operator construction so the first admitted
         # request is already traceable
@@ -594,10 +613,18 @@ def main(argv: Optional[Sequence[str]] = None,
     # ring series behind /debug/vars?series=1 and kpctl top. One provider
     # fan-out per second — off every hot path by construction.
     op.sampler.start(interval=1.0)
-    # (--profile fills no device cost model at boot: capture_cost_model
-    # reads an XLA executable's analysis, which a torch pack does not
-    # have; completed solves still feed the model)
     op.burn_capture.resize(args.profile_captures)
+    if args.profile:
+        # the device cost model fills from the pack's analysis of the warm
+        # ladder (a meta-device trace: nothing runs, no solve lock), so
+        # measured-vs-modeled attribution works from the first real solve;
+        # the ahead-of-time warmup records the same analyses
+        capture_fn = getattr(op.solver, "capture_cost_model", None)
+        if capture_fn is not None:   # RemoteSolver solves out-of-process
+            threading.Thread(
+                target=lambda: capture_fn(
+                    node_pools_count=len(op.node_pools)),
+                name="costmodel-capture", daemon=True).start()
 
     stop = stop_event or threading.Event()
 
@@ -619,17 +646,7 @@ def main(argv: Optional[Sequence[str]] = None,
         from .parallel.sidecar import serve as serve_sidecar
         sidecar = serve_sidecar(op.solver, args.sidecar_address)
     if args.warm_start:
-        # the SLO warmup window opens now and closes when the ladder
-        # finishes: latency recorded while the first shapes load the
-        # kernel and fill the allocator is boot cost, not burn
-        # (introspect/slo.py). There is no ahead-of-time path (a compile
-        # cache directory is refused above): the ladder executes each shape
-        op.slo.begin_warmup()
-        op.solver.warmup(node_pools_count=len(op.node_pools),
-                         g_buckets=op.solver.BOOT_G_BUCKETS,
-                         b_buckets=op.solver.BOOT_B_BUCKETS,
-                         probes=True, background=True,
-                         on_done=op.slo.end_warmup)
+        warm_start(op, opts)
     if args.profile_dir:
         op.solver.start_profiling(args.profile_dir)
     deadline = (time.monotonic() + args.duration) if args.duration > 0 else None

@@ -65,7 +65,8 @@ def bound(tm, zc, pr):
     import torch
     B, T = tm.shape
     ZC = zc.shape[1]
-    nbytes = B * T + B * ZC + T * ZC * 4 + B * 8
+    from .ops.offering_argmin import call_bytes
+    nbytes = call_bytes(B, T, ZC)
     n_ops = int((tm.bool().sum(dim=1).to(torch.int64)
                  * zc.bool().sum(dim=1).to(torch.int64)).sum())
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3

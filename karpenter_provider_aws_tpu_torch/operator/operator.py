@@ -18,9 +18,10 @@ tests pass ``"cpu"``. A solver mesh (``Options.mesh``) runs its shards
 on min(shards, cards) ranks, rank 0 that device (parallel/ranks.py), or
 batched on that device where it is the only card. ``Options.solver_address`` delegates the
 provisioning solves to a pool of solver sidecars (parallel/pool.py)
-whose local rung runs on that device. The persistent XLA compile cache
-(``Options.compile_cache_dir``) has nothing to cache here, so a value
-raises at construction instead of being ignored.
+whose local rung runs on that device. ``Options.compile_cache_dir``
+(``COMPILE_CACHE_DIR``) is where the kernel libraries and the native
+referee are built and loaded (solver/solve.py
+``enable_persistent_compile_cache``), set before the Solver is built.
 """
 
 from __future__ import annotations
@@ -84,11 +85,11 @@ class Operator:
         self.options = options or Options()
         self.options.validate()
         if self.options.compile_cache_dir:
-            raise ValueError(
-                "compile_cache_dir: this package compiles nothing at run "
-                "time (its CUDA kernel is built once into a cached "
-                "library), so there is no compile cache to persist; leave "
-                "COMPILE_CACHE_DIR unset")
+            # before the Solver's first build: a restarted operator loads
+            # the kernel libraries its cache volume holds instead of
+            # running nvcc and g++ again
+            from ..solver.solve import enable_persistent_compile_cache
+            enable_persistent_compile_cache(self.options.compile_cache_dir)
         self.device = resolve_device(device)
         self.clock = clock or Clock()
         self.node_classes: Dict[str, NodeClass] = node_classes or {

@@ -92,10 +92,11 @@ class Options:
     # shard), "off" pins it, an integer forces an N-way mesh, its shards
     # on min(N, cards) ranks (batched on the Solver's device on one card).
     mesh: str = ""
-    # directory for the JAX package's persistent XLA compilation cache.
-    # Parsed so the same settings load, but the port compiles nothing at
-    # run time (its one kernel is built by nvcc into a cached library),
-    # so its Operator rejects a non-empty value instead of ignoring it
+    # directory the kernel libraries (nvcc) and the native referee (g++)
+    # are built into and loaded from (solver/solve.py
+    # enable_persistent_compile_cache): a restarted operator whose cache
+    # volume survives loads them instead of building again, and a
+    # read-only image still builds. Empty = the package's own _build/
     compile_cache_dir: str = ""
     # API-mode watch hub tuning (kube/apiserver.py; docs/reference/
     # watch.md): a subscriber whose queue exceeds the bound is dropped

@@ -770,3 +770,156 @@ def pack_probe_fused(alloc: torch.Tensor, avail: torch.Tensor,
     # ProbeSummary(*buf.T) so the contract lives in one place
     return torch.stack([getattr(s, f).to(_F32) for f in ProbeSummary._fields],
                        dim=1)
+
+
+# ---- the pack's analysis (the device cost model's per-shape figures) ----
+
+# ops whose work is their input's elements, not their output's
+_REDUCTIONS = frozenset(("sum", "amax", "amin", "max", "min", "argmax",
+                         "argmin", "any", "all", "prod", "mean"))
+# ops that allocate without reading or writing an element
+_ALLOCATIONS = frozenset(("empty", "empty_strided", "empty_like"))
+
+
+class PackAnalysis(NamedTuple):
+    """One shape's figures, shaped as the device cost model reads a
+    compiled executable's analysis (``costmodel.record_compiled``)."""
+
+    flops: float
+    bytes_accessed: float
+    argument_size_in_bytes: int
+    output_size_in_bytes: int
+    temp_size_in_bytes: int
+
+    def cost_analysis(self) -> dict:
+        return {"flops": self.flops, "bytes accessed": self.bytes_accessed}
+
+    def memory_analysis(self) -> "PackAnalysis":
+        return self
+
+
+def _flat(xs):
+    for x in xs:
+        if isinstance(x, (list, tuple)):
+            yield from _flat(x)
+        else:
+            yield x
+
+
+class _Tally(torch.utils._python_dispatch.TorchDispatchMode):
+    """Counts the aten ops of a trace on the meta device: flops are each
+    op's output elements (its input's for a reduction, 2·M·N·K for a
+    matrix product), bytes its operands plus its outputs; views and bare
+    allocations cost nothing. ``high`` is the high-water mark of the
+    storage the trace allocated and still held.
+
+    The scan repeats one step's ops G times at the same shapes, so an op
+    that allocates its output is run on the meta device once per
+    signature (op, argument shapes, strides and dtypes, other arguments);
+    a repeat gets a fresh empty tensor of the recorded layout."""
+
+    def __init__(self):
+        super().__init__()
+        self.flops = 0
+        self.nbytes = 0
+        self.high = 0
+        self._live = {}   # storage id -> bytes, until a sweep finds it freed
+        self._held = 0    # their sum
+        self._layouts = {}
+
+    def note(self, flops: int, nbytes: int) -> None:
+        self.flops += flops
+        self.nbytes += nbytes
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func.is_view:
+            return func(*args, **kwargs)
+        flat = list(_flat(args)) + list(_flat(kwargs.values()))
+        ins = [t for t in flat if isinstance(t, torch.Tensor)]
+        schema = func._schema
+        fresh = not any(r.alias_info is not None for r in schema.returns)
+        key = None
+        if fresh:
+            key = (func, tuple((tuple(x.shape), x.stride(), x.dtype)
+                               if isinstance(x, torch.Tensor) else x
+                               for x in flat), tuple(kwargs))
+            try:
+                layout = self._layouts.get(key)
+            except TypeError:   # an unhashable argument: run the op
+                layout, key = None, None
+        if fresh and layout is not None:
+            out = tuple(torch.empty_strided(shape, stride, dtype=dtype,
+                                            device="meta")
+                        for shape, stride, dtype in layout)
+            out = out if len(schema.returns) > 1 else out[0]
+        else:
+            out = func(*args, **kwargs)
+        outs = [t for t in _flat(out if isinstance(out, (list, tuple))
+                                 else (out,))
+                if isinstance(t, torch.Tensor)]
+        if key is not None and layout is None:
+            self._layouts[key] = tuple((tuple(t.shape), t.stride(), t.dtype)
+                                       for t in outs)
+        name = schema.name.split("::")[-1]
+        if name not in _ALLOCATIONS:
+            out_n = sum(t.numel() for t in outs)
+            if name in ("mm", "bmm"):
+                self.flops += 2 * out_n * ins[0].shape[-1]
+            elif name in _REDUCTIONS:
+                self.flops += max(t.numel() for t in ins)
+            else:
+                self.flops += out_n
+            self.nbytes += sum(t.numel() * t.element_size()
+                               for t in ins + outs)
+        if fresh:
+            for t in outs:
+                st = t.untyped_storage()
+                ref = st._weak_ref()
+                if ref in self._live:
+                    torch.UntypedStorage._free_weak_ref(ref)
+                else:
+                    self._live[ref] = st.nbytes()
+                    self._held += st.nbytes()
+            if self._held > self.high:
+                # storage freed since the last sweep may still be counted:
+                # drop it before a new high is taken
+                expired = torch.UntypedStorage._expired
+                for k in [k for k in self._live if expired(k)]:
+                    self._held -= self._live.pop(k)
+                    torch.UntypedStorage._free_weak_ref(k)
+                self.high = max(self.high, self._held)
+        return out
+
+
+def pack_analysis(G: int, B: int, T: int, Z: int, C: int, NP: int, A: int,
+                  R: int, lean: bool = True) -> PackAnalysis:
+    """FLOPs, bytes accessed and memory of ``pack_packed_efused`` at one
+    shape (no existing bins), from a trace on the meta device: nothing
+    runs on a card or on the host, and the cheapest-offering kernel is not
+    launched (its call counts ``offering_argmin.call_bytes`` and a compare
+    per (bin, type, cell)). The pack is static-shaped, so the figures
+    depend on the shape alone; they count all G scan steps, so they grow
+    in proportion to G. The peak is the arguments plus the high-water mark
+    of what the pack allocated."""
+    from . import offering_argmin
+    meta = torch.device("meta")
+    _, g_total = group_layout(G, T, Z, C, NP, A, R)
+    args = (torch.empty((T, R), dtype=_F32, device=meta),
+            torch.empty((T, Z, C), dtype=torch.bool, device=meta),
+            torch.empty((T, Z, C), dtype=_F32, device=meta),
+            torch.empty((g_total,), dtype=torch.uint8, device=meta))
+    tally = _Tally()
+    offering_argmin.ANALYSIS.note = tally.note
+    try:
+        with tally:
+            out = pack_packed_efused(*args, None, 0, B, G, T, Z, C, NP, A,
+                                     lean=lean)
+    finally:
+        offering_argmin.ANALYSIS.note = None
+    out_bytes = out.numel() * out.element_size()
+    return PackAnalysis(
+        flops=float(tally.flops), bytes_accessed=float(tally.nbytes),
+        argument_size_in_bytes=sum(a.numel() * a.element_size() for a in args),
+        output_size_in_bytes=out_bytes,
+        temp_size_in_bytes=max(tally.high - out_bytes, 0))

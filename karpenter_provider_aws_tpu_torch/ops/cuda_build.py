@@ -2,16 +2,21 @@
 
 Each ``csrc/<name>.cu`` exposes a plain ``extern "C"`` launcher, so it
 compiles in seconds without PyTorch's headers. The shared library goes to
-``karpenter_provider_aws_tpu_torch/_build/`` (listed in ``.gitignore``),
-named by a hash of the source and the flags, so an edited source is rebuilt
-and an unchanged one is loaded as it is. Nothing is built at import: the
-first launch builds, or a caller (``chip_smoke.py``) builds ahead. A
-source that does not build or load raises ``KernelBuildError``.
+the build directory: ``karpenter_provider_aws_tpu_torch/_build/`` (listed
+in ``.gitignore``) unless ``set_build_dir`` points it elsewhere (the
+persistent compile cache, ``solver.solve.enable_persistent_compile_cache``).
+A library is named by a hash of its source, the flags, the target arch and
+the ``nvcc --version`` text, so an edited source, or another toolkit, is
+rebuilt and an unchanged one is loaded as it is. Nothing is built at
+import: the first launch builds, or a caller (``chip_smoke.py``, the
+Solver's ahead-of-time warmup) builds ahead. A source that does not build
+or load raises ``KernelBuildError``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import pathlib
@@ -19,22 +24,39 @@ import shutil
 import subprocess
 import tempfile
 import threading
-from typing import Dict
+import time
+from typing import Dict, List, Union
 
 from ..errors import KernelBuildError
 
 PKG_DIR = pathlib.Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
-BUILD_DIR = PKG_DIR / "_build"
+DEFAULT_BUILD_DIR = PKG_DIR / "_build"
+# where libraries are built and looked up; set_build_dir moves it
+BUILD_DIR = DEFAULT_BUILD_DIR
 
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH = "sm_90a"
+NVCC_FLAGS = ("-gencode", f"arch=compute_90a,code={ARCH}", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # the compiler's output of each build this process ran (ptxas registers,
-# shared memory and spills), by source name
+# shared memory and spills), and its seconds, by source name
 BUILD_LOGS: Dict[str, str] = {}
+BUILD_SECONDS: Dict[str, float] = {}
+
+
+def set_build_dir(path: Union[str, os.PathLike]) -> None:
+    """Build and look up libraries in ``path`` from now on. A library this
+    process already loaded stays loaded."""
+    global BUILD_DIR
+    BUILD_DIR = pathlib.Path(path)
+
+
+def sources() -> List[str]:
+    """The names of the package's CUDA sources (``csrc/<name>.cu``)."""
+    return sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
 
 
 def nvcc_path() -> str:
@@ -50,26 +72,49 @@ def nvcc_path() -> str:
                            "the CUDA kernels are built from source at first use")
 
 
+@functools.lru_cache(maxsize=None)
+def _version_of(nvcc: str) -> str:
+    try:
+        proc = subprocess.run([nvcc, "--version"], capture_output=True,
+                              text=True, timeout=60)
+    except (OSError, subprocess.SubprocessError) as e:
+        raise KernelBuildError(f"{nvcc} --version failed: {e}") from e
+    if proc.returncode != 0:
+        raise KernelBuildError(f"{nvcc} --version failed "
+                               f"(exit {proc.returncode}): {proc.stderr}")
+    return proc.stdout
+
+
+def compiler_version() -> str:
+    """The ``nvcc --version`` text, part of every library's key (asked
+    once a process; it compiles nothing)."""
+    return _version_of(nvcc_path())
+
+
 def library_path(name: str) -> pathlib.Path:
     src = CSRC_DIR / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    for part in (" ".join(NVCC_FLAGS), ARCH, compiler_version()):
+        h.update(b"\0" + part.encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> pathlib.Path:
     """Compile ``csrc/<name>.cu`` unless its library is already built;
     returns the library's path. Safe across processes: the library is
-    written under a temporary name and renamed into place."""
+    written under a temporary name in the build directory and renamed into
+    place, so a reader never sees a part-written file."""
     out = library_path(name)
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
     os.close(fd)
     try:
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{name}.cu")]
+        t = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True)
+        BUILD_SECONDS[name] = time.perf_counter() - t
         BUILD_LOGS[name] = proc.stdout + proc.stderr
         if proc.returncode != 0:
             raise KernelBuildError(f"nvcc failed for {name}.cu "

@@ -18,7 +18,10 @@ Returns ``(best_v [B] f32, best_i [B] i32)`` with the flat index
 allowed offering gets ``(+inf, 0)``.
 
 ``cheapest_offering`` launches the kernel for CUDA tensors and takes the
-plain version only for CPU tensors. ``LAUNCHES`` counts kernel launches:
+plain version only for CPU tensors. Meta tensors (the pack's analysis,
+``binpack.pack_analysis``) get empty outputs of the kernel's shapes and
+no work; the call's bytes (``call_bytes``) and compares go to the
+analysis running on the thread. ``LAUNCHES`` counts kernel launches:
 this process's, and those its mesh's worker ranks made on their cards
 (parallel/ranks.py reports them with ``note_rank_launches``).
 """
@@ -26,6 +29,7 @@ this process's, and those its mesh's worker ranks made on their cards
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Tuple
 
 import torch
@@ -36,6 +40,15 @@ from . import cuda_build
 LAUNCHES = 0
 
 _MAX_ZC = 4096   # the kernel's shared-memory layout holds up to this many cells
+
+# the analysis running on this thread (``note(flops, nbytes)``), if any
+ANALYSIS = threading.local()
+
+
+def call_bytes(B: int, T: int, ZC: int) -> int:
+    """Bytes one call must move: each input read once (the masks as bytes,
+    the f32 price panel), each output (f32 value, i32 index) written once."""
+    return B * T + B * ZC + T * ZC * 4 + B * 8
 
 
 def cheapest_offering_ref(tmask: torch.Tensor, zcmask: torch.Tensor,
@@ -56,6 +69,20 @@ def note_rank_launches(n: int) -> None:
     gathers them with the rank's result)."""
     global LAUNCHES
     LAUNCHES += int(n)
+
+
+def _meta_call(tmask: torch.Tensor, zcmask: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The call on meta tensors: no work, the kernel's output shapes; the
+    thread's analysis counts a compare per (bin, type, cell) and
+    ``call_bytes``."""
+    B, T = tmask.shape
+    ZC = zcmask.shape[1]
+    note = getattr(ANALYSIS, "note", None)
+    if note is not None:
+        note(B * T * ZC, call_bytes(B, T, ZC))
+    return (torch.empty((B,), dtype=torch.float32, device="meta"),
+            torch.empty((B,), dtype=torch.int32, device="meta"))
 
 
 def _launcher():
@@ -81,11 +108,12 @@ def cheapest_offering(tmask: torch.Tensor, zcmask: torch.Tensor,
     """(best_v [B] f32, best_i [B] i32) per bin; see the module note.
 
     CPU tensors take the plain version. CUDA tensors launch the kernel,
-    or raise: there is no fallback."""
+    or raise: there is no fallback. Meta tensors are checked as CUDA
+    tensors are, then counted and given empty outputs (``_meta_call``)."""
     global LAUNCHES
     if tmask.device.type == "cpu":
         return cheapest_offering_ref(tmask, zcmask, price)
-    if tmask.device.type != "cuda":
+    if tmask.device.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {tmask.device}")
     if tmask.dim() != 2 or zcmask.dim() != 2 or price.dim() != 2:
         raise ValueError("tmask, zcmask and price must be 2-D")
@@ -105,6 +133,8 @@ def cheapest_offering(tmask: torch.Tensor, zcmask: torch.Tensor,
     if T == 0 or ZC == 0 or ZC > _MAX_ZC or T * ZC >= 2 ** 31:
         raise ValueError(f"unsupported extent T={T}, ZC={ZC}")
     tm, zc = _as_u8(tmask, "tmask"), _as_u8(zcmask, "zcmask")
+    if tmask.device.type == "meta":
+        return _meta_call(tm, zc)
     best_v = torch.empty((B,), dtype=torch.float32, device=tmask.device)
     best_i = torch.empty((B,), dtype=torch.int32, device=tmask.device)
     if B == 0:

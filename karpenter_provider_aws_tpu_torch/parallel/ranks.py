@@ -237,13 +237,18 @@ class _Worker:
 
 
 def _worker_main(rank: int, size: int, device: str, store_path: str,
-                 timeout: float, threads: int, conn, parent: int) -> None:
+                 timeout: float, threads: int, conn, parent: int,
+                 build_dir: str) -> None:
     """A worker rank: join the group, then run rank 0's ops until its pipe
-    closes, it is told to stop, or its parent goes."""
+    closes, it is told to stop, or its parent goes. It loads the kernel
+    library from rank 0's ``build_dir`` (a spawned process starts with
+    the package's default)."""
     threading.Thread(target=_watch_parent, args=(parent,), daemon=True,
                      name="solver-rank-parent").start()
     try:
         conn.send(("started", os.getpid()))
+        from ..ops import cuda_build
+        cuda_build.set_build_dir(build_dir)
         torch.set_num_threads(max(1, threads))
         dev = torch.device(device)
         if dev.type == "cuda":
@@ -251,10 +256,12 @@ def _worker_main(rank: int, size: int, device: str, store_path: str,
         worker = _Worker(dev, _make_group(dev.type, store_path, rank, size,
                                           timeout))
         # what the worker runs, imported before it says it is ready; the
-        # names it loaded go to rank 0 (``Ranks.worker_modules``)
+        # names it loaded and its build directory go to rank 0
+        # (``Ranks.worker_modules``, ``Ranks.worker_build_dirs``)
         from ..ops import offering_argmin  # noqa: F401
         from . import sharded  # noqa: F401
-        conn.send(("ready", sorted(sys.modules)))
+        conn.send(("ready", (sorted(sys.modules),
+                             str(cuda_build.BUILD_DIR))))
     except BaseException:
         try:
             conn.send(("error", traceback.format_exc()))
@@ -304,6 +311,8 @@ class Ranks:
         self.last: Dict[str, object] = {}
         # the module names each worker had loaded when it joined
         self.worker_modules: List[List[str]] = []
+        # the build directory each worker loads the kernel library from
+        self.worker_build_dirs: List[str] = []
         self._lock = threading.Lock()
         self._slots: "collections.OrderedDict[Tuple, Tuple]" = \
             collections.OrderedDict()
@@ -325,11 +334,13 @@ class Ranks:
     # -- lifecycle --
 
     def _start(self) -> None:
+        from ..ops import cuda_build
         if self.device.type == "cuda":
             # one build for every rank: the workers load the library this
-            # process built (ops/cuda_build.py writes it atomically)
-            from ..ops import cuda_build
+            # process built (ops/cuda_build.py writes it atomically), from
+            # this process's build directory, which they are told
             cuda_build.build("offering_argmin")
+        build_dir = str(cuda_build.BUILD_DIR)
         store = os.path.join(self._dir, "store")
         ctx = multiprocessing.get_context("spawn")
         threads = torch.get_num_threads()
@@ -338,7 +349,8 @@ class Ranks:
             p = ctx.Process(
                 target=_worker_main, name=f"solver-rank-{rank}", daemon=True,
                 args=(rank, self.size, str(self.devices[rank]), store,
-                      self.timeout, threads, theirs, os.getpid()))
+                      self.timeout, threads, theirs, os.getpid(),
+                      build_dir))
             p.start()
             theirs.close()
             self._procs.append(p)
@@ -348,9 +360,10 @@ class Ranks:
         self._expect("started", deadline, f"in {SPAWN_TIMEOUT_S} s")
         self._pg = _make_group(self.device.type, store, 0, self.size,
                                self.timeout)
-        self.worker_modules = self._expect(
-            "ready", WALL.monotonic() + self.timeout,
-            f"within the group timeout of {self.timeout} s")
+        ready = self._expect("ready", WALL.monotonic() + self.timeout,
+                             f"within the group timeout of {self.timeout} s")
+        self.worker_modules = [mods for mods, _ in ready]
+        self.worker_build_dirs = [d for _, d in ready]
 
     def _expect(self, what: str, deadline: float, within: str) -> list:
         """Each worker's next message, which must be ``what``: its detail

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -568,7 +569,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     solver as its own accelerator-resident process, the operator's
     control loop elsewhere pointing at it via ``--solver-address``.
     ``--device`` (default ``cuda``, raising without CUDA) is where the
-    resident Solver's tensors live. Once the Solver has lost its device
+    resident Solver's tensors live; ``--compile-cache-dir`` (env
+    ``COMPILE_CACHE_DIR``) where its kernel libraries are built and
+    loaded, as in the Operator. Once the Solver has lost its device
     (``errors.DeviceLostError``: a sticky error took the CUDA context) the
     process stops serving and returns ``EXIT_DEVICE_LOST``, so that its
     deployment restarts it; the pool's breakers fail its callers over
@@ -606,9 +609,17 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     p.add_argument("--trace", action="store_true",
                    help="enable tracing: the Solve handler's span tree "
                         "ships back to callers in the RPC response")
+    p.add_argument("--compile-cache-dir",
+                   default=os.environ.get("COMPILE_CACHE_DIR", ""),
+                   help="build and load the kernel libraries in this "
+                        "directory (env COMPILE_CACHE_DIR; solver/solve.py "
+                        "enable_persistent_compile_cache)")
     args = p.parse_args(argv)
     from ..device import resolve_device
     device = resolve_device(args.device)
+    if args.compile_cache_dir:
+        from ..solver.solve import enable_persistent_compile_cache
+        enable_persistent_compile_cache(args.compile_cache_dir)
 
     if args.trace:
         from .. import trace as _trace
@@ -623,8 +634,6 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         from ..lattice.realdata import load_catalog
         lattice = build_lattice(load_catalog(args.catalog,
                                              require_price=True))
-    import os
-
     from .mesh import plan_mesh
     mesh_plan = plan_mesh(args.mesh or os.environ.get("SOLVER_MESH", "auto"),
                           device=device)

@@ -19,11 +19,14 @@ slowed down. Live device memory rides along from
 onto the reference's key names; before that (and on a CPU-only run) the
 fields report 0, as the reference's do on its CPU backend.
 
-A compile-time analysis (FLOPs and bytes of a compiled executable, the
-reference's ``record_compiled``) has no counterpart here: the port's
-device programs are eager torch code and one hand-written kernel. The
-raw entry point ``record_analysis`` stays, so a shape's FLOPs and bytes
-can be filled in from elsewhere.
+Each shape's FLOPs, bytes accessed and peak footprint come from the
+pack's analysis (ops/binpack.py ``pack_analysis``, a trace on the meta
+device that runs nothing), recorded through ``record_compiled`` as the
+reference records a compiled executable's: by ``Solver.capture_cost_model``
+and by the ahead-of-time warmup (``Solver.warmup(aot=True)``, which on the
+card takes the peak from the allocator over the shape's run). Unlike the
+reference's lowering, which counts the scan body once, the analysis
+counts every one of the G scan steps, so its figures grow with G.
 
 Everything is bounded (one entry per shape — the bucket ladder is
 finite by construction) and off the hot path: ``observe_solve`` is a
@@ -44,16 +47,44 @@ class DeviceCostModel:
         # shape key ("G64_B512") -> model/measurement record
         self._shapes: Dict[str, Dict] = {}
         self.last_shape: Optional[str] = None
-        self.captures = 0          # analyses recorded (record_analysis)
+        self.captures = 0          # analyses recorded
         self.capture_errors = 0
 
-    # ---- out-of-band analysis -------------------------------------------
+    # ---- per-shape analysis ------------------------------------------------
+
+    def record_compiled(self, key: str, compiled) -> bool:
+        """Capture ``cost_analysis()`` / ``memory_analysis()`` from an
+        analysis handle (``binpack.pack_analysis``; the reference's
+        compiled or lowered executable has the same two methods). Never
+        raises: an analysis that fails counts in ``capture_errors``."""
+        flops = bytes_accessed = peak_bytes = 0.0
+        try:
+            ca = compiled.cost_analysis()
+            # a dict, or a 1-list of dicts, as the reference's versions give
+            if isinstance(ca, (list, tuple)):
+                ca = ca[0] if ca else {}
+            if isinstance(ca, dict):
+                flops = float(ca.get("flops", 0.0) or 0.0)
+                bytes_accessed = float(ca.get("bytes accessed", 0.0) or 0.0)
+        except Exception:   # noqa: BLE001
+            self.capture_errors += 1
+        try:
+            ma = compiled.memory_analysis()
+            for attr in ("temp_size_in_bytes", "output_size_in_bytes",
+                         "argument_size_in_bytes"):
+                peak_bytes += float(getattr(ma, attr, 0) or 0)
+        except Exception:   # noqa: BLE001
+            pass   # memory_analysis is rarer than cost_analysis
+        if not (flops or bytes_accessed or peak_bytes):
+            return False
+        self.record_analysis(key, flops=flops, bytes_accessed=bytes_accessed,
+                             peak_bytes=peak_bytes)
+        return True
 
     def record_analysis(self, key: str, flops: float = 0.0,
                         bytes_accessed: float = 0.0,
                         peak_bytes: float = 0.0) -> None:
-        """Record a shape's FLOPs, bytes accessed and peak footprint
-        (tests; analyses made outside the solve)."""
+        """The raw-form entry point (tests; analyses made elsewhere)."""
         with self._lock:
             if key not in self._shapes and len(self._shapes) >= _MAX_SHAPES:
                 return

@@ -111,6 +111,36 @@ _G_BUCKETS = (16, 32, 64, 96, 128, 192, 256, 512, 1024, 4096)
 _B_BUCKETS = (32, 128, 512, 1024, 2048, 8192)
 
 
+def enable_persistent_compile_cache(cache_dir: str) -> bool:
+    """Build and load this process's compiled code in ``cache_dir``: the
+    CUDA kernel libraries (ops/cuda_build.py) and the native referee
+    (native/build.py). A restarted operator whose cache volume survives
+    then loads them instead of running ``nvcc`` and ``g++`` again, and an
+    image whose package directory is read-only still builds. Each
+    library's name carries its compiler's version, so a library another
+    toolkit built is never served. Creates the directory; safe to call
+    more than once. Returns False, logs why and changes nothing when the
+    directory cannot be created or written: the process keeps building
+    where it did, on the same device. A relative path is taken from the
+    working directory of the call."""
+    import tempfile
+    from ..native import build as native_build
+    from ..ops import cuda_build
+    cache_dir = os.path.abspath(cache_dir)
+    try:
+        os.makedirs(cache_dir, exist_ok=True)
+        fd, probe = tempfile.mkstemp(prefix=".probe-", dir=cache_dir)
+        os.close(fd)
+        os.unlink(probe)
+    except OSError as e:
+        _LOG.warning("compile cache %s is not writable (%s); kernels build "
+                     "in %s", cache_dir, e, cuda_build.BUILD_DIR)
+        return False
+    cuda_build.set_build_dir(cache_dir)
+    native_build.set_build_dir(cache_dir)
+    return True
+
+
 @dataclass
 class PlannedNode:
     node_pool: str
@@ -2571,10 +2601,14 @@ class Solver:
         probe buckets K. ``node_pools_count`` and ``affinity_classes`` size
         the pool and affinity axes of the buffers, as a real problem's.
 
-        ``aot`` is accepted for the reference's signature and changes
-        nothing: there is no ahead-of-time lowering of a torch pack, so
-        every shape runs on the executing path. (The CLI passes it only
-        with a compile cache directory, which this package refuses.)
+        ``aot=True`` (the CLI passes it with a compile cache directory,
+        ``enable_persistent_compile_cache``) first builds every kernel
+        source into the build directory (the CUDA libraries on the card,
+        the native referee everywhere), so the first real solve loads them,
+        and records each shape's analysis in the device cost model
+        (solver/costmodel.py; ``binpack.pack_analysis``), taking its peak
+        on the card from the allocator over the shape's run. The shapes
+        still execute: a torch pack has no ahead-of-time form to load.
 
         Each shape runs under the solve lock, so a real solve that arrives
         mid-warmup waits for the shape in flight. ``background=True`` runs
@@ -2599,12 +2633,24 @@ class Solver:
             A = max(affinity_classes, 1)
             dev = self.device
 
-            def run_shape(pack) -> None:
+            on_card = dev.type == "cuda"
+            if aot:
+                self.build_kernels()
+
+            def run_shape(pack) -> int:
+                """Runs ``pack``; returns the bytes it allocated at its
+                peak on the card (0 elsewhere)."""
                 with self._solve_lock:
-                    ctx = (torch.cuda.device(dev) if dev.type == "cuda"
+                    ctx = (torch.cuda.device(dev) if on_card
                            else contextlib.nullcontext())
                     with ctx:
+                        if on_card:
+                            base = torch.cuda.memory_allocated(dev)
+                            torch.cuda.reset_peak_memory_stats(dev)
                         fetch_async(pack()).wait()
+                        if on_card:
+                            return torch.cuda.max_memory_allocated(dev) - base
+                return 0
 
             for G in g_buckets:
                 _, g_total = binpack.group_layout(G, lat.T, lat.Z, lat.C,
@@ -2614,12 +2660,23 @@ class Solver:
                     _, i_total = binpack.init_layout(B, R, A)
                     ibuf = torch.zeros((i_total,), dtype=torch.uint8,
                                        device=dev)
-                    for init in (None, ibuf):
-                        run_shape(lambda init=init, B=B:
-                                  binpack.pack_packed_efused(
-                                      self._alloc, self._avail, self._price,
-                                      gbuf, init, 0, B, G, lat.T, lat.Z,
-                                      lat.C, NP, A, lean=True))
+                    peaks = [run_shape(lambda init=init, B=B:
+                                       binpack.pack_packed_efused(
+                                           self._alloc, self._avail,
+                                           self._price, gbuf, init, 0, B,
+                                           G, lat.T, lat.Z, lat.C, NP, A,
+                                           lean=True))
+                             for init in (None, ibuf)]
+                    an = self._analysis(G, B, NP, A) if aot else None
+                    if an is not None:
+                        if on_card:
+                            # the card's own peak: what the run without
+                            # existing bins allocated (its result among
+                            # it), beside its resident arguments
+                            an = an._replace(temp_size_in_bytes=max(
+                                peaks[0] - an.output_size_in_bytes, 0))
+                        costmodel.model().record_compiled(
+                            costmodel.shape_key(G, B), an)
                     if probes:
                         for K in self._K_BUCKETS[:2]:
                             run_shape(lambda K=K, B=B:
@@ -2638,6 +2695,57 @@ class Solver:
                 except Exception:   # noqa: BLE001
                     pass   # a callback bug must not kill the warmup thread
         return None
+
+    def build_kernels(self) -> None:
+        """Build every kernel source this Solver loads into the build
+        directory (``enable_persistent_compile_cache`` moves it): the CUDA
+        libraries on the card (``KernelBuildError`` where one does not
+        build) and the native referee (absent without g++). A library
+        this process already loaded from elsewhere is built there too."""
+        import subprocess
+        from ..native import build as native_build
+        if self.device.type == "cuda":
+            from ..ops import cuda_build
+            for name in cuda_build.sources():
+                cuda_build.build(name)
+        try:
+            native_build.build()
+        except (OSError, subprocess.SubprocessError):
+            pass   # no g++: the referee's callers use the Python oracle
+
+    def _analysis(self, G: int, B: int, NP: int, A: int):
+        """``binpack.pack_analysis`` at this lattice and shape, or None
+        where the trace fails (the shape then has no model)."""
+        lat = self.lattice
+        try:
+            return binpack.pack_analysis(G, B, lat.T, lat.Z, lat.C, NP, A,
+                                         self._alloc.shape[1], lean=True)
+        except Exception:   # noqa: BLE001
+            # a shape that cannot be traced has no model; capture and the
+            # ladder go on with the next
+            _LOG.warning("no analysis of G%d_B%d", G, B, exc_info=True)
+            return None
+
+    def capture_cost_model(self, node_pools_count: int = 1,
+                           affinity_classes: int = 1,
+                           g_buckets: Sequence[int] = WARM_G_BUCKETS,
+                           b_buckets: Sequence[int] = WARM_B_BUCKETS) -> int:
+        """Fill the device cost model (solver/costmodel.py) for the given
+        bucket ladder from each shape's analysis (``binpack.pack_analysis``:
+        a trace on the meta device; no kernel launches and nothing runs on
+        the card or the host). It reads only the lattice's shapes, so it
+        takes no solve lock and runs beside the boot ladder. Returns the
+        shapes captured."""
+        NP = max(node_pools_count, 1)
+        A = max(affinity_classes, 1)
+        captured = 0
+        for G in g_buckets:
+            for B in b_buckets:
+                an = self._analysis(G, B, NP, A)
+                if an is not None and costmodel.model().record_compiled(
+                        costmodel.shape_key(G, B), an):
+                    captured += 1
+        return captured
 
     # ---- profiling ----
 

@@ -281,16 +281,22 @@ SETTINGS_SEAMS = {
         "'cuda' (default; raises without CUDA) or 'cpu' (the plain "
         'PyTorch path). |'),
     '--warm-start': (
-        'the boot ladder runs each shape on the device; nothing is compiled (no XLA, no AOT)',
+        'the boot ladder runs each shape on the device; with a cache directory it builds the kernel sources first (no XLA executables)',
         "| `--warm-start` | - |  | Run the Solver's boot (G, B) bucket "
         'ladder on the --device on a background thread at start (the '
         'SLO warmup window stays open until it ends), so the first real '
-        'pass does not pay the cold cost. |'),
+        'pass does not pay the cold cost. With --compile-cache-dir set, '
+        "every kernel source is built into it first and each shape's "
+        'analysis fills the device cost model. |'),
     '--compile-cache-dir': (
-        'no compile cache to persist: the flag is refused at start',
-        '| `--compile-cache-dir` | COMPILE_CACHE_DIR |  | Not carried '
-        '(env COMPILE_CACHE_DIR): nothing is compiled at run time; '
-        'fails at start when set. |'),
+        "the cache holds the kernel libraries nvcc and g++ build, not XLA executables",
+        '| `--compile-cache-dir` | COMPILE_CACHE_DIR |  | Directory the '
+        'CUDA kernel libraries (nvcc) and the native referee (g++) are '
+        'built into and loaded from (env COMPILE_CACHE_DIR): each '
+        "library's name carries its source, flags and compiler version, "
+        'so a restarted process loads them without building and another '
+        "toolkit's are never served. Empty builds in the package's own "
+        '_build/. |'),
     '--profile-dir': (
         "the trace is torch.profiler's (CPU and CUDA activity), not xprof's",
         '| `--profile-dir` | - |  | Profile every solve with '

@@ -34,8 +34,9 @@ goodbye) and asserts the things the handoff subsystem exists to prove:
 
 The children run on the wall clock (the Operator's default), read here
 through ``utils/clock.WALL``. Unlike the reference's children, they set
-no compile cache directory: this package compiles nothing at run time and
-its Operator refuses the option. Each child publishes its kernel
+no compile cache directory: both load the kernel library from the
+package's build directory (the first to need it builds it there, and the
+atomic rename makes a race harmless). Each child publishes its kernel
 launches and its Solver's device through a ``smoke`` introspection
 provider; the gate's launches are the leader's (read just before the
 kill) plus the standby's.

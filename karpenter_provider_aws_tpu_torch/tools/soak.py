@@ -8,10 +8,10 @@ flags, gates, output and exit codes, run as
 
 It differs where the port does: ``--device`` (default ``cuda``, raising
 without a card) places every Solver of the run (the Operator's, the
-standby's, the pool's sidecars'); ``--compile-cache-dir`` exits, as the
-port's CLI does, since nothing is compiled at run time (so
-``--warm-start`` runs the boot ladder by executing each shape); and the
-artifacts default to names of their own (``SOAK_gpu_timeseries.json.gz``,
+standby's, the pool's sidecars'); ``--compile-cache-dir`` is where the
+kernel libraries and the native referee are built and loaded, as in the
+port's CLI (``--warm-start`` with it builds them first and records each
+shape's analysis); and the artifacts default to names of their own (``SOAK_gpu_timeseries.json.gz``,
 ``WEATHER_gpu_<scenario>.json.gz``), so a run never writes over the JAX
 rounds' files. Each gate that fails is also recorded: the run's last
 lines but one print ``soak: failed gates <JSON list>``, and the weather
@@ -321,8 +321,11 @@ def main(argv=None) -> int:
                          "solve of a bucket (run --warm-start to take "
                          "those out of the run)")
     ap.add_argument("--compile-cache-dir", default="",
-                    help="not carried: nothing is compiled at run time, "
-                         "so the run exits at start when it is set")
+                    help="build and load the kernel libraries and the "
+                         "native referee in this directory "
+                         "(solver/solve.py enable_persistent_compile_cache)"
+                         "; with --warm-start the ladder builds them first "
+                         "and records each shape's analysis")
     ap.add_argument("--warm-start", action="store_true",
                     help="run the warm bucket ladder on the device on a "
                          "background thread at boot and hold the SLO "
@@ -369,10 +372,6 @@ def main(argv=None) -> int:
         print(msg)
         failed_gates.append(msg)
 
-    if args.compile_cache_dir:
-        raise SystemExit("--compile-cache-dir: this package compiles "
-                         "nothing at run time, so there is no compile "
-                         "cache to persist")
     from ..device import resolve_device
     resolve_device(args.device)
     fault_schedule = parse_fault_schedule(args.fault_schedule)
@@ -416,7 +415,8 @@ def main(argv=None) -> int:
                                   solver_address=solver_address,
                                   solver_solve_deadline=(
                                       args.solver_solve_deadline
-                                      if args.solver_pool else 0.0)),
+                                      if args.solver_pool else 0.0),
+                                  compile_cache_dir=args.compile_cache_dir),
                   lattice=lattice, interruption_queue=q,
                   api_server=api_server, device=args.device)
     if args.pipeline:
@@ -427,6 +427,7 @@ def main(argv=None) -> int:
         op.slo.begin_warmup()
         op.solver.warmup(node_pools_count=len(op.node_pools),
                          background=True,
+                         aot=bool(args.compile_cache_dir),
                          on_done=op.slo.end_warmup)
     # ---- warm standby (--standby): a second operator behind the lease --
     op_a = op

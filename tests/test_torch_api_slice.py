@@ -128,107 +128,110 @@ def test_both_clis_bind_rest_posted_pods_equally():
     assert out[cases.TORCH_PKG][1] == out[cases.JAX_PKG][1]
 
 
-# ---- the port's CLI refuses flags that reach unported parts, and starts
-# on the warm-start, profiling, solver sidecar and pool flags ----
+# ---- the port's CLI starts on the warm-start, profiling, solver sidecar,
+# pool and compile cache flags ----
 
-@pytest.mark.parametrize("flags,env,item", [
-    (["--warm-start"], {}, None),
-    (["--profile-dir", "{tmp}/prof"], {}, None),
-    (["--sidecar-address", "unix:{tmp}/s.sock"], {}, None),
-    (["--solver-address", "unix:{tmp}/a.sock"], {}, None),
-    ([], {"SOLVER_ADDRESSES": "unix:{tmp}/a.sock"}, None),
-    (["--compile-cache-dir", "cache"], {}, "compiles nothing"),
+@pytest.mark.parametrize("flags,env", [
+    (["--warm-start"], {}),
+    (["--profile-dir", "{tmp}/prof"], {}),
+    (["--sidecar-address", "unix:{tmp}/s.sock"], {}),
+    (["--solver-address", "unix:{tmp}/a.sock"], {}),
+    ([], {"SOLVER_ADDRESSES": "unix:{tmp}/a.sock"}),
+    (["--compile-cache-dir", "{tmp}/cache", "--warm-start"], {}),
 ], ids=["warm-start", "profile-dir", "sidecar-address", "solver-address",
         "SOLVER_ADDRESSES", "compile-cache-dir"])
-def test_unported_flags_exit_before_serving(flags, env, item, monkeypatch,
+def test_unported_flags_exit_before_serving(flags, env, monkeypatch,
                                             tmp_path):
-    """A flag that reaches a part this package does not carry (``item``
-    names it) exits non-zero before anything is served or built. The
-    other flags (``item`` None) start the process as the JAX CLI's do:
+    """Every flag starts the process as the JAX CLI's does (none reaches
+    an unported part any more; the test keeps its name):
     ``--warm-start`` runs the Solver's boot ladder (cut to one shape
     here) on a ``solver-warmup`` thread inside the SLO warmup window,
-    which its end closes; ``--profile-dir`` writes a profiler trace under
-    the directory on the way out; ``--sidecar-address`` serves the
+    which its end closes, ahead of time with ``--compile-cache-dir``
+    (the native referee built into the directory, the shape's analysis in
+    the device cost model); ``--profile-dir`` writes a profiler trace
+    under the directory on the way out; ``--sidecar-address`` serves the
     Operator's Solver for the run and stops it at the end,
     ``--solver-address`` and ``SOLVER_ADDRESSES`` build the Operator on a
     solver pool of those endpoints."""
     from karpenter_provider_aws_tpu_torch import cli
+    from karpenter_provider_aws_tpu_torch.native import build
+    from karpenter_provider_aws_tpu_torch.ops import cuda_build
     from karpenter_provider_aws_tpu_torch.parallel import sidecar
+    from karpenter_provider_aws_tpu_torch.solver import costmodel
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", cuda_build.BUILD_DIR)
+    monkeypatch.setattr(build, "BUILD_DIR", build.BUILD_DIR)
     flags = [f.format(tmp=tmp_path) for f in flags]
     for k, v in env.items():
         monkeypatch.setenv(k, v.format(tmp=tmp_path))
-    if item is None:
-        lat = cases.small_lattice(cases.TORCH_PKG)
-        built, health = [], []
-        real, serve = cli.Operator, sidecar.serve
+    lat = cases.small_lattice(cases.TORCH_PKG)
+    built, health = [], []
+    real, serve = cli.Operator, sidecar.serve
 
-        def operator(*a, **k):
-            op = real(*a, lattice=lat, **k)
-            built.append(op)
-            return op
+    def operator(*a, **k):
+        op = real(*a, lattice=lat, **k)
+        built.append(op)
+        return op
 
-        def serve_and_probe(solver, address, **kw):
-            server = serve(solver, address, **kw)
-            client = sidecar.SolverClient(address)
-            health.append(client.health())
-            client.close()
-            return server
+    def serve_and_probe(solver, address, **kw):
+        server = serve(solver, address, **kw)
+        client = sidecar.SolverClient(address)
+        health.append(client.health())
+        client.close()
+        return server
 
-        monkeypatch.setattr(cli, "Operator", operator)
-        monkeypatch.setattr(sidecar, "serve", serve_and_probe)
-        Solver = cases.mod(cases.TORCH_PKG, "solver").Solver
-        monkeypatch.setattr(Solver, "BOOT_G_BUCKETS", (16,))
-        monkeypatch.setattr(Solver, "BOOT_B_BUCKETS", (32,))
-        windows = []
-        if "--warm-start" in flags:
-            real_warmup = Solver.warmup
+    monkeypatch.setattr(cli, "Operator", operator)
+    monkeypatch.setattr(sidecar, "serve", serve_and_probe)
+    Solver = cases.mod(cases.TORCH_PKG, "solver").Solver
+    monkeypatch.setattr(Solver, "BOOT_G_BUCKETS", (16,))
+    monkeypatch.setattr(Solver, "BOOT_B_BUCKETS", (32,))
+    windows, aot = [], []
+    costmodel.model().reset()
+    if "--warm-start" in flags:
+        real_warmup = Solver.warmup
 
-            def warmup(self, **kw):
-                windows.append(built[0].slo.warmup_active())
-                return real_warmup(self, **kw)
+        def warmup(self, **kw):
+            windows.append(built[0].slo.warmup_active())
+            aot.append(kw["aot"])
+            return real_warmup(self, **kw)
 
-            monkeypatch.setattr(Solver, "warmup", warmup)
-        rc = cli.main(flags + ["--device", "cpu", "--metrics-port=0",
-                               "--duration=0.1"])
-        assert rc == 0
-        op, = built
-        if "--warm-start" in flags:
-            warm = [t for t in threading.enumerate()
-                    if t.name == "solver-warmup"]
-            for t in warm:
-                t.join(120)
-            assert windows and all(windows)
-            assert not op.slo.warmup_active()
-            assert op.solver.device.type == "cpu"
-        elif "--profile-dir" in flags:
-            traces = list((tmp_path / "prof" / "plugins" / "profile").glob(
-                "*/*.pt.trace.json"))
-            assert len(traces) == 1 and traces[0].stat().st_size > 0
-            assert not op.solver._tracing
-        elif "--sidecar-address" in flags:
-            assert [h["types"] for h in health] == [lat.T]
-            assert type(op.solver).__name__ == "Solver"
-            assert not (tmp_path / "s.sock").exists()    # stopped
+        monkeypatch.setattr(Solver, "warmup", warmup)
+    rc = cli.main(flags + ["--device", "cpu", "--metrics-port=0",
+                           "--duration=0.1"])
+    assert rc == 0
+    op, = built
+    if "--warm-start" in flags:
+        warm = [t for t in threading.enumerate()
+                if t.name == "solver-warmup"]
+        for t in warm:
+            t.join(120)
+        assert windows and all(windows)
+        assert not op.slo.warmup_active()
+        assert op.solver.device.type == "cpu"
+        shapes = costmodel.model().summary()["shapes"]
+        costmodel.model().reset()
+        if "--compile-cache-dir" in flags:
+            cache = tmp_path / "cache"
+            assert set(aot) == {True}
+            assert cuda_build.BUILD_DIR == build.BUILD_DIR == cache
+            assert build.library_path().parent == cache
+            assert build.library_path().exists()
+            assert shapes["G16_B32"]["flops"] > 0
         else:
-            assert not health
-            assert [ep.address for ep in op.solver.endpoints] == \
-                [f"unix:{tmp_path}/a.sock"]
-            assert op.solver.device.type == "cpu"
-        return
-    monkeypatch.chdir(tmp_path)
-    api, metrics = _free_port(), _free_port()
-    built = []
-    monkeypatch.setattr(cli, "Operator",
-                        lambda *a, **k: built.append(1) or None)
-    with pytest.raises(SystemExit) as exc:
-        cli.main(flags + ["--device", "cpu", f"--api-port={api}",
-                          f"--metrics-port={metrics}", "--duration=0.1"])
-    assert exc.value.code not in (0, None) and item in str(exc.value.code)
-    assert not built
-    for port in (api, metrics):
-        with socket.socket() as sock:
-            assert sock.connect_ex(("127.0.0.1", port)) != 0, port
-    assert not list(tmp_path.iterdir())
+            assert set(aot) == {False} and "G16_B32" not in shapes
+    elif "--profile-dir" in flags:
+        traces = list((tmp_path / "prof" / "plugins" / "profile").glob(
+            "*/*.pt.trace.json"))
+        assert len(traces) == 1 and traces[0].stat().st_size > 0
+        assert not op.solver._tracing
+    elif "--sidecar-address" in flags:
+        assert [h["types"] for h in health] == [lat.T]
+        assert type(op.solver).__name__ == "Solver"
+        assert not (tmp_path / "s.sock").exists()    # stopped
+    else:
+        assert not health
+        assert [ep.address for ep in op.solver.endpoints] == \
+            [f"unix:{tmp_path}/a.sock"]
+        assert op.solver.device.type == "cpu"
 
 
 # ---- a mesh starts the process ----

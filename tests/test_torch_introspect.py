@@ -14,25 +14,20 @@ replayed on both packages by ``test_torch_replay``: the test's own
 checks run on each, and the two must make the same Operator state,
 metric series and apiserver objects (tolerances in
 ``test_torch_replay``; everything else exact). The tests of
-``tools/kpctl.py`` run the port's kpctl on the port side; the tests that
-read an XLA executable are named in ``NOT_REPLAYED`` as ``XLA``, for
-what no torch pack has.
+``tools/kpctl.py`` run the port's kpctl on the port side. The device cost
+model's capture tests replay too: the port's ``record_compiled`` takes
+the same duck-typed analyses, and its ``capture_cost_model`` fills the
+model from the pack's meta-device analysis (``binpack.pack_analysis``).
 """
 
 import pytest
 
 import test_torch_replay as replay
 
-_XLA = ("XLA (record_compiled and capture_cost_model read an XLA "
-        "executable's analysis, which a torch pack does not have)")
 FILES = {
     "test_introspect.py": {},
     "test_headroom.py": {},
-    "test_profiler.py": {
-        "test_profiler.py::TestDeviceCostModel::test_record_compiled_handles_both_jax_shapes": _XLA,
-        "test_profiler.py::TestDeviceCostModel::test_analysis_failure_is_contained": _XLA,
-        "test_profiler.py::TestDeviceCostModel::test_solver_lowering_capture_fills_model": _XLA,
-    },
+    "test_profiler.py": {},
 }
 SHIMS = {"test_introspect.py": (replay.KPCTL_SHIM,), "test_headroom.py": (),
          "test_profiler.py": (replay.KPCTL_SHIM,)}

@@ -60,9 +60,9 @@ def test_ffd_source_equals_the_repo_copy():
 def test_builds_into_the_port_build_dir():
     if not native_available():
         pytest.skip("no C++ toolchain")
-    lib = t_build_mod._LIB
-    assert lib == PORT / "_build" / "libffd.so"
-    assert lib.exists()
+    lib = t_build_mod.library_path()
+    assert lib.parent == PORT / "_build" == t_build_mod.DEFAULT_BUILD_DIR
+    assert lib.name.startswith("libffd-") and lib.exists()
     assert lib.stat().st_mtime >= (PORT / "native" / "ffd.cc").stat().st_mtime
 
 
@@ -78,11 +78,10 @@ def test_no_toolchain_means_unavailable(monkeypatch, tmp_path):
     monkeypatch.setattr(t_build_mod, "_lib", None)
     monkeypatch.setattr(t_build_mod, "_build_failed", False)
     monkeypatch.setattr(t_build_mod, "BUILD_DIR", tmp_path / "_build")
-    monkeypatch.setattr(t_build_mod, "_LIB", tmp_path / "_build" / "lib.so")
     monkeypatch.setattr(subprocess, "run", no_gpp)
     assert not native_available()
     assert t_native(cases.problem(cases.TORCH_PKG, "generic")) is None
-    assert not (tmp_path / "_build" / "lib.so").exists()
+    assert not list(tmp_path.rglob("*.so"))
 
 
 def _random_problem(pkg, seed, max_pods=None):

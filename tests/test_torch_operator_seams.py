@@ -192,14 +192,29 @@ def test_mesh_plans(monkeypatch):
 
 
 def test_compile_cache_dir_parsed_and_rejected(monkeypatch, tmp_path):
+    """``COMPILE_CACHE_DIR`` parses as the JAX package's does; the Operator
+    points both kernel builds at it before its Solver is built, and one it
+    cannot write leaves the builds where they were (no error: the process
+    stays usable, as the JAX package's does)."""
+    from karpenter_provider_aws_tpu_torch.native import build
     from karpenter_provider_aws_tpu_torch.operator import Options
+    from karpenter_provider_aws_tpu_torch.ops import cuda_build
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", cuda_build.BUILD_DIR)
+    monkeypatch.setattr(build, "BUILD_DIR", build.BUILD_DIR)
     monkeypatch.setenv("COMPILE_CACHE_DIR", str(tmp_path))
     assert Options.from_env().compile_cache_dir == str(tmp_path)
     monkeypatch.delenv("COMPILE_CACHE_DIR")
     assert Options.from_env().compile_cache_dir == ""
-    with pytest.raises(ValueError, match="compile_cache_dir"):
-        _operator(cases.TORCH_PKG, options=Options(compile_cache_dir=str(tmp_path)))
-    assert not list(tmp_path.iterdir())
+    before = (cuda_build.BUILD_DIR, build.BUILD_DIR)
+    (tmp_path / "file").write_text("x")
+    op = _operator(cases.TORCH_PKG, options=Options(
+        compile_cache_dir=str(tmp_path / "file" / "cache")))
+    assert (cuda_build.BUILD_DIR, build.BUILD_DIR) == before
+    assert op.solver.device.type == "cpu"
+    _operator(cases.TORCH_PKG, options=Options(
+        compile_cache_dir=str(tmp_path / "cache")))
+    assert cuda_build.BUILD_DIR == build.BUILD_DIR == tmp_path / "cache"
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["cache", "file"]
 
 
 def test_build_info_labels():

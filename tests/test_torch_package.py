@@ -308,7 +308,7 @@ def test_catalog_copied_byte_for_byte():
     assert hashlib.sha256(a).hexdigest() == hashlib.sha256(b).hexdigest()
 
 
-def test_cuda_source_and_build_dir():
+def test_cuda_source_and_build_dir(monkeypatch):
     from karpenter_provider_aws_tpu_torch.ops import cuda_build
     assert sorted(p.name for p in (PORT / "csrc").glob("*.cu")) \
         == ["offering_argmin.cu"]
@@ -316,6 +316,8 @@ def test_cuda_source_and_build_dir():
     assert 'extern "C"' in src and "sm_90a" in " ".join(cuda_build.NVCC_FLAGS)
     ignored = (REPO / ".gitignore").read_text().split()
     assert "karpenter_provider_aws_tpu_torch/_build/" in ignored
+    assert cuda_build.DEFAULT_BUILD_DIR == PORT / "_build"
+    monkeypatch.setattr(cuda_build, "compiler_version", lambda: "nvcc 12")
     assert cuda_build.library_path("offering_argmin").parent == cuda_build.BUILD_DIR
 
 
@@ -333,6 +335,7 @@ def test_cuda_build_failure_is_a_kernel_build_error(monkeypatch, tmp_path):
         cuda_build.build("offering_argmin")
     assert issubclass(KernelBuildError, RuntimeError)
     monkeypatch.setattr(cuda_build, "nvcc_path", lambda: "nvcc")
+    monkeypatch.setattr(cuda_build, "compiler_version", lambda: "nvcc 12")
     monkeypatch.setattr(subprocess, "run", lambda cmd, **kw:
                         subprocess.CompletedProcess(cmd, 2, "", "error: bad"))
     with pytest.raises(KernelBuildError, match="nvcc failed"):

@@ -11,8 +11,8 @@ the test's own checks run on each package, and the two must make the same
 Operators, clouds, apiservers, metric series and plans (tolerances in
 ``test_torch_replay``; everything else exact). Tests over a parametrized
 fixture (``stratum``) replay once per value. The persistent compile
-cache's test is named in ``NOT_REPLAYED``: the port compiles nothing at
-run time (a settled seam).
+cache's test asserts, on the port side, that both kernel builds point at
+the directory (``CACHE_SHIM``) where the JAX test reads ``jax.config``.
 """
 
 import pytest
@@ -21,24 +21,48 @@ import test_torch_replay as replay
 from test_torch_replay import one_torch_thread  # noqa: F401 (autouse)
 
 FILES = {
-    "test_incremental.py": {
-        "test_incremental.py::TestBootSatellites::"
-        "test_enable_persistent_compile_cache":
-            "seam (the port compiles nothing at run time, so there is no "
-            "persistent compile cache to enable; the CLI and the Operator "
-            "refuse COMPILE_CACHE_DIR)",
-    },
+    "test_incremental.py": {},
     "test_scale.py": {},
 }
 CASES = [(f, t, p) for f, nr in FILES.items()
          for t, p in replay.parametrized(f, replay.replayed(f, nr))]
+# the compile cache's directory, read on the port from its two builds
+CACHE_SHIM = (
+    "        import jax\n"
+    "        assert jax.config.jax_compilation_cache_dir == str(tmp_path)\n",
+    "        from karpenter_provider_aws_tpu_torch.native import build\n"
+    "        from karpenter_provider_aws_tpu_torch.ops import cuda_build\n"
+    "        assert str(cuda_build.BUILD_DIR) == str(build.BUILD_DIR) \\\n"
+    "            == str(tmp_path)\n")
+_JAX_CACHE_KNOBS = ("jax_compilation_cache_dir",
+                    "jax_persistent_cache_min_compile_time_secs",
+                    "jax_persistent_cache_min_entry_size_bytes")
+
+
+@pytest.fixture(autouse=True)
+def compile_cache_settings(monkeypatch):
+    """The replayed compile-cache test points each package's cache at a
+    test directory: both are restored after every test."""
+    import jax
+
+    from karpenter_provider_aws_tpu_torch.native import build
+    from karpenter_provider_aws_tpu_torch.ops import cuda_build
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", cuda_build.BUILD_DIR)
+    monkeypatch.setattr(build, "BUILD_DIR", build.BUILD_DIR)
+    monkeypatch.setattr(build, "_build_failed", build._build_failed)
+    knobs = {k: getattr(jax.config, k) for k in _JAX_CACHE_KNOBS}
+    yield
+    for k, v in knobs.items():
+        jax.config.update(k, v)
 
 
 @pytest.mark.parametrize("filename,test_id,params", CASES,
                          ids=[replay.case_id(t, p) for _, t, p in CASES])
 def test_incremental_and_scale_equal_to_jax(filename, test_id, params,
                                             tmp_path):
-    replay.replay(filename, test_id, tmp_path, plans=True, params=params)
+    replay.replay(filename, test_id, tmp_path, plans=True, params=params,
+                  shims=(CACHE_SHIM,) if filename == "test_incremental.py"
+                  else ())
 
 
 @pytest.mark.parametrize("filename,count", [("test_incremental.py", 24),

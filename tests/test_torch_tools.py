@@ -184,13 +184,33 @@ def test_tools_default_to_cuda_and_raise_without_it(tool, tmp_path,
 
 def test_soak_refuses_the_compile_cache_and_names_its_artifacts(
         tmp_path, monkeypatch):
-    """The port compiles nothing at run time: ``--compile-cache-dir``
-    exits before anything is built; the artifacts' default names are the
-    port's own, never the JAX rounds'."""
+    """``--compile-cache-dir`` reaches the soak's Operator, which builds
+    the kernels there, and with ``--warm-start`` the ladder runs ahead of
+    time (the run is stopped once the ladder is asked for); the
+    artifacts' default names are the port's own, never the JAX rounds'."""
+    from karpenter_provider_aws_tpu_torch.native import build
+    from karpenter_provider_aws_tpu_torch.ops import cuda_build
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", cuda_build.BUILD_DIR)
+    monkeypatch.setattr(build, "BUILD_DIR", build.BUILD_DIR)
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(SystemExit, match="compiles nothing"):
-        soak.main(["--device", "cpu", "--compile-cache-dir", "x"])
-    assert not list(tmp_path.iterdir())
+
+    class Stop(Exception):
+        pass
+
+    asked = []
+
+    def warmup(self, **kw):
+        asked.append((self.device.type, kw["aot"], kw["background"]))
+        raise Stop
+
+    from karpenter_provider_aws_tpu_torch.solver import Solver
+    monkeypatch.setattr(Solver, "warmup", warmup)
+    with pytest.raises(Stop):
+        soak.main(["--device", "cpu", "--families", "m5",
+                   "--compile-cache-dir", "cache", "--warm-start"])
+    assert asked == [("cpu", True, True)]
+    assert cuda_build.BUILD_DIR == build.BUILD_DIR == tmp_path / "cache"
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["cache"]
     assert soak.DEFAULT_OUT == "SOAK_gpu_timeseries.json.gz"
     src = pathlib.Path(soak.__file__).read_text()
     assert 'f"WEATHER_gpu_{' in src and '"WEATHER_{' not in src
@@ -223,8 +243,15 @@ def test_deployment_template_runs_the_port_controller_on_the_card():
     assert c["resources"]["limits"]["nvidia.com/gpu"] == 1
     assert c["resources"]["requests"]["nvidia.com/gpu"] == 1
     assert "google.com/tpu" not in c["resources"]["limits"]
-    env = {e["name"] for e in c["env"]}
-    assert "COMPILE_CACHE_DIR" not in env and "CLUSTER_NAME" in env
+    env = {e["name"]: e["value"] for e in c["env"]}
+    assert "CLUSTER_NAME" in env
+    # the kernel build cache on an emptyDir volume, as the reference's
+    # compile cache
+    cache = env["COMPILE_CACHE_DIR"]
+    (mount,) = [m for m in c["volumeMounts"]
+                if cache.startswith(m["mountPath"] + "/")]
+    (vol,) = [v for v in spec["volumes"] if v["name"] == mount["name"]]
+    assert vol["emptyDir"] == {}
     assert all("xla" not in v["name"] for v in spec["volumes"])
     assert doc["metadata"]["name"] == "karpenter-tpu"
     assert "${" not in yaml.safe_dump(doc)
