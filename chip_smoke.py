@@ -398,6 +398,9 @@ CACHE_G_BUCKETS = (32,)    # the compile-cache children's boot ladder, cut
 CACHE_B_BUCKETS = (2048,)  # to cfg5's own shape (G=31, B=2048)
 CHILD_SECONDS = 600        # a child process of phases 15 and 19 must end in this
 PROFILED_SOLVES = 2        # cfg5 solves inside the profiling session
+# the trace spans of the device pack calls (solver/solve.py)
+PACK_SPANS = ("solver.pack", "solver.pack_micro", "solver.pack_probe",
+              "solver.pack_sharded", "solver.pack_merge")
 BENCH_ITERS = 3            # timed solves of the bench phase's cfg5 row
 BENCH_SMOKE_SECONDS = 300  # the bench's --smoke child must end in this
 TOOLS_CLI_PODS = 2000      # cfg10's pods applied to the CLI child with kpctl
@@ -3311,7 +3314,7 @@ def _trace_breakdown(path: str, top: int = 12):
             row = api.setdefault(name, [0, 0.0])
             row[0] += 1
             row[1] += dur / 1e3
-        elif cat == "user_annotation" and name.startswith("solver.pack"):
+        elif cat == "user_annotation" and name in PACK_SPANS:
             spans.append((name, dur / 1e3))
     ranked = sorted(api.items(), key=lambda kv: -kv[1][1])[:top]
     return {"kernels": kernels[0], "kernel_ms": kernels[1],
@@ -3852,9 +3855,11 @@ def _profiling(torch, lattice, oa, pods, pools, existing):
             raise AssertionError(f"profiling: no trace file ({path})")
         size = os.path.getsize(path)
         with open(path) as f:
-            names = [e.get("name", "") for e in json.load(f)["traceEvents"]]
-        # a span shows twice (host and device timelines): count names
-        packs = sorted({n for n in names if n.startswith("solver.pack#")})
+            events = json.load(f)["traceEvents"]
+        names = [e.get("name", "") for e in events]
+        # a span shows twice (host and device timelines): count the host's
+        packs = [e for e in events if e.get("name") == "solver.pack"
+                 and e.get("cat") == "user_annotation"]
         kernels = [n for n in names if "cheapest_offering_kernel" in n]
         b = _trace_breakdown(path)
     finally:

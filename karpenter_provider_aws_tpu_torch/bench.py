@@ -20,12 +20,10 @@ What the times mean on the card:
 
 - ``e2e_p50_ms``: ``build_problem`` + solve + decode on the host clock, as
   in ``bench.py``.
-- ``device_p50_ms`` is ``NodePlan.device_seconds``: the host clock from
-  the pack's dispatch until its result buffer is on the host
-  (``solver/solve.py _solve_device``). On the pipelined path (the
-  default) that window also holds the decode prep the host does while the
-  card computes. It is not kernel time; ``chip_smoke.py`` times the
-  kernel with CUDA events.
+- ``device_p50_ms`` is ``NodePlan.device_seconds``: the card's time for
+  the pack, from a pair of CUDA events around its launches
+  (``solver/pipeline.py DeviceTimer``); on the CPU the host clock around
+  the pack call. The delta rows' host shares subtract it from the pass.
 - ``device_link_rtt_ms`` (``measure_link_rtt`` and the probe paired with
   each sample): a 1,024-byte uint8 tensor on the Solver's device plus one,
   then ``.cpu()``, which synchronises. On the TPU this measured a

@@ -32,6 +32,7 @@ from typing import NamedTuple, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from .. import trace
 from .offering_argmin import cheapest_offering
 
 EPS = 1e-3
@@ -288,14 +289,16 @@ def _pack_step(alloc: torch.Tensor, avail_f: torch.Tensor, pools: PoolParams,
 def _scan(alloc: torch.Tensor, avail_f: torch.Tensor, groups: GroupBatch,
           pools: PoolParams, init: BinState
           ) -> Tuple[BinState, torch.Tensor, torch.Tensor]:
-    """The grouped-FFD scan: ``_pack_step`` over the G groups in order.
-    Returns the final bin table, the [G,B] assignment and the [G]
-    leftover. Plain tensor code only, so the batched probe can vmap it."""
+    """The grouped-FFD scan: ``_pack_step`` over the G groups in order,
+    each step a ``pack.step`` trace span. Returns the final bin table, the
+    [G,B] assignment and the [G] leftover. Plain tensor code only, so the
+    batched probe can vmap it."""
     state = init
     assign, leftover = [], []
     for gi in range(groups.count.shape[0]):
-        g = GroupBatch(*(f[gi] for f in groups))
-        state, (a, lo) = _pack_step(alloc, avail_f, pools, state, g)
+        with trace.span("pack.step"):
+            g = GroupBatch(*(f[gi] for f in groups))
+            state, (a, lo) = _pack_step(alloc, avail_f, pools, state, g)
         assign.append(a)
         leftover.append(lo)
     dev = state.cum.device
@@ -833,7 +836,8 @@ class _Tally(torch.utils._python_dispatch.TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
-        if func.is_view:
+        if func.is_view or func.namespace == "profiler":
+            # a view, or a profiler range of a trace span: no work
             return func(*args, **kwargs)
         flat = list(_flat(args)) + list(_flat(kwargs.values()))
         ins = [t for t in flat if isinstance(t, torch.Tensor)]

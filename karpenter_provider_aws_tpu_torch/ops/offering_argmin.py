@@ -23,14 +23,16 @@ plain version only for CPU tensors. Meta tensors (the pack's analysis,
 no work; the call's bytes (``call_bytes``) and compares go to the
 analysis running on the thread. ``LAUNCHES`` counts kernel launches:
 this process's, and those its mesh's worker ranks made on their cards
-(parallel/ranks.py reports them with ``note_rank_launches``).
+(parallel/ranks.py reports them with ``note_rank_launches``). ``CALLS``
+counts this process's calls by shape ``(B, T, ZC)``, the plain version's
+too, so that ``call_bytes`` prices the work the finalization did.
 """
 
 from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
@@ -38,6 +40,8 @@ from . import cuda_build
 
 # kernel launches made by cheapest_offering (the plain version never counts)
 LAUNCHES = 0
+# calls of cheapest_offering by shape (B, T, ZC), on the card and the CPU
+CALLS: Dict[Tuple[int, int, int], int] = {}
 
 _MAX_ZC = 4096   # the kernel's shared-memory layout holds up to this many cells
 
@@ -69,6 +73,11 @@ def note_rank_launches(n: int) -> None:
     gathers them with the rank's result)."""
     global LAUNCHES
     LAUNCHES += int(n)
+
+
+def _count_call(tmask: torch.Tensor, zcmask: torch.Tensor) -> None:
+    key = (int(tmask.shape[0]), int(tmask.shape[1]), int(zcmask.shape[1]))
+    CALLS[key] = CALLS.get(key, 0) + 1
 
 
 def _meta_call(tmask: torch.Tensor, zcmask: torch.Tensor
@@ -112,6 +121,7 @@ def cheapest_offering(tmask: torch.Tensor, zcmask: torch.Tensor,
     tensors are, then counted and given empty outputs (``_meta_call``)."""
     global LAUNCHES
     if tmask.device.type == "cpu":
+        _count_call(tmask, zcmask)
         return cheapest_offering_ref(tmask, zcmask, price)
     if tmask.device.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {tmask.device}")
@@ -137,6 +147,7 @@ def cheapest_offering(tmask: torch.Tensor, zcmask: torch.Tensor,
         return _meta_call(tm, zc)
     best_v = torch.empty((B,), dtype=torch.float32, device=tmask.device)
     best_i = torch.empty((B,), dtype=torch.int32, device=tmask.device)
+    _count_call(tmask, zcmask)
     if B == 0:
         return best_v, best_i
     launch = _launcher()

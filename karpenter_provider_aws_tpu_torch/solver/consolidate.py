@@ -56,6 +56,7 @@ import threading
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+from .. import trace
 from ..lattice.tensors import masked_view_versioned
 from ..metrics import Registry, wire_core_metrics
 from ..utils.clock import Clock
@@ -303,57 +304,59 @@ class ConsolidationEngine:
 
         batch_problems, batch_idx, batch_prices = [], [], []
         if misses:
-            lattice = masked_view_versioned(self.solver.lattice,
-                                            self.unavailable)
-            if node_by_claim is None:
-                node_by_claim = self.cluster.nodes_by_claim()
-            if by_node is None:
-                by_node = self.cluster.pods_by_node(
-                    include_daemonsets=False)
-            all_bins = self.cluster.existing_bins(lattice)
-            bound_all = self.cluster.bound_pods()
-            pvcs, storage_classes = self.cluster.volume_state()
-            ds = self.cluster.daemonset_pods()
-            pools = list(self.node_pools.values())
+            # the scratch problems of the sets no cached verdict answers
+            with trace.span("engine.whatif_build"):
+                lattice = masked_view_versioned(self.solver.lattice,
+                                                self.unavailable)
+                if node_by_claim is None:
+                    node_by_claim = self.cluster.nodes_by_claim()
+                if by_node is None:
+                    by_node = self.cluster.pods_by_node(
+                        include_daemonsets=False)
+                all_bins = self.cluster.existing_bins(lattice)
+                bound_all = self.cluster.bound_pods()
+                pvcs, storage_classes = self.cluster.volume_state()
+                ds = self.cluster.daemonset_pods()
+                pools = list(self.node_pools.values())
 
-            valid = {i: all(c.name in node_by_claim for c in removed_sets[i])
-                     for i in misses}
-            claim_names = {c.name for i in misses if valid[i]
-                           for c in removed_sets[i]}
-            node_of = {n: node_by_claim[n].name for n in claim_names}
-            relaxed: Dict[str, object] = {}
-            for n in claim_names:
-                for p in by_node.get(node_of[n], ()):
-                    if p.name not in relaxed:
-                        relaxed[p.name] = relax_pod(p, relaxation_depth(p))
+                valid = {i: all(c.name in node_by_claim for c in removed_sets[i])
+                         for i in misses}
+                claim_names = {c.name for i in misses if valid[i]
+                               for c in removed_sets[i]}
+                node_of = {n: node_by_claim[n].name for n in claim_names}
+                relaxed: Dict[str, object] = {}
+                for n in claim_names:
+                    for p in by_node.get(node_of[n], ()):
+                        if p.name not in relaxed:
+                            relaxed[p.name] = relax_pod(p, relaxation_depth(p))
 
-            def pods_of(claim_name):
-                return [relaxed[p.name]
-                        for p in by_node.get(node_of[claim_name], ())]
+                def pods_of(claim_name):
+                    return [relaxed[p.name]
+                            for p in by_node.get(node_of[claim_name], ())]
 
-            for i in misses:
-                removed = removed_sets[i]
-                if not valid[i]:
-                    # snapshot drift removed a member's node: reported
-                    # infeasible, never silently shrunk — verdicts must
-                    # stay aligned with the caller's sets
-                    verdicts[i] = SetVerdict(_DEAD, 0.0)
-                    continue
-                price = self._removed_price(lattice, removed)
-                problem = self._whatif_problem(
-                    removed, lattice, all_bins, bound_all, pvcs,
-                    storage_classes, ds, pools, node_of, pods_of)
-                why = self._vmap_ineligible(problem)
-                if why:
-                    # outside the envelope: the controller exact-verifies
-                    # on the host _what_if ladder under its budget —
-                    # flagged, counted, never silently dropped
-                    verdicts[i] = SetVerdict(_DEAD, price, host=True)
-                    n_fallback += 1
-                    continue
-                batch_problems.append(problem)
-                batch_idx.append(i)
-                batch_prices.append(price)
+                for i in misses:
+                    removed = removed_sets[i]
+                    if not valid[i]:
+                        # snapshot drift removed a member's node: reported
+                        # infeasible, never silently shrunk — verdicts must
+                        # stay aligned with the caller's sets
+                        verdicts[i] = SetVerdict(_DEAD, 0.0)
+                        continue
+                    price = self._removed_price(lattice, removed)
+                    problem = self._whatif_problem(
+                        removed, lattice, all_bins, bound_all, pvcs,
+                        storage_classes, ds, pools, node_of, pods_of)
+                    why = self._vmap_ineligible(problem)
+                    if why:
+                        # outside the envelope: the controller exact-verifies
+                        # on the host _what_if ladder under its budget —
+                        # flagged, counted, never silently dropped
+                        verdicts[i] = SetVerdict(_DEAD, price, host=True)
+                        n_fallback += 1
+                        continue
+                    batch_problems.append(problem)
+                    batch_idx.append(i)
+                    batch_prices.append(price)
 
         probed = (self.solver.probe_batch(batch_problems)
                   if batch_problems else [])

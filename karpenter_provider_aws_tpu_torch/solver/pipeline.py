@@ -14,7 +14,12 @@ The port of the JAX package's ``solver/pipeline.py`` for one device:
 
 - ``fetch_async`` starts the device→host copy of a result right after
   dispatch, into pinned host memory, so the host can run decode prep while
-  the card computes; ``PendingFetch.wait`` blocks on the copy's event.
+  the card computes; ``PendingFetch.wait`` blocks on the copy's event,
+  inside a ``fetch.wait`` trace span: the host blocked on the card.
+
+- ``DeviceTimer`` is the card's time for a pack: a pair of CUDA timing
+  events around its launches, read once the host has waited for the
+  result anyway, so timing adds no sync.
 
 - ``plan_changed`` is the microloop's changed-plan fingerprint: an exact
   on-device inequality reduction between two result buffers, one bool
@@ -105,9 +110,39 @@ class PendingFetch:
     def wait(self) -> np.ndarray:
         """Block until the copy has landed; the host bytes as numpy. The
         array keeps its own buffer alive: no later fetch reuses it."""
-        if self._event is not None:
-            self._event.synchronize()
-        return self._host.numpy()
+        with trace.span("fetch.wait"):
+            if self._event is not None:
+                self._event.synchronize()
+            return self._host.numpy()
+
+
+class DeviceTimer:
+    """The device time of the work launched between construction and
+    :meth:`stop`: on CUDA a pair of timing events on the device's current
+    stream, which :meth:`seconds` reads once the host has waited for a
+    later result of that stream (it raises before). On the CPU, where the
+    work runs in the call, the host clock between the two."""
+
+    __slots__ = ("_device", "_begin", "_end", "_t0", "_t1")
+
+    def __init__(self, device: torch.device):
+        self._device = device
+        self._begin = self._end = None
+        if device.type == "cuda":
+            self._begin = torch.cuda.Event(enable_timing=True)
+            self._begin.record(torch.cuda.current_stream(device))
+        self._t0 = self._t1 = time.perf_counter()
+
+    def stop(self) -> None:
+        if self._begin is not None:
+            self._end = torch.cuda.Event(enable_timing=True)
+            self._end.record(torch.cuda.current_stream(self._device))
+        self._t1 = time.perf_counter()
+
+    def seconds(self) -> float:
+        if self._end is not None:
+            return self._begin.elapsed_time(self._end) / 1e3
+        return self._t1 - self._t0
 
 
 def fetch_async(dev_buf: torch.Tensor) -> PendingFetch:

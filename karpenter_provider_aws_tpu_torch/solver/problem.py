@@ -33,6 +33,7 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .. import trace
 from ..apis import wellknown as wk
 from ..apis.objects import (IN_TREE_PROVISIONERS, WINDOWS_BUILD, NodePool,
                             Pod, pool_os, tolerates_all)
@@ -799,7 +800,7 @@ def build_problem(pods: Sequence[Pod], node_pools: Sequence[NodePool], lattice: 
                   storage_classes: Optional[Mapping] = None,
                   pool_headroom: Optional[Mapping[str, np.ndarray]] = None,
                   narrow: bool = True, explain: bool = False) -> Problem:
-    with _INTERN_LOCK:
+    with trace.span("problem.build"), _INTERN_LOCK:
         if len(_SIG_TUPLES) >= _INTERN_MAX:
             _RK_INTERN.clear()
             _SIG_IDS.clear()

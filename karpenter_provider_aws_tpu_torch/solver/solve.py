@@ -42,8 +42,13 @@ reference's in full: the host is the solve's own device there.
 ``solve_relaxed``, ``solve`` and ``solve_delta`` open the JAX package's
 trace spans (``solver.solve_relaxed``, ``solver.solve``,
 ``solver.solve_delta``, ``solver.wave``, ``solver.host_ffd`` and a
-``stage.*`` span per stage timer), and a problem built with
-``explain=True`` carries its constraint-elimination ledgers into the
+``stage.*`` span per stage timer); every device pack call is a span
+(``solver.pack``, ``solver.pack_micro``, ``solver.pack_probe``,
+``solver.pack_sharded``, ``solver.pack_merge``), and so are decode prep (``decode.prep``) and
+the batched probe's staging and wait (``probe.stage``, ``probe.wait``).
+Each dispatch counts the scan's steps (``scan.steps``, the bucketed group
+axis) and the real groups among them (``scan.groups``). A problem built
+with ``explain=True`` carries its constraint-elimination ledgers into the
 unplaced reasons.
 
 ``warmup`` runs the boot (G, B) bucket ladder once on the Solver's
@@ -51,8 +56,14 @@ device (optionally on a background thread) so that a process's first
 real solve does not pay the cold cost: the first launch of each of the
 scan's kernels (CUDA loads a kernel's module at its first use), the
 caching allocator's first pools and the kernel library's load. ``start_profiling`` / ``stop_profiling``
-wrap every pack call in a named ``torch.profiler`` span and write the
-trace as Chrome JSON.
+open a ``torch.profiler`` session, in which every trace span above is a
+range beside the kernels it launched, and write the trace as Chrome
+JSON.
+
+``NodePlan.device_seconds`` and ``ProbeResult.device_seconds`` are the
+card's time for the pack, from a pair of CUDA events around it that are
+read once the fetch has waited (solver/pipeline.py ``DeviceTimer``); on
+the CPU, the host clock around the pack call.
 
 ``probe_batch`` answers K consolidation what-ifs in one batched device
 pass (ops/binpack.py ``pack_probe_fused``) on the Solver's own device,
@@ -99,8 +110,8 @@ from ..ops import binpack
 from . import costmodel, taxonomy
 from .explain import unplaced_reason
 from .faults import FaultInjector
-from .pipeline import (ResidentInputCache, StageTimer, fetch_async,
-                       plan_changed)
+from .pipeline import (DeviceTimer, ResidentInputCache, StageTimer,
+                       fetch_async, plan_changed)
 from .problem import Problem
 
 _LOG = logging.getLogger(__name__)
@@ -252,6 +263,13 @@ def _bucket(n: int, buckets: Sequence[int], clamp: bool = False) -> int:
         # the kernel's overflow path marks what doesn't fit as leftover
         return buckets[-1]
     raise ValueError(f"problem size {n} exceeds the largest bucket {buckets[-1]}")
+
+
+def _count_scan(G: int, groups: int) -> None:
+    """A dispatch's scan on the tally: ``G`` steps issued (the bucketed
+    group axis) and ``groups`` real groups among them."""
+    trace.count("scan.steps", G)
+    trace.count("scan.groups", groups)
 
 
 def _grow_bucket(b: int) -> Tuple[int, bool]:
@@ -530,10 +548,7 @@ class Solver:
         self._serial = next(_SOLVER_SERIALS)
         # the last probe_batch dispatch: its buckets and raw [K,6] summary
         self.last_probe: Optional[Dict[str, object]] = None
-        # torch.profiler session (start_profiling): every pack call is a
-        # named span, numbered by _trace_step
-        self._tracing = False
-        self._trace_step = 0
+        # torch.profiler session (start_profiling)
         self._profiler = None
         self._profile_dir = ""
 
@@ -1213,7 +1228,6 @@ class Solver:
             # per-dispatch compute baseline: the cost model attributes
             # only the final dispatch's compute to the final (G, B) shape
             compute_ms0 = stages.ms.get("compute", 0.0)
-            td = time.perf_counter()
             try:
                 if use_efused:
                     if gbuf is None:
@@ -1230,12 +1244,14 @@ class Solver:
                         with stages.span("upload"):
                             init_dev = self._stage_upload(
                                 ("i", B, init_np.size), init_np, pipelined)
-                    with self._trace_span("solver.pack"), \
-                            stages.span("compute"):
+                    _count_scan(G, problem.G)
+                    with trace.span("solver.pack"), stages.span("compute"):
+                        clock = DeviceTimer(self.device)
                         dev_buf = binpack.pack_packed_efused(
                             self._alloc, avail, price, gbuf, init_dev,
                             problem.E, B, G, lat.T, lat.Z, lat.C, NP, A,
                             lean=True)
+                        clock.stop()
                         if not pipelined:
                             self._sync()
                 else:
@@ -1246,12 +1262,14 @@ class Solver:
                     with stages.span("upload"):
                         combined = self._upload(combined_np)
                         self._sync()
-                    with self._trace_span("solver.pack"), \
-                            stages.span("compute"):
+                    _count_scan(G, problem.G)
+                    with trace.span("solver.pack"), stages.span("compute"):
+                        clock = DeviceTimer(self.device)
                         dev_buf = binpack.pack_packed_combined(
                             self._alloc, avail, price, combined,
                             len(fused_np), problem.E, B,
                             G, lat.T, lat.Z, lat.C, NP, A, lean=True)
+                        clock.stop()
                         self._sync()
                 # start streaming the result the moment the pack finishes;
                 # the host fills the wait below
@@ -1279,7 +1297,7 @@ class Solver:
                 raise SolverDeviceError(
                     f"{type(e).__name__}: {e}", cause=e) from e
             self._account_link("fetch", buf.nbytes)
-            device_s = time.perf_counter() - td
+            device_s = clock.seconds()
             with stages.span("decode"):
                 dec = _unpack_decode_set(buf, G, lat.T, lat.Z, lat.C, A,
                                          lean=True)
@@ -1620,10 +1638,11 @@ class Solver:
 
     def _decode_prep(self, problem: Problem) -> Dict[str, object]:
         """Host decode inputs that do not depend on the device result."""
-        return {
-            "pool_out": [_pool_out(p) for p in problem.node_pools],
-            "existing_names": [b.name for b in problem.existing],
-        }
+        with trace.span("decode.prep"):
+            return {
+                "pool_out": [_pool_out(p) for p in problem.node_pools],
+                "existing_names": [b.name for b in problem.existing],
+            }
 
     def _decode(self, problem: Problem, dec: _DecodeSet, device_s: float,
                 prep: Optional[Dict[str, object]] = None) -> NodePlan:
@@ -1831,7 +1850,6 @@ class Solver:
         overlap_pending = overlap
         while True:
             compute_ms0 = stages.ms.get("compute", 0.0)
-            td = time.perf_counter()
             try:
                 init_dev = None
                 if problem.E:
@@ -1845,15 +1863,18 @@ class Solver:
                                     else self._stage_upload(key, init_np,
                                                             False))
                 self._maybe_inject_device_fault()
-                with self._trace_span("solver.pack_sharded"), \
+                _count_scan(G, problem.G)
+                with trace.span("solver.pack_sharded"), \
                         stages.span("compute"):
                     # the [D,G] split ships from the host here (the
                     # microloop derives it on the device instead)
                     self._account_link("upload", count_split.nbytes)
+                    clock = DeviceTimer(self.device)
                     sp = sharded_pack(mesh, alloc_r, avail, price, gbuf,
                                       init_dev, problem.E, count_split,
                                       B, G, lat.T, lat.Z, lat.C, NP, A,
                                       ranks=self._mesh_ranks(mesh))
+                    clock.stop()
                     if not pipelined:
                         self._sync()
                 # stream the stacked per-shard result out the moment the
@@ -1880,7 +1901,7 @@ class Solver:
                 raise SolverDeviceError(
                     f"{type(e).__name__}: {e}", cause=e) from e
             self._account_link("fetch", packed.nbytes)
-            device_s = time.perf_counter() - td
+            device_s = clock.seconds()
             with stages.span("decode"):
                 decs = _unpack_sharded(packed, G, lat.T, lat.Z, lat.C, A)
             leftover = np.stack([dec.leftover for dec in decs])     # [D,G]
@@ -2095,20 +2116,24 @@ class Solver:
                 seed_np = self._merge_seed_np(problem, decs, kept, B2,
                                               k_tm, k_zm, k_cm)
                 combined = np.concatenate([fused_np, seed_np])
-                td = time.perf_counter()
                 try:
                     comb_dev = self._upload(combined)
-                    buf = binpack.pack_packed_seeded(
-                        self._alloc, avail, price, comb_dev,
-                        int(fused_np.size), B2, G, lat.T, lat.Z, lat.C,
-                        max(problem.NP, 1), A, lean=True).cpu().numpy()
+                    _count_scan(G, problem.G)
+                    with trace.span("solver.pack_merge"):
+                        clock = DeviceTimer(self.device)
+                        out = binpack.pack_packed_seeded(
+                            self._alloc, avail, price, comb_dev,
+                            int(fused_np.size), B2, G, lat.T, lat.Z, lat.C,
+                            max(problem.NP, 1), A, lean=True)
+                        clock.stop()
+                    buf = out.cpu().numpy()
                 except (SolverError, KernelBuildError):
                     raise
                 except RuntimeError as e:
                     raise SolverDeviceError(
                         f"{type(e).__name__}: {e}", cause=e) from e
                 self._account_link("fetch", buf.nbytes)
-                device_s += time.perf_counter() - td
+                device_s += clock.seconds()
                 mdec = _unpack_decode_set(buf, G, lat.T, lat.Z, lat.C, A,
                                           lean=True)
                 overflowed = (mdec.leftover.sum() > 0) and mdec.next_open >= B2
@@ -2417,7 +2442,7 @@ class Solver:
                 comb_dev = self._resident.upload(key, combined_np,
                                                  sharding=repl, donate=True)
             self._maybe_inject_device_fault()
-            td = time.perf_counter()
+            _count_scan(G, problem.G)
             if sharded:
                 alloc_r, avail, price = self._mesh_inputs(problem, mesh)
                 gslice = comb_dev[:g_size]
@@ -2436,18 +2461,21 @@ class Solver:
                         key=(self._serial,) + tuple(rkey), combined=comb_dev,
                         g_size=g_size, before=before, after=after,
                         payload=payload, block=self._resident.block)
-                with self._trace_span("solver.pack_micro"), \
+                with trace.span("solver.pack_micro"), \
                         stages.span("compute"):
+                    clock = DeviceTimer(self.device)
                     csplit = device_split_counts(gslice, D, count_off, G)
                     sp_res = sharded_pack(
                         mesh, alloc_r, avail, price, gslice, islice,
                         problem.E, csplit, B, G, lat.T, lat.Z, lat.C, NP, A,
                         resident=resident, ranks=ranks)
+                    clock.stop()
                 new_dev = sp_res.packed
             else:
                 avail, price = self._device_avail_price(problem)
-                with self._trace_span("solver.pack_micro"), \
+                with trace.span("solver.pack_micro"), \
                         stages.span("compute"):
+                    clock = DeviceTimer(self.device)
                     if problem.E:
                         new_dev = binpack.pack_packed_combined(
                             self._alloc, avail, price, comb_dev, g_size,
@@ -2457,6 +2485,7 @@ class Solver:
                         new_dev = binpack.pack_packed_efused(
                             self._alloc, avail, price, comb_dev, None, 0, B,
                             G, lat.T, lat.Z, lat.C, NP, A, lean=True)
+                    clock.stop()
         except (SolverError, KernelBuildError):
             raise
         except RuntimeError as e:
@@ -2488,7 +2517,7 @@ class Solver:
         except RuntimeError as e:
             raise SolverDeviceError(f"{type(e).__name__}: {e}",
                                     cause=e) from e
-        device_s = time.perf_counter() - td
+        device_s = clock.seconds()
         if ms is None:
             ms = _MicroState(key=key)
         self._micro = ms
@@ -2751,10 +2780,12 @@ class Solver:
 
     def start_profiling(self, log_dir: str) -> None:
         """Open a ``torch.profiler`` session (CPU activity, and CUDA's on
-        the card); every device pack call is then a named span
-        (``solver.pack``, ``solver.pack_micro``, ``solver.pack_probe``,
-        ``solver.pack_sharded``) beside the kernels it launched.
-        :meth:`stop_profiling` writes the trace under ``log_dir``."""
+        the card); every trace span is then a range beside the kernels it
+        launched, the device pack calls among them (``solver.pack``,
+        ``solver.pack_micro``, ``solver.pack_probe``,
+        ``solver.pack_sharded``, ``solver.pack_merge``) and each step of
+        the scan (``pack.step``). :meth:`stop_profiling` writes the trace
+        under ``log_dir``."""
         from torch.profiler import ProfilerActivity, profile
         activities = [ProfilerActivity.CPU]
         if self.device.type == "cuda":
@@ -2763,14 +2794,12 @@ class Solver:
         self._profile_dir = log_dir
         self._profiler = profile(activities=activities)
         self._profiler.start()
-        self._tracing = True
 
     def stop_profiling(self) -> Optional[str]:
         """Close the session and write its Chrome trace where the
         reference's profiler puts a run, ``<log_dir>/plugins/profile/<run>/``
         (``<run>`` the stop time); returns the file's path (None when no
         session was open)."""
-        self._tracing = False
         prof, self._profiler = self._profiler, None
         if prof is None:
             return None
@@ -2782,14 +2811,6 @@ class Solver:
         path = os.path.join(run, f"solver-{os.getpid()}.pt.trace.json")
         prof.export_chrome_trace(path)
         return path
-
-    def _trace_span(self, name: str):
-        """A profiler span named ``name#<step>`` while profiling; nothing
-        otherwise."""
-        if not self._tracing:
-            return contextlib.nullcontext()
-        self._trace_step += 1
-        return torch.profiler.record_function(f"{name}#{self._trace_step}")
 
     # ---- batched what-if probes ----
 
@@ -2840,24 +2861,34 @@ class Solver:
         # pad K with repeats of problem 0 so the batch shapes stay bucketed
         Kp = _bucket(K, self._K_BUCKETS, clamp=True)
         idx = list(range(K)) + [0] * (Kp - K)
-        gbuf_np = [self._fused_inputs_np(problems[i], G, A, NP) for i in idx]
         with trace.span("solver.pack_probe", probes=K, groups=G) as sp:
+            # the host's staging (each probe's fused rows, their [K,·]
+            # stacks and uploads) and its wait for the [K,6] summary
+            with trace.span("probe.stage"):
+                gbuf_np = [self._fused_inputs_np(problems[i], G, A, NP)
+                           for i in idx]
             try:
-                avail, price = self._device_avail_price(problems[0])
-                gbufs = self._probe_stack(gbuf_np)
-                n_existing = torch.from_numpy(np.array(
-                    [problems[i].E for i in idx], np.int32)).to(self.device)
+                with trace.span("probe.stage"):
+                    avail, price = self._device_avail_price(problems[0])
+                    gbufs = self._probe_stack(gbuf_np)
+                    n_existing = torch.from_numpy(np.array(
+                        [problems[i].E for i in idx],
+                        np.int32)).to(self.device)
                 while True:
-                    ibufs = (self._probe_stack(
-                        [self._fused_init_np(problems[i], B, A) for i in idx])
-                        if any(p.E for p in problems) else None)
-                    td = time.perf_counter()
-                    with self._trace_span("solver.pack_probe"):
-                        summ = binpack.ProbeSummary(*binpack.pack_probe_fused(
-                            self._alloc, avail, price, gbufs, ibufs,
-                            n_existing, B, G, lat.T, lat.Z, lat.C, NP,
-                            A).cpu().numpy().T)
-                    device_s = time.perf_counter() - td
+                    with trace.span("probe.stage"):
+                        ibufs = (self._probe_stack(
+                            [self._fused_init_np(problems[i], B, A)
+                             for i in idx])
+                            if any(p.E for p in problems) else None)
+                    _count_scan(G, max(p.G for p in problems))
+                    clock = DeviceTimer(self.device)
+                    out = binpack.pack_probe_fused(
+                        self._alloc, avail, price, gbufs, ibufs, n_existing,
+                        B, G, lat.T, lat.Z, lat.C, NP, A)
+                    clock.stop()
+                    with trace.span("probe.wait"):
+                        summ = binpack.ProbeSummary(*out.cpu().numpy().T)
+                    device_s = clock.seconds()
                     if bool((summ.overflow[:K] > 0).any()):
                         B, grew = _grow_bucket(B)
                         if grew:

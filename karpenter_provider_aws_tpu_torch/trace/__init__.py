@@ -12,18 +12,23 @@ trace-event (Perfetto) export. Zero dependencies beyond the stdlib.
         ...
         sp.set(result="ok")
 
-Disabled (the default), every call site costs one attribute read and
-``span()`` returns a shared no-op singleton — no allocation.
+Disabled (the default), every call site costs a read of torch's profiler
+flag, and ``span()`` returns a shared no-op singleton — no allocation. While a ``torch.profiler`` session records, every span is also
+a ``record_function`` range of its name. Enabled, the tracer tallies
+spans and counters:
+
+    trace.count("scan.steps", 32)       # no-op while disabled
+    before = trace.totals()             # {"spans": {...}, "counters": {...}}
 """
 
 from .recorder import FlightRecorder, ImportedSpan
-from .span import (NOOP_SPAN, Span, Tracer, annotate, capture, current,
-                   disable, enable, enabled, format_traceparent, get_tracer,
-                   parse_traceparent, recorder, span)
+from .span import (NOOP_SPAN, Span, Tracer, annotate, capture, count,
+                   current, disable, enable, enabled, format_traceparent,
+                   get_tracer, parse_traceparent, recorder, span, totals)
 
 __all__ = [
     "FlightRecorder", "ImportedSpan", "NOOP_SPAN", "Span", "Tracer",
-    "annotate", "capture", "current", "disable", "enable", "enabled",
-    "format_traceparent", "get_tracer", "parse_traceparent", "recorder",
-    "span",
+    "annotate", "capture", "count", "current", "disable", "enable",
+    "enabled", "format_traceparent", "get_tracer", "parse_traceparent",
+    "recorder", "span", "totals",
 ]

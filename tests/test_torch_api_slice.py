@@ -222,7 +222,7 @@ def test_unported_flags_exit_before_serving(flags, env, monkeypatch,
         traces = list((tmp_path / "prof" / "plugins" / "profile").glob(
             "*/*.pt.trace.json"))
         assert len(traces) == 1 and traces[0].stat().st_size > 0
-        assert not op.solver._tracing
+        assert op.solver._profiler is None
     elif "--sidecar-address" in flags:
         assert [h["types"] for h in health] == [lat.T]
         assert type(op.solver).__name__ == "Solver"

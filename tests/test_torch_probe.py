@@ -195,18 +195,27 @@ class _PhysicalOps(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
+def _issued(event) -> bool:
+    """An aten event the code issued itself: no aten event above it, only
+    the program's trace ranges (``pack.step``) or nothing."""
+    parent = event.cpu_parent
+    while parent is not None and not parent.name.startswith("aten::"):
+        parent = parent.cpu_parent
+    return parent is None
+
+
 def _op_counts(fn):
-    """(aten ops the code issued, as the profiler's top-level events; ops
-    that reached dispatch below the batching layer) of one call. The
-    profiler's nested events are left out: they are the CPU reductions'
-    own decompositions, which change with the output's size and launch
-    nothing by themselves."""
+    """(aten ops the code issued, as the profiler's top-level events under
+    the program's trace ranges; ops that reached dispatch below the
+    batching layer) of one call. The profiler's nested events are left
+    out: they are the CPU reductions' own decompositions, which change
+    with the output's size and launch nothing by themselves."""
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         with _PhysicalOps() as phys:
             fn()
     top = collections.Counter(e.name for e in prof.events()
-                              if e.name.startswith("aten::") and e.cpu_parent is None)
+                              if e.name.startswith("aten::") and _issued(e))
     return top, phys.counts
 
 

@@ -17,8 +17,9 @@ package's Solver where a plan comes out.
   the warmup thread.
 - Profiling writes a Chrome trace under ``<dir>/plugins/profile/<run>/``
   naming the pack spans of the solves it saw (``solver.pack``,
-  ``solver.pack_micro``, ``solver.pack_probe``, ``solver.pack_sharded``);
-  with profiling off a span is a no-op.
+  ``solver.pack_micro``, ``solver.pack_probe``, ``solver.pack_sharded``),
+  tracing off, and every step of their scans (``pack.step``) inside one
+  of them or the mesh's merge pack (``solver.pack_merge``); with profiling and tracing off a span is the no-op span.
 
 Tolerance: none.
 """
@@ -34,7 +35,7 @@ from karpenter_provider_aws_tpu.apis import serde as j_serde
 from karpenter_provider_aws_tpu.lattice import build_lattice as j_build_lattice
 from karpenter_provider_aws_tpu.lattice.realdata import load_catalog as j_catalog
 from karpenter_provider_aws_tpu.solver import Solver as JaxSolver
-from karpenter_provider_aws_tpu_torch import workloads
+from karpenter_provider_aws_tpu_torch import trace, workloads
 from karpenter_provider_aws_tpu_torch.apis import serde as t_serde
 from karpenter_provider_aws_tpu_torch.ops import binpack
 from karpenter_provider_aws_tpu_torch.solver import Solver
@@ -152,10 +153,12 @@ def test_raising_callback_does_not_kill_the_thread(launches, monkeypatch):
     assert launches == [32, 32]          # the ladder ran to its end
 
 
-def _trace_names(path):
+def _trace_ranges(path):
+    """(name, start, end) of the host's ranges in a Chrome trace."""
     with open(path) as f:
         events = json.load(f)["traceEvents"]
-    return [e.get("name", "") for e in events]
+    return [(e["name"], e["ts"], e["ts"] + e["dur"]) for e in events
+            if e.get("cat") == "user_annotation"]
 
 
 def test_profiling_writes_a_trace_naming_the_spans(tmp_path):
@@ -163,7 +166,7 @@ def test_profiling_writes_a_trace_naming_the_spans(tmp_path):
     P = cases.mod(cases.TORCH_PKG, "solver.problem")
     parallel = cases.mod(cases.TORCH_PKG, "parallel")
     s = Solver(lat, device="cpu")
-    assert s._trace_span("solver.pack").__class__.__name__ == "nullcontext"
+    assert trace.span("solver.pack") is trace.NOOP_SPAN
     s.start_profiling(str(tmp_path))
     try:
         s.solve_relaxed(pods, pools)
@@ -173,13 +176,19 @@ def test_profiling_writes_a_trace_naming_the_spans(tmp_path):
         s.solve(problem, mesh=parallel.plan_mesh("2", device="cpu").mesh)
     finally:
         path = s.stop_profiling()
-    assert s.stop_profiling() is None and not s._tracing
+    assert s.stop_profiling() is None
+    assert trace.span("solver.pack") is trace.NOOP_SPAN
     runs = list((tmp_path / "plugins" / "profile").iterdir())
     assert len(runs) == 1 and path.startswith(str(runs[0]))
-    names = _trace_names(path)
-    for span in ("solver.pack", "solver.pack_micro", "solver.pack_probe",
-                 "solver.pack_sharded"):
-        assert any(n.startswith(span + "#") for n in names), span
-    steps = sorted(int(n.split("#")[1]) for n in names
-                   if n.startswith("solver.pack"))
-    assert steps == list(range(1, len(steps) + 1))
+    ranges = _trace_ranges(path)
+    names = {n for n, _, _ in ranges}
+    packs = ("solver.pack", "solver.pack_micro", "solver.pack_probe",
+             "solver.pack_sharded")
+    for span in packs:
+        assert span in names, span
+    assert not any("#" in n for n in names)
+    outer = [(a, b) for n, a, b in ranges
+             if n in packs + ("solver.pack_merge",)]
+    steps = [(a, b) for n, a, b in ranges if n == "pack.step"]
+    assert steps and all(any(a0 <= a and b <= b0 for a0, b0 in outer)
+                         for a, b in steps)
