@@ -11,7 +11,10 @@ staged inputs and of the result buffer, byte for byte.
   (x resources)]: per-bin per-type fit counts by floor division, offering
   reachability by a 0/1 matmul, first-fit assignment of the whole group by
   an exclusive cumsum over the bin axis, and new-node opening by index
-  arithmetic. ``pack`` runs it as a Python loop over the G bucket.
+  arithmetic. ``pack`` runs it as a Python loop over the real groups of
+  the G bucket: the padding rows past them are no-ops, so their steps are
+  not issued (the JAX package compiles one program per bucket and runs
+  them all; the bits are the same).
 - Every bin keeps the full set of instance types that can still hold its
   contents; the finalization picks the cheapest available (type, zone,
   capacity-type) offering per bin with the cheapest-offering kernel
@@ -287,23 +290,35 @@ def _pack_step(alloc: torch.Tensor, avail_f: torch.Tensor, pools: PoolParams,
 
 
 def _scan(alloc: torch.Tensor, avail_f: torch.Tensor, groups: GroupBatch,
-          pools: PoolParams, init: BinState
+          pools: PoolParams, init: BinState, n_groups: Optional[int] = None
           ) -> Tuple[BinState, torch.Tensor, torch.Tensor]:
-    """The grouped-FFD scan: ``_pack_step`` over the G groups in order,
-    each step a ``pack.step`` trace span. Returns the final bin table, the
-    [G,B] assignment and the [G] leftover. Plain tensor code only, so the
-    batched probe can vmap it."""
+    """The grouped-FFD scan: ``_pack_step`` over the first ``n_groups`` of
+    the G groups in order (all G when None), each step a ``pack.step``
+    trace span. Returns the final bin table, the [G,B] assignment and the
+    [G] leftover. Plain tensor code only, so the batched probe can vmap it.
+
+    The rows past ``n_groups`` must be padding (count 0): such a step
+    places nothing, opens no bin and leaves every mask as it was, so it is
+    not issued, and its assignment and leftover rows are zeros, the same
+    bits the step would give."""
+    G = groups.count.shape[0]
+    n = G if n_groups is None else n_groups
+    if not 0 <= n <= G:
+        raise ValueError(f"n_groups {n} outside the group bucket {G}")
     state = init
     assign, leftover = [], []
-    for gi in range(groups.count.shape[0]):
+    for gi in range(n):
         with trace.span("pack.step"):
             g = GroupBatch(*(f[gi] for f in groups))
             state, (a, lo) = _pack_step(alloc, avail_f, pools, state, g)
         assign.append(a)
         leftover.append(lo)
     dev = state.cum.device
+    B = state.cum.shape[0]
+    if n < G:
+        assign += [torch.zeros((B,), dtype=_I32, device=dev)] * (G - n)
+        leftover += [torch.zeros((), dtype=_I32, device=dev)] * (G - n)
     if not assign:
-        B = state.cum.shape[0]
         return (state, torch.zeros((0, B), dtype=_I32, device=dev),
                 torch.zeros((0,), dtype=_I32, device=dev))
     return state, torch.stack(assign), torch.stack(leftover)
@@ -331,7 +346,8 @@ def _finalize(state: BinState, avail: torch.Tensor, price: torch.Tensor
 
 
 def pack(alloc: torch.Tensor, avail: torch.Tensor, price: torch.Tensor,
-         groups: GroupBatch, pools: PoolParams, init: BinState) -> PackResult:
+         groups: GroupBatch, pools: PoolParams, init: BinState,
+         n_groups: Optional[int] = None) -> PackResult:
     """Run the grouped-FFD scan + cheapest-offering finalization.
 
     Shapes: G groups (padded), B bins (bucketed), T x Z x C lattice; every
@@ -339,8 +355,11 @@ def pack(alloc: torch.Tensor, avail: torch.Tensor, price: torch.Tensor,
     per-group leftover (infeasible / bucket overflow — the host retries
     with a bigger bucket), the final bin table, and each new bin's chosen
     offering. On CUDA the finalization always runs the CUDA kernel.
+    ``n_groups`` (a host int; None = all G) is the count of real groups
+    the scan issues steps for (``_scan``); the shapes stay the bucket's.
     """
-    state, assign, leftover = _scan(alloc, avail.to(_F32), groups, pools, init)
+    state, assign, leftover = _scan(alloc, avail.to(_F32), groups, pools, init,
+                                    n_groups)
     chosen_t, chosen_z, chosen_c, chosen_price = _finalize(state, avail, price)
     return PackResult(assign=assign, leftover=leftover, state=state,
                       chosen_t=chosen_t, chosen_z=chosen_z, chosen_c=chosen_c,
@@ -603,34 +622,39 @@ def pack_packed_efused(alloc: torch.Tensor, avail: torch.Tensor,
                        price: torch.Tensor, gbuf: torch.Tensor,
                        init_buf: Optional[torch.Tensor], n_existing: int,
                        B: int, G: int, T: int, Z: int, C: int, NP: int,
-                       A: int, lean: bool = False) -> torch.Tensor:
+                       A: int, lean: bool = False,
+                       n_groups: Optional[int] = None) -> torch.Tensor:
     """Fully-fused pack: ONE upload for groups+pools, ONE (optional) for
-    existing bins, ONE fused result buffer back."""
+    existing bins, ONE fused result buffer back. The scan issues steps for
+    the first ``n_groups`` groups only (None = all G; see ``_scan``)."""
     if lean and NP >= 2 ** 15:
         raise ValueError("lean layout needs NP < 2^15")
     R_ = alloc.shape[1]
     groups, pools = _unpack_inputs(gbuf, G, T, Z, C, NP, A, R_)
     init = _unpack_init(init_buf, n_existing, B, T, Z, C, A, R_,
                         device=alloc.device)
-    return _encode_decode_set(pack(alloc, avail, price, groups, pools, init),
-                              lean=lean)
+    return _encode_decode_set(pack(alloc, avail, price, groups, pools, init,
+                                   n_groups), lean=lean)
 
 
 def pack_packed_combined(alloc: torch.Tensor, avail: torch.Tensor,
                          price: torch.Tensor, buf: torch.Tensor, split: int,
                          n_existing: int,
                          B: int, G: int, T: int, Z: int, C: int, NP: int,
-                         A: int, lean: bool = False) -> torch.Tensor:
+                         A: int, lean: bool = False,
+                         n_groups: Optional[int] = None) -> torch.Tensor:
     """One-upload pack WITH existing bins: groups+pools AND the existing-bin
-    table ride ONE uint8 buffer (``buf[:split]`` / ``buf[split:]``)."""
+    table ride ONE uint8 buffer (``buf[:split]`` / ``buf[split:]``). The
+    scan issues steps for the first ``n_groups`` groups only (None = all
+    G; see ``_scan``)."""
     if lean and NP >= 2 ** 15:
         raise ValueError("lean layout needs NP < 2^15")
     R_ = alloc.shape[1]
     groups, pools = _unpack_inputs(buf[:split], G, T, Z, C, NP, A, R_)
     init = _unpack_init(buf[split:], n_existing, B, T, Z, C, A, R_,
                         device=alloc.device)
-    return _encode_decode_set(pack(alloc, avail, price, groups, pools, init),
-                              lean=lean)
+    return _encode_decode_set(pack(alloc, avail, price, groups, pools, init,
+                                   n_groups), lean=lean)
 
 
 def seed_layout(B: int, T: int, Z: int, C: int, R: int,
@@ -683,7 +707,8 @@ def pack_packed_seeded(alloc: torch.Tensor, avail: torch.Tensor,
     """One-upload pack over a SEEDED bin table: groups+pools AND the merge
     seed BinState ride ONE uint8 buffer (``buf[:split]`` / ``buf[split:]``
     per seed_layout). The tail-bin merge of every sharded solve goes
-    through here: one upload and one result fetch per merge."""
+    through here: one upload and one result fetch per merge. Its scan
+    issues every step of the G bucket."""
     if lean and NP >= 2 ** 15:
         raise ValueError("lean layout needs NP < 2^15")
     R_ = alloc.shape[1]
@@ -739,7 +764,7 @@ def pack_probe_fused(alloc: torch.Tensor, avail: torch.Tensor,
                      init_bufs: Optional[torch.Tensor],
                      n_existing: torch.Tensor,
                      B: int, G: int, T: int, Z: int, C: int, NP: int,
-                     A: int) -> torch.Tensor:
+                     A: int, n_groups: Optional[int] = None) -> torch.Tensor:
     """K consolidation what-ifs in ONE batched device pass over fused
     uploads; returns ONE [K,6] f32 buffer whose columns are
     ``ProbeSummary._fields``: leftover, n_new, new_cost, cap_c, flex,
@@ -753,7 +778,10 @@ def pack_probe_fused(alloc: torch.Tensor, avail: torch.Tensor,
     one launch per op whatever K is); the finalization is not: the K
     probes' B bins are flattened into ONE call of the cheapest-offering
     kernel over K·B rows against the shared price panel, which is the
-    TPU kernel under ``jax.vmap``."""
+    TPU kernel under ``jax.vmap``. The scan issues steps for the first
+    ``n_groups`` groups only (None = all G): the most real groups of any
+    probe, since a probe with fewer meets zero-count rows, which are
+    no-ops (``_scan``)."""
     R_ = alloc.shape[1]
     avail_f = avail.to(_F32)
     groups, pools = _unpack_inputs(gbufs, G, T, Z, C, NP, A, R_)
@@ -765,7 +793,7 @@ def pack_probe_fused(alloc: torch.Tensor, avail: torch.Tensor,
         init = _unpack_init(init_bufs, n_existing, B, T, Z, C, A, R_,
                             device=alloc.device)
     scan = torch.func.vmap(
-        lambda g, p, s: _scan(alloc, avail_f, g, p, s))
+        lambda g, p, s: _scan(alloc, avail_f, g, p, s, n_groups))
     state, _assign, leftover = scan(groups, pools, init)
     _t, _z, chosen_c, chosen_price = _finalize(state, avail, price)
     s = _probe_summary(avail_f, state, leftover, chosen_c, chosen_price)
@@ -903,7 +931,8 @@ def pack_analysis(G: int, B: int, T: int, Z: int, C: int, NP: int, A: int,
     runs on a card or on the host, and the cheapest-offering kernel is not
     launched (its call counts ``offering_argmin.call_bytes`` and a compare
     per (bin, type, cell)). The pack is static-shaped, so the figures
-    depend on the shape alone; they count all G scan steps, so they grow
+    depend on the shape alone; they count all G scan steps, the shape's
+    worst case (a pack of fewer real groups issues fewer), so they grow
     in proportion to G. The peak is the arguments plus the high-water mark
     of what the pack allocated."""
     from . import offering_argmin

@@ -17,7 +17,9 @@ bytes and float32 cost):
    split and the [D] existing-bin count differ per shard.
 2. **One scan for all shards.** ``torch.func.vmap`` of the grouped-FFD
    scan (ops/binpack.py ``_scan``) over the D shards, one launch per op
-   whatever D is; then ONE call of the cheapest-offering kernel over the
+   whatever D is, over every step of the G bucket (the single-device
+   packs stop at the last real group; the sharded one keeps the bucket);
+   then ONE call of the cheapest-offering kernel over the
    D·B bins of all shards (ops/binpack.py ``_finalize`` flattens leading
    axes). Existing bins live on shard 0 only: every shard unpacks the
    same init buffer, with its existing-bin count zeroed off shard 0, so

@@ -26,7 +26,10 @@ reference records a compiled executable's: by ``Solver.capture_cost_model``
 and by the ahead-of-time warmup (``Solver.warmup(aot=True)``, which on the
 card takes the peak from the allocator over the shape's run). Unlike the
 reference's lowering, which counts the scan body once, the analysis
-counts every one of the G scan steps, so its figures grow with G.
+counts every one of the G scan steps, so its figures grow with G: the
+shape's worst case. A solve issues steps for its real groups only
+(ops/binpack.py ``_scan``), so it does at most that work, and a shape's
+modeled floor is set by the solve with the fewest real groups.
 
 Everything is bounded (one entry per shape — the bucket ladder is
 finite by construction) and off the hot path: ``observe_solve`` is a

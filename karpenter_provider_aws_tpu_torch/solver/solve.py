@@ -46,8 +46,11 @@ trace spans (``solver.solve_relaxed``, ``solver.solve``,
 (``solver.pack``, ``solver.pack_micro``, ``solver.pack_probe``,
 ``solver.pack_sharded``, ``solver.pack_merge``), and so are decode prep (``decode.prep``) and
 the batched probe's staging and wait (``probe.stage``, ``probe.wait``).
-Each dispatch counts the scan's steps (``scan.steps``, the bucketed group
-axis) and the real groups among them (``scan.groups``). A problem built
+Each dispatch counts the scan's steps issued (``scan.steps``), the real
+groups among them (``scan.groups``) and the steps of the bucketed group
+axis not issued (``scan.skipped``): the single-device packs and the
+batched probe issue steps for the real groups alone, the sharded pack and
+the tail-bin merge for the whole bucket. A problem built
 with ``explain=True`` carries its constraint-elimination ledgers into the
 unplaced reasons.
 
@@ -265,11 +268,13 @@ def _bucket(n: int, buckets: Sequence[int], clamp: bool = False) -> int:
     raise ValueError(f"problem size {n} exceeds the largest bucket {buckets[-1]}")
 
 
-def _count_scan(G: int, groups: int) -> None:
-    """A dispatch's scan on the tally: ``G`` steps issued (the bucketed
-    group axis) and ``groups`` real groups among them."""
-    trace.count("scan.steps", G)
+def _count_scan(G: int, groups: int, steps: int) -> None:
+    """A dispatch's scan on the tally: ``steps`` steps issued of the ``G``
+    the bucketed group axis holds (``scan.skipped`` the rest), and
+    ``groups`` real groups among them."""
+    trace.count("scan.steps", steps)
     trace.count("scan.groups", groups)
+    trace.count("scan.skipped", G - steps)
 
 
 def _grow_bucket(b: int) -> Tuple[int, bool]:
@@ -1244,13 +1249,13 @@ class Solver:
                         with stages.span("upload"):
                             init_dev = self._stage_upload(
                                 ("i", B, init_np.size), init_np, pipelined)
-                    _count_scan(G, problem.G)
+                    _count_scan(G, problem.G, problem.G)
                     with trace.span("solver.pack"), stages.span("compute"):
                         clock = DeviceTimer(self.device)
                         dev_buf = binpack.pack_packed_efused(
                             self._alloc, avail, price, gbuf, init_dev,
                             problem.E, B, G, lat.T, lat.Z, lat.C, NP, A,
-                            lean=True)
+                            lean=True, n_groups=problem.G)
                         clock.stop()
                         if not pipelined:
                             self._sync()
@@ -1262,13 +1267,14 @@ class Solver:
                     with stages.span("upload"):
                         combined = self._upload(combined_np)
                         self._sync()
-                    _count_scan(G, problem.G)
+                    _count_scan(G, problem.G, problem.G)
                     with trace.span("solver.pack"), stages.span("compute"):
                         clock = DeviceTimer(self.device)
                         dev_buf = binpack.pack_packed_combined(
                             self._alloc, avail, price, combined,
                             len(fused_np), problem.E, B,
-                            G, lat.T, lat.Z, lat.C, NP, A, lean=True)
+                            G, lat.T, lat.Z, lat.C, NP, A, lean=True,
+                            n_groups=problem.G)
                         clock.stop()
                         self._sync()
                 # start streaming the result the moment the pack finishes;
@@ -1863,7 +1869,7 @@ class Solver:
                                     else self._stage_upload(key, init_np,
                                                             False))
                 self._maybe_inject_device_fault()
-                _count_scan(G, problem.G)
+                _count_scan(G, problem.G, G)
                 with trace.span("solver.pack_sharded"), \
                         stages.span("compute"):
                     # the [D,G] split ships from the host here (the
@@ -2118,7 +2124,7 @@ class Solver:
                 combined = np.concatenate([fused_np, seed_np])
                 try:
                     comb_dev = self._upload(combined)
-                    _count_scan(G, problem.G)
+                    _count_scan(G, problem.G, G)
                     with trace.span("solver.pack_merge"):
                         clock = DeviceTimer(self.device)
                         out = binpack.pack_packed_seeded(
@@ -2442,7 +2448,7 @@ class Solver:
                 comb_dev = self._resident.upload(key, combined_np,
                                                  sharding=repl, donate=True)
             self._maybe_inject_device_fault()
-            _count_scan(G, problem.G)
+            _count_scan(G, problem.G, G if sharded else problem.G)
             if sharded:
                 alloc_r, avail, price = self._mesh_inputs(problem, mesh)
                 gslice = comb_dev[:g_size]
@@ -2480,11 +2486,12 @@ class Solver:
                         new_dev = binpack.pack_packed_combined(
                             self._alloc, avail, price, comb_dev, g_size,
                             problem.E, B, G, lat.T, lat.Z, lat.C, NP, A,
-                            lean=True)
+                            lean=True, n_groups=problem.G)
                     else:
                         new_dev = binpack.pack_packed_efused(
                             self._alloc, avail, price, comb_dev, None, 0, B,
-                            G, lat.T, lat.Z, lat.C, NP, A, lean=True)
+                            G, lat.T, lat.Z, lat.C, NP, A, lean=True,
+                            n_groups=problem.G)
                     clock.stop()
         except (SolverError, KernelBuildError):
             raise
@@ -2850,7 +2857,8 @@ class Solver:
         if K > self._K_BUCKETS[-1]:
             raise ValueError(f"probe batch {K} exceeds {self._K_BUCKETS[-1]}")
         lat = self.lattice
-        G = _bucket(max(p.G for p in problems), _G_BUCKETS)
+        real_g = max(p.G for p in problems)
+        G = _bucket(real_g, _G_BUCKETS)
         A = max(max((p.A for p in problems), default=0), 1)
         NP = max(max((p.NP for p in problems), default=0), 1)
         b_needed = max(p.E + min(int(p.count.sum()),
@@ -2880,11 +2888,11 @@ class Solver:
                             [self._fused_init_np(problems[i], B, A)
                              for i in idx])
                             if any(p.E for p in problems) else None)
-                    _count_scan(G, max(p.G for p in problems))
+                    _count_scan(G, real_g, real_g)
                     clock = DeviceTimer(self.device)
                     out = binpack.pack_probe_fused(
                         self._alloc, avail, price, gbufs, ibufs, n_existing,
-                        B, G, lat.T, lat.Z, lat.C, NP, A)
+                        B, G, lat.T, lat.Z, lat.C, NP, A, n_groups=real_g)
                     clock.stop()
                     with trace.span("probe.wait"):
                         summ = binpack.ProbeSummary(*out.cpu().numpy().T)

@@ -13,6 +13,13 @@ Tolerance: the counts (leftover, n_new, cap_c, flex, overflow) are exact;
 ``new_cost`` is a float32 sum over bins whose order differs between XLA and
 PyTorch, so it is held within 1e-5 relative.
 
+The skip test holds the scan that issues steps for the real groups only
+(``n_groups``; the padding rows past them are zero-count no-ops) to the
+full-bucket scan and to the JAX package's, byte for byte, in the single
+packs' decode buffers and the probe's summary, at one real group in a
+bucket of 16, 31 in 32, none, and a probe batch of several counts; and
+counts the ``pack.step`` spans the scan issued.
+
 The op-count test guards the batching itself: if ``torch.func.vmap`` met an
 op without a batching rule it would loop over the probes and multiply the
 launches by K without any error. So a K=8 pack must run the same aten ops
@@ -37,10 +44,11 @@ from karpenter_provider_aws_tpu.ops import binpack as jb
 from karpenter_provider_aws_tpu.solver import Solver as JaxSolver
 from karpenter_provider_aws_tpu.solver.problem import build_problem as j_build
 from karpenter_provider_aws_tpu.solver.solve import _G_BUCKETS, _bucket
-from karpenter_provider_aws_tpu_torch import convert
+from karpenter_provider_aws_tpu_torch import convert, trace
 from karpenter_provider_aws_tpu_torch.errors import SolverDeviceError
 from karpenter_provider_aws_tpu_torch.ops import binpack as tb
 from karpenter_provider_aws_tpu_torch.solver import Solver as TorchSolver
+from karpenter_provider_aws_tpu_torch.trace.recorder import FlightRecorder
 
 import test_torch_cases as cases
 
@@ -112,14 +120,15 @@ def run_jax(problems, B):
     return np.asarray(out)
 
 
-def run_torch(problems, B):
+def run_torch(problems, B, n_groups=None):
     lat = jax_solver().lattice
     g, i, ne, G, A, NP = fused_batch(problems, B)
     with no_vmap_fallback():
         out = tb.pack_probe_fused(
             *convert.lattice_tensors(lat, CPU), torch.from_numpy(pad_rows(g)),
             None if i is None else torch.from_numpy(pad_rows(i)),
-            torch.from_numpy(ne), B, G, lat.T, lat.Z, lat.C, NP, A)
+            torch.from_numpy(ne), B, G, lat.T, lat.Z, lat.C, NP, A,
+            n_groups=n_groups)
     return out.numpy()
 
 
@@ -179,6 +188,106 @@ class TestPackProbeFused:
                     torch.from_numpy(ne[k: k + 1]), 512, G, lat.T, lat.Z,
                     lat.C, NP, A).numpy()
             np.testing.assert_array_equal(one[0], batch[k])
+
+
+def _one_shape():
+    """The ``existing`` case's nodes under its 40 pods of one shape, as a
+    consolidation what-if holds them: one real group."""
+    lat, pods, pools, kw = cases.build(cases.JAX_PKG, "existing")
+    return j_build([p for p in pods if p.name.startswith("p")], pools, lat,
+                   **kw)
+
+
+def _shapes(n):
+    """``n`` request shapes, two pods each, one pool: ``n`` real groups."""
+    lat = cases.small_lattice(cases.JAX_PKG)
+    A = cases.mod(cases.JAX_PKG, "apis")
+    pods = [A.Pod(name=f"s{k}-{r}", requests={"cpu": f"{100 * (k + 1)}m",
+                                               "memory": "512Mi"})
+            for k in range(n) for r in range(2)]
+    return j_build(pods, [A.NodePool(name="default")], lat)
+
+
+def _no_pods():
+    """The ``existing`` case's nodes and no pending pod: no real group."""
+    lat, _pods, pools, kw = cases.build(cases.JAX_PKG, "existing")
+    return j_build([], pools, lat, **kw)
+
+
+SKIP_CASES = {
+    # (problems, their real groups, the bucket G)
+    "g1_in_16": lambda: ([_one_shape()], (1,), 16),
+    "g31_in_32": lambda: ([_shapes(31)], (31,), 32),
+    "g0": lambda: ([_no_pods()], (0,), 16),
+    "probe_mixed_g": lambda: ([_one_shape(), cases.problem(cases.JAX_PKG,
+                                                           "generic"),
+                               _shapes(31), _no_pods()], (1, 4, 31, 0), 32),
+}
+
+
+def _pack_steps(fn):
+    """(``fn()``, the ``pack.step`` spans it recorded)."""
+    tr = trace.get_tracer()
+    saved = (tr.enabled, tr.recorder, tr.clock)
+    tr.enable(recorder=FlightRecorder())
+    try:
+        before = trace.totals()["spans"].get("pack.step", {"count": 0})
+        out = fn()
+        after = trace.totals()["spans"].get("pack.step", {"count": 0})
+    finally:
+        tr.enabled, tr.recorder, tr.clock = saved
+    return out, after["count"] - before["count"]
+
+
+@pytest.mark.parametrize("case", sorted(SKIP_CASES))
+def test_scan_skips_padding_steps_exactly(case):
+    """A scan that issues steps for the real groups alone gives the bytes
+    of the full-bucket scan and of the JAX package's pack: each problem's
+    lean and full decode buffers (efused, and combined with its bin
+    table) and the batch's [K,6] probe summary; and it records one
+    ``pack.step`` per real group (per real group of the batch's largest
+    problem for the vmapped probe)."""
+    problems, real, G_case = SKIP_CASES[case]()
+    assert tuple(p.G for p in problems) == real
+    s = jax_solver()
+    lat = s.lattice
+    lt = convert.lattice_tensors(lat, CPU)
+    for prob in problems:
+        G = _bucket(prob.G, _G_BUCKETS)
+        B = s._b_budget_single(prob, G)[1]
+        NP, A = max(prob.NP, 1), max(prob.A, 1)
+        gbuf = s._fused_inputs_np(prob, G)
+        ibuf = s._fused_init_np(prob, B)
+        combined = np.concatenate([gbuf, ibuf])
+        for lean in (True, False):
+            jout = np.asarray(jb.pack_packed_efused(
+                s._alloc, s._avail, s._price, jnp.asarray(gbuf),
+                jnp.asarray(ibuf), prob.E, B, G, lat.T, lat.Z, lat.C, NP, A,
+                lean=lean))
+            jcomb = np.asarray(jb.pack_packed_combined(
+                s._alloc, s._avail, s._price, jnp.asarray(combined),
+                len(gbuf), prob.E, B, G, lat.T, lat.Z, lat.C, NP, A,
+                lean=lean))
+            for n in (None, prob.G):
+                eff, steps = _pack_steps(lambda n=n: tb.pack_packed_efused(
+                    *lt, convert.fused_buffer(gbuf, CPU),
+                    convert.fused_buffer(ibuf, CPU), prob.E, B, G, lat.T,
+                    lat.Z, lat.C, NP, A, lean=lean, n_groups=n))
+                assert steps == (G if n is None else prob.G)
+                np.testing.assert_array_equal(eff.numpy(), jout)
+                comb, steps = _pack_steps(lambda n=n: tb.pack_packed_combined(
+                    *lt, convert.fused_buffer(combined, CPU), len(gbuf),
+                    prob.E, B, G, lat.T, lat.Z, lat.C, NP, A, lean=lean,
+                    n_groups=n))
+                assert steps == (G if n is None else prob.G)
+                np.testing.assert_array_equal(comb.numpy(), jcomb)
+    assert fused_batch(problems, 512)[3] == G_case
+    full, steps = _pack_steps(lambda: run_torch(problems, 512))
+    assert steps == G_case
+    skip, steps = _pack_steps(lambda: run_torch(problems, 512, max(real)))
+    assert steps == max(real)
+    np.testing.assert_array_equal(skip, full)
+    np.testing.assert_array_equal(skip, run_jax(problems, 512))
 
 
 class _PhysicalOps(TorchDispatchMode):

@@ -11,9 +11,10 @@ the CPU.
   name in the Chrome trace, with tracing off or on, ``pack.step`` inside
   ``torch.func.vmap`` among them; the pack's analysis reads the same
   figures under a session as without one.
-- A small CPU solve records one ``pack.step`` per step of the bucketed
-  group axis, ``scan.steps`` and ``scan.groups`` as the bucket and the real
-  groups, one ``solver.pack`` and one ``decode.prep``; a batched probe
+- A small CPU solve records one ``pack.step`` per real group (the
+  bucket's padding steps are not issued), ``scan.steps`` and
+  ``scan.groups`` as the real groups and ``scan.skipped`` as the rest of
+  the bucket, one ``solver.pack`` and one ``decode.prep``; a batched probe
   records ``probe.stage`` and ``probe.wait`` under ``solver.pack_probe``.
 - ``ConsolidationEngine.probe`` on a small fleet records
   ``engine.whatif_build`` with one ``problem.build`` under it per set.
@@ -196,8 +197,9 @@ def test_solve_records_scan_steps_and_decode_prep(tracing):
     plan = s.solve(problem)
     spans, counters = _diff(before, trace.totals())
     assert plan.solver_path == "device"
-    assert counters == {"scan.steps": G, "scan.groups": problem.G}
-    assert spans["pack.step"]["count"] == G
+    assert counters == {"scan.steps": problem.G, "scan.groups": problem.G,
+                        "scan.skipped": G - problem.G}
+    assert spans["pack.step"]["count"] == problem.G
     assert spans["pack.step"]["under"].keys() == {"stage.compute"}
     assert spans["solver.pack"]["count"] == 1
     assert spans["decode.prep"]["count"] == 1
@@ -208,13 +210,14 @@ def test_solve_records_scan_steps_and_decode_prep(tracing):
     before = trace.totals()
     s.probe_batch([problem, problem, problem])
     spans, counters = _diff(before, trace.totals())
-    assert counters == {"scan.steps": G, "scan.groups": problem.G}
+    assert counters == {"scan.steps": problem.G, "scan.groups": problem.G,
+                        "scan.skipped": G - problem.G}
     assert spans["solver.pack_probe"]["count"] == 1
     assert spans["probe.wait"]["count"] == 1
     assert spans["probe.stage"]["count"] >= 2
     for name in ("probe.stage", "probe.wait"):
         assert spans[name]["under"].keys() == {"solver.pack_probe"}
-    assert spans["pack.step"]["count"] == G      # once, vmapped over K
+    assert spans["pack.step"]["count"] == problem.G  # once, vmapped over K
 
 
 def test_engine_probe_records_whatif_build(tracing):
