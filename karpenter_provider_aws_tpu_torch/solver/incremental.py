@@ -44,6 +44,7 @@ from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .. import trace
 from ..apis.objects import NodePool, Pod
 from ..lattice.tensors import Lattice
 from .problem import (Problem, _BIG, build_problem, recheck_narrow,
@@ -157,7 +158,23 @@ class IncrementalProblemBuilder:
         (resolved only when actually needed). ``dirty`` is a
         state/cluster.py DirtySet; ``touched`` maps each dirty pod name
         to its (state, pod) classification (ClusterState.touched_pods).
+
+        Traced as the span ``incremental.build``, with the attributes
+        ``incremental`` (the delta path served it), ``dirty_groups`` (how
+        many groups it patched) and ``reason`` (why a full build ran;
+        empty for a delta).
         """
+        with trace.span("incremental.build") as sp:
+            res = self._build(pods, node_pools, lattice, existing,
+                              daemonset_pods, bound_pods, pvcs,
+                              storage_classes, pool_headroom, dirty, touched)
+            sp.set(incremental=res.incremental,
+                   dirty_groups=len(res.dirty_groups), reason=res.reason)
+        return res
+
+    def _build(self, pods, node_pools, lattice, existing, daemonset_pods,
+               bound_pods, pvcs, storage_classes, pool_headroom, dirty,
+               touched) -> BuildResult:
         ticks = dirty.ticks if dirty is not None else 1
         reason = self._delta_blocker(pods, node_pools, lattice,
                                      pool_headroom, dirty, touched)
